@@ -1,0 +1,100 @@
+"""Weight interchange: the flat npz layout <-> ``UNet`` modules.
+
+The interchange format is the JAX package's (``sequitr_tpu.models.convert``):
+a flat dict of numpy arrays keyed by the parameter path joined with '/'
+(``enc/0/conv1/w``, ``dec/1/bn2/scale``, ``up/0/w``, ``head/b``), conv
+kernels in HWIO (``(kh, kw, c_in, c_out)``, the transposed conv's too), and
+batch-norm running statistics under a ``state/`` prefix
+(``state/enc/0/bn1/mean``). It is what ``flatten_params`` gives, what the
+committed fixtures store and what ``python -m sequitr_tpu export-model``
+writes.
+
+The path names are the ``UNet`` module's own state-dict names with '/' for
+'.'; only the kernels change layout: a conv's HWIO kernel becomes torch's
+(c_out, c_in, kh, kw), the transposed conv's becomes (c_in, c_out, kh, kw)
+with no spatial flip (``sequitr_tpu/models/torch_reference.py`` documents
+both maps).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from sequitr_tpu_torch.models.unet import UNet, UNetConfig
+from sequitr_tpu_torch.utils import resolve_device
+
+__all__ = ["load_flat", "to_flat"]
+
+_STATE = "state/"
+_BUFFERS = ("mean", "var")
+
+# HWIO -> torch layout, per kernel kind
+_CONV_AXES = (3, 2, 0, 1)  # (kh, kw, ci, co) -> (co, ci, kh, kw)
+_CONVT_AXES = (2, 3, 0, 1)  # (kh, kw, ci, co) -> (ci, co, kh, kw)
+
+
+def _flat_key(sd_key: str) -> str:
+    key = sd_key.replace(".", "/")
+    return _STATE + key if key.rsplit("/", 1)[-1] in _BUFFERS else key
+
+
+def _axes(model: UNet, sd_key: str, ndim: int):
+    if ndim != 4 or not sd_key.endswith(".w"):
+        return None
+    conv = model.get_submodule(sd_key[: -len(".w")])
+    return _CONVT_AXES if conv.transpose else _CONV_AXES
+
+
+def _inverse(axes):
+    return tuple(int(i) for i in np.argsort(axes))
+
+
+def load_flat(
+    cfg: UNetConfig,
+    flat: Mapping[str, np.ndarray],
+    device: Union[str, torch.device, None] = None,
+) -> UNet:
+    """Build the ``UNet`` of ``cfg`` from the flat interchange dict.
+
+    Every parameter and buffer must be present with its shape (float16
+    storage is read as f32); raises ValueError listing what is missing or
+    mismatched. Extra keys are ignored, as ``unflatten_like`` does.
+    """
+    model = UNet(cfg, device="cpu")
+    sd = model.state_dict()
+    new_sd: Dict[str, torch.Tensor] = {}
+    problems = []
+    for key, ref in sd.items():
+        name = _flat_key(key)
+        if name not in flat:
+            problems.append(f"missing: {name}")
+            continue
+        arr = np.asarray(flat[name], dtype=np.float32)
+        axes = _axes(model, key, arr.ndim)
+        if axes is not None:
+            arr = np.transpose(arr, axes)
+        if tuple(arr.shape) != tuple(ref.shape):
+            problems.append(
+                f"shape mismatch at {name}: got {np.asarray(flat[name]).shape}"
+            )
+            continue
+        new_sd[key] = torch.tensor(arr)
+    if problems:
+        raise ValueError("weight conversion failed:\n  " + "\n  ".join(problems))
+    model.load_state_dict(new_sd)
+    return model.to(resolve_device(device))
+
+
+def to_flat(model: UNet) -> Dict[str, np.ndarray]:
+    """The inverse of ``load_flat``: {flat/path: f32 numpy array}."""
+    flat = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        axes = _axes(model, key, arr.ndim)
+        if axes is not None:
+            arr = np.transpose(arr, _inverse(axes))
+        flat[_flat_key(key)] = np.ascontiguousarray(arr)
+    return flat

@@ -1,0 +1,265 @@
+"""2D U-Net for cell segmentation (port of ``sequitr_tpu.models.unet``).
+
+Same topology and numerics as the JAX package: two SAME 3x3 convs (+ eval
+batch norm) + ReLU per level, 2x2 VALID max-pool down, a kernel-2 stride-2
+transposed conv up, concat in ``[skip, up]`` order, a 1x1 head, and the
+optional space-to-depth wrapper.
+
+Numerics follow ``unet.py``'s rounding points: inputs and weights are cast
+to ``cfg.compute_dtype``, the conv emits that dtype (cuDNN accumulates in
+f32), and the bias is added after the upcast to f32; batch norm, ReLU,
+max-pool and the concat run in f32.
+
+Layout: ``UNet.forward`` takes and returns NHWC like ``unet.apply``; inside,
+the NHWC tensor is viewed as NCHW with channels_last strides (no copy),
+the layout cuDNN prefers. Weights live in torch layouts: convs
+(c_out, c_in, kh, kw), the transposed conv (c_in, c_out, kh, kw) — the
+stored HWIO kernel transposed with no spatial flip (``models.convert``).
+
+``dims=3`` is not ported yet (a later slice of the port).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from sequitr_tpu_torch.utils import resolve_device
+
+__all__ = ["UNetConfig", "UNet", "fold_batchnorm"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        for name, dt in _DTYPES.items():
+            if dt == dtype:
+                return name
+    name = str(getattr(dtype, "name", dtype))
+    if name not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
+    return name
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """U-Net architecture configuration (``sequitr_tpu.models.unet.UNetConfig``).
+
+    ``compute_dtype`` is stored as its name, ``"bfloat16"`` or ``"float32"``
+    (the strings model ``config.json`` files carry); a ``torch.dtype`` is
+    accepted and converted.
+    """
+
+    in_channels: int = 1
+    num_classes: int = 3
+    depth: int = 4  # encoder levels incl. bottleneck (depth-1 poolings)
+    base_features: int = 32
+    features_cap: int = 512
+    dims: int = 2
+    norm: str = "batch"  # "batch" | "none"
+    upsample: str = "transpose"  # "transpose" | "resize"
+    compute_dtype: str = "bfloat16"
+    bn_momentum: float = 0.9
+    bn_eps: float = 1e-5
+    # space-to-depth factor (2D only): the net runs at (H/s, W/s) with
+    # s^2 x input channels and an s^2 x num_classes head rearranged back
+    space_to_depth: int = 1
+
+    def __post_init__(self):
+        object.__setattr__(self, "compute_dtype", _dtype_name(self.compute_dtype))
+
+    def features(self, level: int) -> int:
+        return min(self.base_features * (2**level), self.features_cap)
+
+    @property
+    def min_input_multiple(self) -> int:
+        """Spatial size must be divisible by this (pool factor x s2d)."""
+        return self.space_to_depth * 2 ** (self.depth - 1)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+class _Conv(nn.Module):
+    """Conv weights in torch layout plus a bias (``w``/``b``, as the flat keys)."""
+
+    def __init__(self, k: int, c_in: int, c_out: int, transpose: bool, device):
+        super().__init__()
+        shape = (c_in, c_out, k, k) if transpose else (c_out, c_in, k, k)
+        self.transpose = transpose
+        # channels_last weights make cuDNN keep activations NHWC end to end
+        # (an NCHW weight leads it to transpose every input and output)
+        w = torch.zeros(shape, device=device).to(memory_format=torch.channels_last)
+        self.w = nn.Parameter(w, requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(c_out, device=device), requires_grad=False)
+
+
+class _BatchNorm(nn.Module):
+    """Inference-mode batch norm: learned scale/bias, running mean/var buffers."""
+
+    def __init__(self, c: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c, device=device), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(c, device=device))
+        self.register_buffer("var", torch.ones(c, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        def ch(t):
+            return t.view(1, -1, 1, 1)
+
+        inv = torch.rsqrt(self.var + eps)
+        return (x.to(torch.float32) - ch(self.mean)) * ch(inv) * ch(self.scale) + ch(self.bias)
+
+
+class _Block(nn.Module):
+    """conv -> norm -> relu, twice."""
+
+    def __init__(self, c_in: int, c_out: int, norm: str, device):
+        super().__init__()
+        self.conv1 = _Conv(3, c_in, c_out, False, device)
+        self.conv2 = _Conv(3, c_out, c_out, False, device)
+        if norm == "batch":
+            self.bn1 = _BatchNorm(c_out, device)
+            self.bn2 = _BatchNorm(c_out, device)
+
+
+def _space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, C, H, W) -> (N, s*s*C, H/s, W/s), channel index (sy*s + sx)*C + c
+    — the channel order of the JAX package's NHWC ``_space_to_depth``."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // s, s, w // s, s)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(n, s * s * c, h // s, w // s)
+
+
+def _depth_to_space(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, s*s*C, h, w) -> (N, C, h*s, w*s) — inverse of ``_space_to_depth``."""
+    n, cs, h, w = x.shape
+    c = cs // (s * s)
+    x = x.reshape(n, s, s, c, h, w)
+    return x.permute(0, 3, 4, 1, 5, 2).reshape(n, c, h * s, w * s)
+
+
+class UNet(nn.Module):
+    """The U-Net of ``cfg`` (2D). ``forward``: (N, H, W, C_in) -> f32 logits
+    (N, H, W, num_classes); H and W divisible by ``cfg.min_input_multiple``.
+
+    Parameters start at zero; ``models.convert.load_flat`` loads trained
+    ones.
+    """
+
+    def __init__(self, cfg: UNetConfig, device: Union[str, torch.device, None] = None):
+        super().__init__()
+        if cfg.dims != 2:
+            raise NotImplementedError(
+                f"dims={cfg.dims}: only the 2D U-Net is ported so far; 3D "
+                "serving is a later slice of the port"
+            )
+        if cfg.upsample not in ("transpose", "resize"):
+            raise ValueError(f"unknown upsample {cfg.upsample!r}")
+        device = resolve_device(device)
+        self.cfg = cfg
+        s2d = cfg.space_to_depth
+        self.enc = nn.ModuleList()
+        self.dec = nn.ModuleList()
+        self.up = nn.ModuleList()
+        c_prev = cfg.in_channels * s2d * s2d
+        for lvl in range(cfg.depth):
+            c = cfg.features(lvl)
+            self.enc.append(_Block(c_prev, c, cfg.norm, device))
+            c_prev = c
+        for lvl in reversed(range(cfg.depth - 1)):
+            c_skip = cfg.features(lvl)
+            if cfg.upsample == "transpose":
+                self.up.append(_Conv(2, c_prev, c_skip, True, device))
+            else:
+                self.up.append(_Conv(1, c_prev, c_skip, False, device))
+            self.dec.append(_Block(c_skip * 2, c_skip, cfg.norm, device))
+            c_prev = c_skip
+        self.head = _Conv(1, c_prev, cfg.num_classes * s2d * s2d, False, device)
+
+    def _conv(self, x: torch.Tensor, p: _Conv) -> torch.Tensor:
+        dt = self.cfg.torch_dtype
+        w = p.w.to(dt)
+        if p.transpose:
+            y = F.conv_transpose2d(x.to(dt), w, stride=2)
+        else:
+            y = F.conv2d(x.to(dt), w, padding=w.shape[-1] // 2)
+        return y.to(torch.float32) + p.b.view(1, -1, 1, 1)
+
+    def _block(self, x: torch.Tensor, blk: _Block) -> torch.Tensor:
+        for i in (1, 2):
+            x = self._conv(x, getattr(blk, f"conv{i}"))
+            if self.cfg.norm == "batch":
+                x = getattr(blk, f"bn{i}")(x, self.cfg.bn_eps)
+            x = torch.relu(x)
+        return x
+
+    def _upsample(self, x: torch.Tensor, p: _Conv) -> torch.Tensor:
+        if self.cfg.upsample == "transpose":
+            return self._conv(x, p)
+        # nearest 2x resize (index i -> i // 2, as jax.image.resize) + 1x1 conv
+        return self._conv(F.interpolate(x.to(torch.float32), scale_factor=2), p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        for d in x.shape[1:-1]:
+            if d % cfg.min_input_multiple:
+                raise ValueError(
+                    f"spatial dim {d} not divisible by {cfg.min_input_multiple}"
+                )
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view with channels_last strides
+        s2d = cfg.space_to_depth
+        if s2d > 1:
+            x = _space_to_depth(x, s2d)
+        skips = []
+        for lvl in range(cfg.depth):
+            if lvl > 0:
+                x = F.max_pool2d(x, 2)
+            x = self._block(x, self.enc[lvl])
+            if lvl < cfg.depth - 1:
+                skips.append(x)
+        for i, lvl in enumerate(reversed(range(cfg.depth - 1))):
+            skip = skips[lvl]
+            x = self._upsample(x, self.up[i])
+            x = torch.cat([skip, x.to(skip.dtype)], dim=1)
+            x = self._block(x, self.dec[i])
+        logits = self._conv(x, self.head)
+        if s2d > 1:
+            logits = _depth_to_space(logits, s2d)
+        return logits.permute(0, 2, 3, 1).to(torch.float32)
+
+
+def fold_batchnorm(model: UNet) -> UNet:
+    """Inference-mode batch norm folded into the preceding convs, in f32.
+
+    BN(conv(x; w, b)) == conv(x; w*g, (b-mean)*g + beta) with
+    g = scale / sqrt(var + eps) over the output channels. Returns an
+    equivalent ``norm='none'`` U-Net (the input model itself if it has no
+    batch norm). The JAX package refolds inside every call; the port folds
+    once, when a model is loaded.
+    """
+    cfg = model.cfg
+    if cfg.norm != "batch":
+        return model
+    device = next(model.parameters()).device
+    folded = UNet(dataclasses.replace(cfg, norm="none"), device=device)
+    with torch.no_grad():
+        for src_blocks, dst_blocks in ((model.enc, folded.enc), (model.dec, folded.dec)):
+            for src, dst in zip(src_blocks, dst_blocks):
+                for i in (1, 2):
+                    conv, bn = getattr(src, f"conv{i}"), getattr(src, f"bn{i}")
+                    g = bn.scale * torch.rsqrt(bn.var + cfg.bn_eps)
+                    out = getattr(dst, f"conv{i}")
+                    out.w.copy_(conv.w * g.view(-1, 1, 1, 1))
+                    out.b.copy_((conv.b - bn.mean) * g + bn.bias)
+        folded.up.load_state_dict(model.up.state_dict())
+        folded.head.load_state_dict(model.head.state_dict())
+    return folded
+

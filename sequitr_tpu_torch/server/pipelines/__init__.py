@@ -1,0 +1,7 @@
+"""Per-family pipeline modules.
+
+Importing a module registers its pipelines with the shared registry in
+``sequitr_tpu_torch.server.server``; ``server.py`` imports all of them at
+the bottom, so constructing an ``ImageServer`` always sees the full
+registry. Ported so far: ``segmentation`` (``segmentation_unet2d``).
+"""

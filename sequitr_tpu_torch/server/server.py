@@ -1,0 +1,724 @@
+"""The image server: watched-dir loop, pipeline registry, model store.
+
+Port of ``sequitr_tpu.server.server``, the part the 2D segmentation job
+needs. A single-process loop scans the jobs directory, atomically claims
+each job, dispatches to the registered pipeline and writes results plus a
+status marker into the job's output directory — the same filesystem
+contract, job JSON and outputs as the JAX server.
+
+Model store: ``models_dir/<name>/config.json`` (the architecture, with
+``__kind__``, the same file the JAX server writes) plus ``weights.npz`` in
+the flat interchange layout (``models.convert``) in place of the JAX
+server's orbax checkpoint. ``python -m sequitr_tpu export-model`` output
+imports with ``python -m sequitr_tpu_torch import-model``.
+
+Jobs run on ``config.device`` (default the CUDA card). Multi-card data or
+spatial parallelism and polyphase serving are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+import traceback
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from sequitr_tpu_torch.config import ServerConfiguration
+from sequitr_tpu_torch.server import jobs as jobs_lib
+from sequitr_tpu_torch.server.jobs import Job
+from sequitr_tpu_torch.utils import resolve_device
+
+log = logging.getLogger("sequitr_tpu_torch.server")
+
+__all__ = [
+    "PipelineRegistry", "ImageServer", "REGISTRY", "register", "JobTimeout",
+    "save_model", "load_model", "load_model_cached",
+]
+
+
+class JobTimeout(RuntimeError):
+    """A job exceeded the server's per-job wall-clock budget."""
+
+
+# process exit code for a deliberate post-timeout worker recycle
+EXIT_RECYCLE = 43
+
+
+class PipelineRegistry:
+    """(module, func) -> pipeline callable(job, config) registry.
+
+    Jobs name a module plus an optional sub-operation ``func``. Unknown
+    module or func is a deterministic JobError listing what exists.
+    """
+
+    def __init__(self):
+        self._pipelines: Dict[str, Dict[str, Callable]] = {}
+
+    def register(self, name: str, func: str = "run"):
+        def deco(fn):
+            self._pipelines.setdefault(name, {})[func] = fn
+            return fn
+
+        return deco
+
+    def get(self, name: str, func: str = "run") -> Callable:
+        if name not in self._pipelines:
+            raise jobs_lib.JobError(
+                f"unknown pipeline {name!r}; available: {sorted(self._pipelines)}"
+            )
+        funcs = self._pipelines[name]
+        if func not in funcs:
+            raise jobs_lib.JobError(
+                f"pipeline {name!r} has no func {func!r}; available: {sorted(funcs)}"
+            )
+        return funcs[func]
+
+    def names(self):
+        return sorted(self._pipelines)
+
+
+REGISTRY = PipelineRegistry()
+register = REGISTRY.register
+
+
+class ImageServer:
+    """Long-lived job server. Refuses to start on ``device="cuda"`` without
+    a CUDA card (pass ``device="cpu"`` in the configuration to serve on the
+    CPU)."""
+
+    def __init__(self, config: ServerConfiguration, registry: PipelineRegistry = REGISTRY):
+        self.config = config
+        self.registry = registry
+        self.device = resolve_device(config.device)
+        config.ensure_dirs()
+
+    def run_forever(self, early_drain=None) -> None:  # pragma: no cover - interactive loop
+        """Poll loop with graceful drain.
+
+        SIGUSR1 = drain: finish the job currently running, then exit 0
+        leaving the queue untouched. ``early_drain``: optional
+        ``{"drain": bool}`` populated by a boot-time handler, so a signal
+        that arrived while the process was still starting is not lost.
+        """
+        import signal
+
+        def _drain(signum, frame):
+            self._draining = True
+            log.info("drain requested: finishing the current job, then exiting")
+
+        self._draining = False
+        try:
+            signal.signal(signal.SIGUSR1, _drain)
+        except (ValueError, OSError, AttributeError):
+            pass  # non-main thread or platform without SIGUSR1
+        if early_drain and early_drain.get("drain"):
+            self._draining = True
+        log.info(
+            "server watching %s on %s (pipelines: %s)",
+            self.config.jobs_dir, self.device, self.registry.names(),
+        )
+        while not self._draining:
+            ran = self.poll_once()
+            if self._draining:
+                break
+            if not ran:
+                deadline = time.monotonic() + self.config.poll_interval
+                while not self._draining:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    time.sleep(min(left, 0.2))
+        log.info("drained: exiting cleanly")
+
+    def poll_once(self) -> bool:
+        """Claim and run at most one queued job. Returns True if one ran.
+
+        A job file that cannot be parsed (invalid JSON, missing ``module``)
+        is quarantined as ``<name>.rejected`` instead of crashing the loop.
+        """
+        if self.config.stale_claim_timeout:
+            jobs_lib.reclaim_stale_claims(
+                self.config.jobs_dir, self.config.stale_claim_timeout
+            )
+        for path in jobs_lib.scan_jobs(self.config.jobs_dir):
+            if getattr(self, "_draining", False):
+                return False
+            dep_state, dep_detail = jobs_lib.check_dependencies(path)
+            if dep_state == "wait":
+                continue
+            try:
+                job = jobs_lib.claim_job(path)
+            except (jobs_lib.JobError, ValueError) as e:
+                claimed = path[: -len(jobs_lib.JOB_SUFFIX)] + jobs_lib.CLAIMED_SUFFIX
+                rejected = path + ".rejected"
+                for cand in (claimed, path):
+                    if os.path.exists(cand):
+                        os.replace(cand, rejected)
+                        break
+                log.error("rejected malformed job %s: %s", path, e)
+                continue
+            if job is None:
+                continue
+            if dep_state == "fail":
+                started = time.time()
+                self._fail(job, started, f"job {job.id}: {dep_detail}")
+                self._ledger(job, "failed", started, 0)
+                continue
+            self._execute(job)
+            return True
+        return False
+
+    def _execute(self, job: Job) -> None:
+        started = time.time()
+        # track which params the pipeline actually reads so misspelled
+        # ones surface as warnings instead of silently running with defaults
+        job.params = jobs_lib.ParamTracker(job.params)
+        os.makedirs(job.output or ".", exist_ok=True)
+        try:
+            os.unlink(
+                os.path.join(
+                    job.output or os.path.dirname(job.path), "progress.json"
+                )
+            )
+        except OSError:
+            pass
+        jobs_lib.write_status(job, "running", started)
+        attempts = 0
+        while True:
+            attempts += 1
+            try:
+                pipeline = self.registry.get(job.module, job.func)
+                outputs = self._run_with_watchdog(pipeline, job) or {}
+                unread = job.params.unread_keys()
+                warnings = list(job.runtime_warnings) or None
+                if unread:
+                    warnings = (warnings or []) + [
+                        f"unknown param {k!r}: never read by "
+                        f"{job.module!r} (misspelled?)" for k in unread
+                    ]
+                    log.warning(
+                        "job %s: params never read by %s: %s",
+                        job.id, job.module, ", ".join(unread),
+                    )
+                jobs_lib.write_status(
+                    job, "complete", started, outputs=outputs,
+                    warnings=warnings,
+                )
+                if jobs_lib.owns_claim(job):
+                    try:
+                        os.unlink(job.path)
+                    except OSError:
+                        pass
+                    jobs_lib.clear_cancel(job)
+                else:
+                    log.warning(
+                        "job %s finished but its claim was reclaimed "
+                        "(heartbeat starved?); the job may run again", job.id,
+                    )
+                log.info("job %s complete in %.2fs", job.id, time.time() - started)
+                self._ledger(job, "complete", started, attempts)
+                return
+            except jobs_lib.JobCancelled as e:
+                jobs_lib.write_status(job, "cancelled", started, error=str(e))
+                if jobs_lib.owns_claim(job):
+                    try:
+                        os.unlink(job.path)
+                    except OSError:
+                        pass
+                    jobs_lib.clear_cancel(job)
+                log.info("job %s cancelled in %.2fs", job.id, time.time() - started)
+                self._ledger(job, "cancelled", started, attempts)
+                return
+            except Exception as e:
+                err = traceback.format_exc()
+                # deterministic failures (bad module/func/params/inputs) and
+                # watchdog timeouts never retry: re-running cannot succeed
+                final = (
+                    attempts > self.config.max_retries
+                    or isinstance(e, (jobs_lib.JobError, JobTimeout))
+                )
+                if final:
+                    self._fail(job, started, err)
+                    self._ledger(job, "failed", started, attempts)
+                    if isinstance(e, JobTimeout) and self._recycle_on_timeout():
+                        log.error(
+                            "job %s timed out; recycling worker (exit %d)",
+                            job.id, EXIT_RECYCLE,
+                        )
+                        os._exit(EXIT_RECYCLE)
+                    return
+                log.warning("job %s attempt %d failed, retrying", job.id, attempts)
+                time.sleep(self.config.retry_backoff * attempts)
+
+    def _ledger(self, job: Job, state: str, started: float, attempts: int) -> None:
+        """Append one JSONL row per finished job to ``log_dir/jobs.jsonl``."""
+        if not self.config.log_dir:
+            return
+        row = {
+            "id": job.id,
+            "module": job.module,
+            "func": job.func,
+            "state": state,
+            "elapsed_s": round(time.time() - started, 3),
+            "attempts": attempts,
+            "finished": time.time(),
+            "worker": os.environ.get("SEQUITR_WORKER_ID"),
+        }
+        try:
+            with open(
+                os.path.join(self.config.log_dir, "jobs.jsonl"), "a"
+            ) as f:
+                f.write(json.dumps(row) + "\n")
+        except OSError:
+            log.warning("could not append to the jobs ledger", exc_info=True)
+
+    def _recycle_on_timeout(self) -> bool:
+        cfg = self.config.recycle_on_timeout
+        if cfg is not None:
+            return bool(cfg)
+        return os.environ.get("SEQUITR_WORKER_ID") is not None
+
+    def _fail(self, job: Job, started: float, err: str) -> None:
+        jobs_lib.write_status(job, "failed", started, error=err)
+        if jobs_lib.owns_claim(job):
+            jobs_lib.clear_cancel(job)
+            try:
+                os.replace(job.path, job.path + ".failed")
+            except OSError:
+                pass
+        log.error("job %s failed:\n%s", job.id, err)
+
+    def _run_with_watchdog(self, pipeline, job: Job):
+        """Run the pipeline on a worker thread, bounded by
+        ``config.job_timeout`` wall seconds, heartbeating the claimed file's
+        mtime (the liveness signal stale-claim reclaim keys on)."""
+        timeout = self.config.job_timeout
+        import threading
+
+        result: list = []
+        error: list = []
+
+        def work():
+            try:
+                result.append(pipeline(job, self.config))
+            except BaseException as e:  # propagated below
+                error.append(e)
+
+        t = threading.Thread(target=work, daemon=True, name=f"job-{job.id}")
+        t.start()
+        hb = 5.0
+        if self.config.stale_claim_timeout:
+            hb = min(hb, self.config.stale_claim_timeout / 6.0)
+        deadline = time.monotonic() + timeout if timeout else None
+        while True:
+            wait = hb
+            if deadline is not None:
+                wait = min(hb, max(deadline - time.monotonic(), 0.0))
+            t.join(wait)
+            if not t.is_alive():
+                break
+            jobs_lib.heartbeat(job)
+            if deadline is not None and time.monotonic() >= deadline:
+                raise JobTimeout(
+                    f"job {job.id} exceeded job_timeout={timeout}s; "
+                    "abandoning worker thread and failing the job"
+                )
+        if error:
+            raise error[0]
+        return result[0]
+
+
+# ---------------------------------------------------------------------------
+# model store
+# ---------------------------------------------------------------------------
+
+_WEIGHTS = "weights.npz"
+
+
+def save_model(models_dir: str, name: str, kind: str, cfg, model) -> str:
+    """Persist a model (``config.json`` + ``weights.npz``) for server use."""
+    from sequitr_tpu_torch.models import convert as convert_lib
+
+    model_dir = os.path.join(models_dir, name)
+    os.makedirs(model_dir, exist_ok=True)
+    cfg_dict = dataclasses.asdict(cfg)
+    cfg_dict["__kind__"] = kind
+    np.savez(os.path.join(model_dir, _WEIGHTS), **convert_lib.to_flat(model))
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg_dict, f, indent=2)
+    return model_dir
+
+
+def load_model(models_dir: str, name: str, device=None):
+    """Load ``(kind, cfg, model)`` saved by ``save_model``.
+
+    ``cfg`` is the stored configuration; ``model`` has its batch norm folded
+    into the convs (once, here, in f32) and lives on ``device``.
+    """
+    from sequitr_tpu_torch.models import convert as convert_lib
+    from sequitr_tpu_torch.models import fixtures, unet
+
+    model_dir = os.path.join(models_dir, name)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg_dict = json.load(f)
+    kind = cfg_dict.pop("__kind__")
+    if kind not in fixtures.UNET_KINDS:
+        raise NotImplementedError(
+            f"model {name!r} is a {kind!r} model: only U-Net kinds are "
+            "ported so far (the GAN is a later slice of the port)"
+        )
+    known = {f.name for f in dataclasses.fields(unet.UNetConfig)}
+    unknown = sorted(set(cfg_dict) - known)
+    if unknown:
+        log.warning(
+            "model %s: ignoring unknown config fields %s "
+            "(saved by a newer version?)", name, unknown
+        )
+        cfg_dict = {k: v for k, v in cfg_dict.items() if k in known}
+    cfg = unet.UNetConfig(**cfg_dict)
+    with np.load(os.path.join(model_dir, _WEIGHTS)) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    model = convert_lib.load_flat(cfg, flat, device=device)
+    return kind, cfg, unet.fold_batchnorm(model)
+
+
+# (stamp, loaded) per (model dir, device): a warm server shares one loaded
+# copy across jobs; config.json + weights mtimes invalidate it
+_MODEL_CACHE: Dict[tuple, tuple] = {}
+_MODEL_CACHE_MAX = 8
+
+
+def _model_stamp(model_dir: str):
+    try:
+        cfg_ns = os.stat(os.path.join(model_dir, "config.json")).st_mtime_ns
+        w_ns = os.stat(os.path.join(model_dir, _WEIGHTS)).st_mtime_ns
+    except OSError:
+        return None
+    return (cfg_ns, w_ns)
+
+
+def load_model_cached(models_dir: str, name: str, device=None):
+    """``load_model`` with a cross-job cache (stale entries re-load)."""
+    device = resolve_device(device)
+    model_dir = os.path.abspath(os.path.join(models_dir, name))
+    key = (model_dir, str(device))
+    stamp = _model_stamp(model_dir)
+    entry = _MODEL_CACHE.get(key)
+    if entry is not None and stamp is not None and entry[0] == stamp:
+        return entry[1]
+    loaded = load_model(models_dir, name, device=device)
+    if stamp is not None:
+        if len(_MODEL_CACHE) >= _MODEL_CACHE_MAX:
+            _MODEL_CACHE.pop(next(iter(_MODEL_CACHE)))
+        _MODEL_CACHE[key] = (stamp, loaded)
+    return loaded
+
+
+def _require_model(job: Job, config: ServerConfiguration, expect_kind=None):
+    """Load the job's model on ``config.device``, raising deterministic
+    JobErrors for a missing param, an unregistered name or the wrong kind.
+    Returns ``(cfg, model)`` (``(kind, cfg, model)`` for
+    ``expect_kind=None``)."""
+    name = job.params.get("model")
+    if not name:
+        raise jobs_lib.JobError(f"job {job.id}: missing required param 'model'")
+    try:
+        kind, cfg, model = load_model_cached(
+            config.models_dir, name, device=config.device
+        )
+    except (FileNotFoundError, KeyError, NotImplementedError) as e:
+        raise jobs_lib.JobError(f"job {job.id}: model {name!r} not loadable: {e!r}")
+    if expect_kind is None:
+        return kind, cfg, model
+    if kind != expect_kind:
+        raise jobs_lib.JobError(
+            f"job {job.id}: model {name!r} is kind {kind!r}, expected {expect_kind!r}"
+        )
+    return cfg, model
+
+
+# ---------------------------------------------------------------------------
+# shared pipeline helpers
+# ---------------------------------------------------------------------------
+
+
+def _resolve_inputs(job: Job):
+    import glob as glob_lib
+
+    if not job.input:
+        raise jobs_lib.JobError(f"job {job.id}: no input paths")
+    for p in job.input:
+        if os.path.exists(p):
+            continue
+        # a glob pattern that matches at least one file is a valid entry
+        if any(ch in p for ch in "*?[") and glob_lib.glob(p):
+            continue
+        raise jobs_lib.JobError(f"job {job.id}: input not found: {p}")
+    return job.input
+
+
+def _normalized_entropy(probs: np.ndarray, n_classes: int) -> np.ndarray:
+    """-sum(p log p)/log(K) over the trailing class axis, float32 in [0,1]."""
+    p32 = probs.astype(np.float32, copy=False)
+    ent = -(p32 * np.log(np.maximum(p32, 1e-12))).sum(axis=-1) / np.log(
+        n_classes
+    )
+    return ent.astype(np.float32)
+
+
+def _out_compression(job: Job) -> str:
+    """'deflate' when the job sets ``compress_output`` (label maps shrink
+    ~50x); uncompressed by default."""
+    return "deflate" if job.params.get("compress_output") else "none"
+
+
+def _append_writer(path: str, est_bytes: float, compression: str = "none"):
+    """Page-append writer, BigTIFF when the estimated output could brush
+    the classic 4 GiB offset limit."""
+    from sequitr_tpu_torch.data import tiff
+
+    return tiff.TiffAppendWriter(
+        path, bigtiff=est_bytes > 0xD0000000, compression=compression
+    )
+
+
+# frames up to this many pixels run whole-frame when the client did not
+# request a tiling (the JAX package's budget, kept so the same job JSON
+# tiles the same way on both servers: a 1024^2 frame is one patch)
+_WHOLE_FRAME_BUDGET = 4_400_000
+
+
+def _tile_config(
+    params: dict,
+    dims: int = 2,
+    frame_spatial=None,
+    min_multiple: int = 1,
+    exact_only: bool = False,
+):
+    """Tiling policy for a job.
+
+    Explicit ``patch``/``overlap`` params always win. Otherwise, frames
+    within the whole-frame budget run as ONE patch (rounded up to the
+    model's pooling multiple — the inferrer mirror-pads and crops); larger
+    frames fall back to the default sliding-window grid.
+    """
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    default_patch = (256, 256) if dims == 2 else (16, 128, 128)
+    default_overlap = (64, 64) if dims == 2 else (4, 32, 32)
+    patch = params.get("patch")
+    overlap = params.get("overlap")
+    if patch is None and frame_spatial is not None:
+        rounded = tuple(
+            -(-s // min_multiple) * min_multiple for s in frame_spatial
+        )
+        fits = np.prod(rounded) <= _WHOLE_FRAME_BUDGET
+        if fits and (not exact_only or rounded == tuple(frame_spatial)):
+            patch = rounded
+            overlap = overlap or (0,) * dims
+    patch = tuple(patch) if patch is not None else default_patch
+    overlap = tuple(overlap) if overlap is not None else default_overlap
+    if (
+        int(params.get("tta", 1)) == 8
+        and dims == 2
+        and frame_spatial is not None
+    ):
+        padded = tuple(max(s, p) for s, p in zip(frame_spatial, patch))
+        if padded[0] != padded[1]:
+            raise jobs_lib.JobError(
+                f"tta=8 needs a square frame in 2D (transpose variant); "
+                f"frame is {tuple(frame_spatial)} -> padded {padded}. "
+                "Use tta=4 or a square crop."
+            )
+    pb = params.get("patch_batch")
+    if pb is not None:
+        pb = int(pb)
+        if pb < 1:
+            raise jobs_lib.JobError(
+                f"patch_batch must be >= 1 (omit it for auto), got {pb}"
+            )
+    try:
+        return infer_lib.TileConfig(
+            patch=patch,
+            overlap=overlap,
+            window=params.get("window", "hann"),
+            normalize=params.get("normalize", "auto"),
+            p_lo=float(params.get("p_lo", 5.0)),
+            p_hi=float(params.get("p_hi", 99.5)),
+            patch_batch=pb,
+            # labels leave the device as uint16, the on-disk format
+            labels_dtype="uint16",
+            probs_dtype=str(params.get("probs_dtype", "float32")),
+            tta=int(params.get("tta", 1)),
+        )
+    except ValueError as e:
+        # bad tiling/dtype params are deterministic — fail fast, never retry
+        raise jobs_lib.JobError(str(e))
+
+
+def _run_frames(cfg, tc, model, source, job: Job, device):
+    """Stream a frame source through tiled inference; yields results in order.
+
+    A GENERATOR: each yielded ``InferenceResult`` holds the frame's outputs
+    on their way to the host, so neither host memory nor the card ever holds
+    the whole stack's outputs. Frames run ``frame_batch`` at a time (auto:
+    ~1M pixels per batch, at most 8) or one at a time, two ahead.
+
+    ``data_parallel`` / ``spatial_parallel`` on more than one CUDA card are
+    a later slice; on one card they serve single-device, as the JAX server
+    does on one chip.
+    """
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    job_params = job.params
+    spatial = tuple(source.spatial)
+    n_frames = len(source)
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    for key in ("spatial_parallel", "data_parallel"):
+        if job_params.get(key) and n_cards > 1:
+            raise jobs_lib.JobError(
+                f"{key} across {n_cards} CUDA devices is not ported yet "
+                "(a later slice of the port); omit it to serve on one device"
+            )
+    fb = job_params.get("frame_batch")
+    fb = int(fb) if fb else _auto_frame_batch(spatial)
+    fb = max(1, min(fb, n_frames))  # never compute padded frames nobody asked for
+    want_probs = bool(
+        job_params.get("save_probs") or job_params.get("save_entropy")
+    )
+    # labels-only jobs run the labels-only graph (no softmax maps)
+    tc = dataclasses.replace(tc, emit_probs=want_probs)
+    if fb > 1:
+
+        def _host_prefetch(out):
+            probs, labels = out
+            if want_probs:
+                probs = infer_lib._copy_to_host_async(probs)
+            return probs, infer_lib._copy_to_host_async(labels)
+
+        bfn = infer_lib.cached_batch_inferrer(cfg, tc, spatial, fb, device)
+        n_left = n_frames
+        for probs, labels in infer_lib.stream_frames(
+            lambda c: bfn(model, c),
+            _reads_fail_fast(job, source.chunks(fb)),
+            prefetch_host=_host_prefetch,
+            device=device,
+        ):
+            for k in range(min(fb, n_left)):
+                yield infer_lib.InferenceResult(
+                    probs=None if probs is None else probs[k],
+                    labels=labels[k],
+                )
+            n_left -= fb
+        return
+    fn = infer_lib.cached_frame_inferrer(cfg, tc, spatial, device)
+    yield from infer_lib.infer_stack(
+        fn, model, _reads_fail_fast(job, source.frames()),
+        fetch_probs=want_probs, device=device,
+    )
+
+
+def _apply_roi(job: Job, source):
+    """Restrict a FrameSource to the job's ``roi: [y0, x0, y1, x1]``
+    (end-exclusive). All outputs are ROI-local."""
+    roi = job.params.get("roi")
+    if roi is None:
+        return source
+    y0, x0, y1, x1 = _parse_roi_values(roi, "roi")
+    try:
+        return source.crop(y0, x0, y1, x1)
+    except ValueError as e:
+        raise jobs_lib.JobError(f"bad roi: {e}")
+
+
+def _parse_roi_values(roi, param: str):
+    """Validated [y0, x0, y1, x1] ints (bounds checked by crop())."""
+    if not isinstance(roi, (list, tuple)) or len(roi) != 4:
+        raise jobs_lib.JobError(
+            f"{param}={roi!r} must be [y0, x0, y1, x1] (end-exclusive)"
+        )
+    try:
+        return tuple(int(v) for v in roi)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(
+            f"{param}={roi!r} must be [y0, x0, y1, x1] (end-exclusive)"
+        )
+
+
+def _apply_frame_range(job: Job, source):
+    """Restrict a FrameSource to the job's ``frame_range: [start, stop]``
+    (stop exclusive). Localization keeps ABSOLUTE frame indices."""
+    fr = job.params.get("frame_range")
+    if fr is None:
+        return source
+    if not isinstance(fr, (list, tuple)) or not 1 <= len(fr) <= 2:
+        raise jobs_lib.JobError(
+            f"frame_range={fr!r} must be [start, stop] (stop exclusive)"
+        )
+    try:
+        start = int(fr[0])
+        stop = int(fr[1]) if len(fr) > 1 and fr[1] is not None else None
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(
+            f"frame_range={fr!r} must be [start, stop] (stop exclusive)"
+        )
+    try:
+        return source.select(start, stop)
+    except ValueError as e:
+        raise jobs_lib.JobError(str(e))
+
+
+def _auto_frame_batch(spatial) -> int:
+    """Frames per batch: ~1M pixels in flight, capped at 8."""
+    px = int(np.prod(spatial))
+    return int(max(1, min(8, 1_000_000 // max(px, 1))))
+
+
+def _reads_fail_fast(job: Job, it):
+    """Re-raise a source read ValueError as a deterministic JobError."""
+    while True:
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        except ValueError as e:
+            raise jobs_lib.JobError(f"job {job.id}: {e}")
+        yield item
+
+
+def unet_config_from_params(p: dict):
+    """A ``UNetConfig`` from architecture params (the JAX server's fields)."""
+    from sequitr_tpu_torch.models import unet
+
+    if "preset" in p:
+        raise jobs_lib.JobError(
+            "model presets are not ported yet (a later slice of the port); "
+            "give the architecture fields"
+        )
+    return unet.UNetConfig(
+        in_channels=int(p.get("in_channels", 1)),
+        num_classes=int(p.get("num_classes", 3)),
+        depth=int(p.get("depth", 4)),
+        base_features=int(p.get("base_features", 32)),
+        features_cap=int(p.get("features_cap", 512)),
+        dims=int(p.get("dims", 2)),
+        norm=p.get("norm", "batch"),
+        upsample=p.get("upsample", "transpose"),
+        compute_dtype=p.get("compute_dtype", "bfloat16"),
+        space_to_depth=int(p.get("space_to_depth", 1)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# built-in pipelines (importing the module registers its jobs)
+# ---------------------------------------------------------------------------
+
+from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
+    segmentation as _pipelines_segmentation,
+)

@@ -1,0 +1,179 @@
+"""The same job JSON through the JAX ``ImageServer`` and the port's
+``ImageServer(device="cpu")``: labels.tif, probs.tif and objects.h5 agree.
+
+The model is carried across the way a user moves one: the arrays behind
+``python -m sequitr_tpu export-model`` (``convert.flatten_params`` plus the
+``state/`` statistics, saved as npz) go through the port's
+``import-model`` command, in-process.
+"""
+
+import json
+import os
+
+import h5py
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sequitr_tpu.config import ServerConfiguration as JaxConfig
+from sequitr_tpu.data import tiff as jax_tiff
+from sequitr_tpu.models import convert as jax_convert
+from sequitr_tpu.models import unet as jax_unet
+from sequitr_tpu.pipeline import infer as jax_infer
+from sequitr_tpu.server import ImageServer as JaxServer
+from sequitr_tpu.server import save_model as jax_save_model
+from sequitr_tpu.server import submit_job as jax_submit
+from sequitr_tpu_torch import __main__ as torch_main
+from sequitr_tpu_torch.config import ServerConfiguration as TorchConfig
+from sequitr_tpu_torch.data import synthetic
+from sequitr_tpu_torch.data import tiff as torch_tiff
+from sequitr_tpu_torch.server import ImageServer as TorchServer
+from sequitr_tpu_torch.server import submit_job as torch_submit
+from sequitr_tpu_torch.server.server import load_model
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    """A small f32 U-Net registered with both servers, and a 3-frame
+    64x64 uint16 stack (served through the frame-batch path)."""
+    tmp = tmp_path_factory.mktemp("serve")
+    cfg = jax_unet.UNetConfig(depth=2, base_features=8, compute_dtype=jnp.float32)
+    params, state = jax_unet.init(jax.random.PRNGKey(0), cfg)
+    # non-trivial biases and running statistics: no exact logit ties
+    rng = np.random.default_rng(1)
+    params = jax.tree.map(lambda a: a + 0.1 * rng.normal(size=a.shape).astype(np.float32), params)
+    state = jax.tree.map(lambda a: a + 0.1 * rng.random(a.shape).astype(np.float32), state)
+    jax_models, torch_models = str(tmp / "jax_models"), str(tmp / "torch_models")
+    jax_save_model(jax_models, "seg", "unet", cfg, params, state)
+    npz = str(tmp / "seg.npz")
+    flat = jax_convert.flatten_params(params)
+    np.savez(npz, **flat, **{f"state/{k}": v for k, v in jax_convert.flatten_params(state).items()})
+    assert torch_main.main([
+        "import-model", "--models-dir", torch_models, "--npz", npz,
+        "--arch", os.path.join(jax_models, "seg", "config.json"), "seg",
+    ]) == 0
+    frames = np.stack(
+        [synthetic.cells_frame(424_100 + i, (64, 64))[0] for i in range(3)]
+    ).clip(0, 65535).astype(np.uint16)
+    stack = str(tmp / "stack.tif")
+    torch_tiff.write_stack(stack, frames)
+    return dict(
+        tmp=tmp, cfg=cfg, params=params, state=state, frames=frames, stack=stack,
+        jax_models=jax_models, torch_models=torch_models,
+    )
+
+
+def _serve(env, which, name, params):
+    tmp = env["tmp"]
+    out = str(tmp / f"{which}_{name}")
+    jobs = str(tmp / f"{which}_jobs")
+    spec = {
+        "module": "segmentation_unet2d", "params": dict(model="seg", **params),
+        "input": [env["stack"]], "output": out,
+    }
+    if which == "jax":
+        cfg = JaxConfig(jobs_dir=jobs, models_dir=env["jax_models"], compilation_cache_dir=None)
+        jax_submit(jobs, spec)
+        assert JaxServer(cfg).poll_once()
+    else:
+        cfg = TorchConfig(jobs_dir=jobs, models_dir=env["torch_models"], device="cpu")
+        torch_submit(jobs, spec)
+        assert TorchServer(cfg).poll_once()
+    with open(os.path.join(out, "status.json")) as f:
+        return json.load(f)
+
+
+def _clear_pixels(env, frames):
+    """Pixels whose top two JAX logits lie more than 1e-4 apart."""
+    tc = jax_infer.TileConfig(patch=frames.shape[1:], overlap=(0, 0))
+    x = jnp.stack([jax_infer._normalize(jnp.asarray(f)[..., None], tc) for f in frames])
+    logits = np.asarray(jax_unet.apply(env["cfg"], env["params"], env["state"], x)[0])
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > 1e-4
+
+
+def _h5_arrays(path):
+    out = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(
+            lambda name, obj: out.__setitem__(name, obj[()]) if isinstance(obj, h5py.Dataset) else None
+        )
+    return out
+
+
+JOBS = {
+    "labels": {},
+    "save_probs": {"save_probs": True, "save_entropy": True, "save_objects_csv": True},
+    # frames 1-2, cropped to 56x48: the frame-range and ROI helpers
+    "subset": {"frame_range": [1, 3], "roi": [4, 8, 60, 56]},
+}
+
+
+@pytest.mark.parametrize("job", sorted(JOBS))
+def test_same_job_same_outputs(env, job):
+    params = JOBS[job]
+    sj = _serve(env, "jax", job, params)
+    st = _serve(env, "torch", job, params)
+    assert sj["state"] == "complete", sj.get("error")
+    assert st["state"] == "complete", st.get("error")
+    assert set(st["outputs"]) == set(sj["outputs"])
+    frames = env["frames"]
+    if job == "subset":
+        frames = frames[1:3, 4:60, 8:56]
+    assert json.loads(st["outputs"]["metrics"])["n_frames"] == len(frames)
+    lj = jax_tiff.read_stack(sj["outputs"]["labels"])
+    lt = torch_tiff.read_stack(st["outputs"]["labels"])
+    assert lt.dtype == np.uint16 and lt.shape == lj.shape == frames.shape
+    clear = _clear_pixels(env, frames)
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(lt[clear], lj[clear])
+    # these frames have no near-tie pixel whose label flips, so the object
+    # tables are held to the JAX server's on every job
+    np.testing.assert_array_equal(lt, lj)
+    hj, ht = _h5_arrays(sj["outputs"]["objects"]), _h5_arrays(st["outputs"]["objects"])
+    assert set(ht) == set(hj) and hj
+    for k in hj:
+        np.testing.assert_allclose(ht[k], hj[k], atol=1e-9, err_msg=k)
+    if job == "save_probs":
+        pj = jax_tiff.read_stack(sj["outputs"]["probs"])
+        pt = torch_tiff.read_stack(st["outputs"]["probs"])
+        assert pt.shape == pj.shape == (9, 64, 64)
+        np.testing.assert_allclose(pt, pj, atol=1e-4)
+        ej = jax_tiff.read_stack(sj["outputs"]["entropy"])
+        et = torch_tiff.read_stack(st["outputs"]["entropy"])
+        np.testing.assert_allclose(et, ej, atol=1e-4)
+        assert os.path.exists(st["outputs"]["objects_csv"])
+
+
+def test_imported_model_is_folded_and_matches(env):
+    kind, cfg, model = load_model(env["torch_models"], "seg", device="cpu")
+    assert kind == "unet" and cfg.norm == "batch" and model.cfg.norm == "none"
+    x = np.random.default_rng(3).random((1, 16, 16, 1)).astype(np.float32)
+    want = np.asarray(jax_unet.apply(env["cfg"], env["params"], env["state"], jnp.asarray(x))[0])
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    assert np.max(np.abs(got - want)) < 1e-4
+
+
+def test_polyphase_is_a_job_error(env):
+    status = _serve(env, "torch", "polyphase", {"polyphase": True})
+    assert status["state"] == "failed"
+    assert "JobError" in status["error"] and "later slice" in status["error"]
+
+
+def test_malformed_job_is_quarantined(env, tmp_path):
+    jobs = str(tmp_path / "jobs")
+    os.makedirs(jobs)
+    path = os.path.join(jobs, "job_bad.json")
+    with open(path, "w") as f:
+        f.write("{not json")
+    server = TorchServer(TorchConfig(jobs_dir=jobs, models_dir=env["torch_models"], device="cpu"))
+    assert server.poll_once() is False
+    assert os.path.exists(path + ".rejected") and not os.path.exists(path)
