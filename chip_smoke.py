@@ -8,20 +8,29 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 on failure:
 
 1. the card's name and power limit;
-2. build the port's CUDA kernel from ``sequitr_tpu_torch/csrc``;
+2. build the port's CUDA kernels from ``sequitr_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shape and at ragged ones, then timed (CUDA events,
-   median of many) beside its bound, its plain version and a one-call
-   PyTorch yardstick;
-4. model phase: ``unet2d_cells`` at f32 on the card against the CPU
+   at its path's shapes and at ragged ones, then timed (CUDA events, median
+   of many) beside its bound, its plain version and a PyTorch yardstick;
+4. studies phase: ``enc0`` of the folded bf16 ``unet2d_cells`` (1 -> 32 ->
+   32 channels) on a normalized 1024x1024 frame, chained through each of the
+   three conv study entry points, the launch counts reset before each chain
+   and read after it, each result held against the ``UNet``'s own block;
+5. model phase: ``unet2d_cells`` at f32 on the card against the CPU
    (TF32 off), logits within 1e-3 (cuDNN sums in other orders);
-5. profile phase: where a served frame's time goes (torch.profiler);
-6. serve phase: the ``segmentation_unet2d`` job served by ``ImageServer``
-   on the card for two jobs over a 4-frame 1024x1024 uint16 stack, one at
-   a time, the kernel's launch count reset just before each job and read
-   just after (job (a), the default job, is the main path: its count goes
-   in the ``kernels`` line), and job (a)'s labels held against the port's
-   f32 exact-normalize path (mIoU >= 0.997).
+6. polyphase phase: ``models.polyphase`` against the standard forward on
+   the card, f32 (TF32 off) at 256x256 and bf16 at 1024x1024, both timed;
+7. profile phase: where a served frame's time goes (torch.profiler);
+8. serve phase: the ``segmentation_unet2d`` job served by ``ImageServer``
+   on the card for three jobs over a 4-frame 1024x1024 uint16 stack, one at
+   a time, every kernel's launch count reset just before each job and read
+   just after (job (a), the default job, is the served main path: its
+   histogram count goes in the ``kernels`` line; it launches the conv study
+   kernels 0 times, as the JAX package's server never reaches its study
+   kernels), job (a)'s labels held against the port's f32 exact-normalize
+   path (mIoU >= 0.997), and job (c), ``polyphase: true``, held against
+   job (a)'s labels.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -38,6 +47,11 @@ import time
 MIOU_BAR = 0.997
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense, H100 SXM data sheet
+F32_CONV_BAR = 1e-4  # sums of <= 576 products of unit-scale values, reordered
+BF16_EQUAL_BAR = 0.999  # share of outputs bit-equal to the plain version's
+BF16_STEPS_BAR = 2  # and no output further than this many bf16 values away
+POLY_AGREE_BAR = 0.999
 
 
 def _fail(msg: str) -> int:
@@ -163,6 +177,289 @@ def kernel_phase(torch, hist):
     return entry
 
 
+def _bf16_steps(torch, got, want):
+    """|got - want| in bf16 steps of the larger value (a step is at most
+    2^-7 of it), after taking off the 1e-4 that the f32 sums behind the two
+    roundings may differ by: near zero a representable-value count would
+    call 1e-7 against 0 thousands of steps."""
+    g, w = got.float(), want.float()
+    scale = torch.maximum(g.abs(), w.abs()) * 2.0**-7
+    excess = ((g - w).abs() - F32_CONV_BAR).clamp_min(0.0)
+    return torch.where(excess > 0, excess / scale.clamp_min(1e-30), excess)
+
+
+def _hold_bf16(torch, what, got, want):
+    """The bf16 bar: >= 99.9% of outputs bit-equal, none over two steps."""
+    equal = float((got == want).float().mean())
+    worst = float(_bf16_steps(torch, got, want).max())
+    if equal < BF16_EQUAL_BAR or worst > BF16_STEPS_BAR:
+        raise AssertionError(
+            f"{what}: {equal:.6f} of outputs equal (bar {BF16_EQUAL_BAR}), "
+            f"worst {worst:.3g} bf16 steps (bar {BF16_STEPS_BAR})"
+        )
+    return equal, worst
+
+
+def _conv_entries(torch):
+    """The three conv study entry points behind one calling convention:
+    name -> (run(x_hwc, w, b) -> (H, W, C_out), flat-layout pieces or None)."""
+    from sequitr_tpu_torch.studies import conv2d, conv2d_gemm as g, conv2d_gemm2 as g2
+
+    def flat(flatten, conv, unflatten):
+        def run(x, w, b):
+            h, w_img = x.shape[:2]
+            return unflatten(conv(flatten(x), w, b, h, w_img), h, w_img)
+
+        return run
+
+    return {
+        "conv3x3_bias_act": (conv2d.conv3x3_bias_act, None),
+        "conv3x3_gemm": (
+            flat(g.flatten_chw, g.conv3x3_gemm, g.unflatten_chw),
+            (g.flatten_chw, g.conv3x3_gemm, g.repad_chw, g.unflatten_chw, lambda w: w + 8),
+        ),
+        "conv3x3_gemm2": (
+            flat(g2.flatten_chw2, g2.conv3x3_gemm2, g2.unflatten_chw2),
+            (g2.flatten_chw2, g2.conv3x3_gemm2, g2.repad_chw2, g2.unflatten_chw2, g2.wb2),
+        ),
+    }
+
+
+REPLACES = {
+    "conv3x3_bias_act": "sequitr_tpu/studies/pallas_conv2d.py:43",
+    "conv3x3_gemm": "sequitr_tpu/studies/pallas_conv2d_gemm.py:75",
+    "conv3x3_gemm2": "sequitr_tpu/studies/pallas_conv2d_gemm2.py:67",
+}
+
+
+def conv_kernel_phase(torch, conv):
+    """Each conv entry point against its plain version on the card (TF32
+    off), at the shapes of the CPU tests, ragged ones, C_in = 1 and the
+    full-width bf16 shapes; then timed at 1024x1024 32 -> 32 bf16, ReLU."""
+    import torch.nn.functional as F
+
+    from sequitr_tpu_torch.studies import conv2d_gemm as g
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(20_261_017)
+    cases = [
+        (64, 128, 16, 8, torch.float32),
+        (64, 64, 32, 16, torch.float32),
+        (32, 120, 16, 8, torch.float32),
+        (333, 517, 3, 5, torch.float32),
+        (1024, 1024, 1, 32, torch.float32),
+        (1024, 1024, 32, 32, torch.bfloat16),
+        (1024, 1024, 64, 32, torch.bfloat16),
+    ]
+    entries = _conv_entries(torch)
+    max_err = {name: 0.0 for name in entries}
+    timed = wide = None
+    for h, w_img, c_in, c_out, dtype in cases:
+        x = torch.randn((h, w_img, c_in), generator=gen).to(dtype).cuda()
+        w = (torch.randn((3, 3, c_in, c_out), generator=gen) * 0.1).cuda()
+        b = torch.randn((c_out,), generator=gen).cuda()
+        wk, bk = conv.pack_weights(w, b, dtype)
+        shape = f"{h}x{w_img} {c_in}->{c_out} {str(dtype).split('.')[-1]}"
+        if (h, c_in, c_out, dtype) == (1024, 32, 32, torch.bfloat16):
+            timed = (x, w, b, wk, bk)
+        if (h, c_in, c_out, dtype) == (1024, 64, 32, torch.bfloat16):
+            wide = (x, w, b)
+        for name, (run, flat) in entries.items():
+            if flat is None:
+                got = run(x, w, b)
+                want = conv.conv3x3_nhwc_reference(x, wk, bk)
+            else:
+                flatten, conv_fn, _, _, wb_of = flat
+                wb = wb_of(w_img)
+                xf = flatten(x)
+                got = conv_fn(xf, w, b, h, w_img)
+                want = conv.conv3x3_flat_chw_reference(xf, wk, bk, h, w_img, wb, g.MARGIN)
+                cols = got.reshape(c_out, h, wb)
+                if bool((cols[:, :, 0] != 0).any()) or bool((cols[:, :, w_img + 1:] != 0).any()):
+                    raise AssertionError(f"{name} {shape}: pad columns are not zero")
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != dtype:
+                raise AssertionError(f"{name} {shape}: {got.shape} {got.dtype}")
+            if dtype == torch.float32:
+                err = float((got - want).abs().max())
+                max_err[name] = max(max_err[name], err)
+                if not err <= F32_CONV_BAR:
+                    raise AssertionError(f"{name} {shape}: max |diff| {err} > {F32_CONV_BAR}")
+                print(f"kernel {name} {shape}: max |diff| vs plain {err:.3g} (bar {F32_CONV_BAR})")
+            else:
+                equal, worst = _hold_bf16(torch, f"{name} {shape}", got, want)
+                print(
+                    f"kernel {name} {shape}: {equal:.6f} of outputs equal to plain "
+                    f"(bar {BF16_EQUAL_BAR}), worst {worst:.3g} bf16 steps (bar {BF16_STEPS_BAR})"
+                )
+
+    # timing at the full-width shape of the studies: 1024x1024, 32 -> 32, bf16
+    x, w, b, wk, bk = timed
+    h, w_img, c_in = x.shape
+    c_out = w.shape[-1]
+    xc = x.permute(2, 0, 1)[None]  # NCHW view with channels_last strides
+    wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def library():
+        # the ops the served U-Net uses for the same function
+        y = F.conv2d(xc, wc, padding=1)
+        return torch.relu(y.to(torch.float32) + b.view(1, -1, 1, 1)).to(torch.bfloat16)
+
+    # cuDNN's conv alone (no bias, no ReLU, bf16 out): what the fused kernel's
+    # product is up against, beside the whole chain it replaces
+    conv_only_ms = _median_ms(lambda: F.conv2d(xc, wc, padding=1))
+    print(f"kernel yardstick 1024x1024 32->32 bf16: F.conv2d alone {conv_only_ms:.5f} ms")
+    ops = 2 * 9 * c_in * c_out * h * w_img
+    out = []
+    for name, (run, flat) in entries.items():
+        if flat is None:
+            ms = _median_ms(lambda: run(x, w, b))
+            plain_ms = _median_ms(lambda: conv.conv3x3_nhwc_reference(x, wk, bk), n=20)
+            in_elems, out_elems = x.numel(), h * w_img * c_out
+        else:
+            flatten, conv_fn, _, _, wb_of = flat
+            wb = wb_of(w_img)
+            xf = flatten(x)
+            ms = _median_ms(lambda: conv_fn(xf, w, b, h, w_img))
+            plain_ms = _median_ms(
+                lambda: conv.conv3x3_flat_chw_reference(xf, wk, bk, h, w_img, wb, g.MARGIN), n=20
+            )
+            in_elems, out_elems = xf.numel(), c_out * h * wb
+        library_ms = _median_ms(library)
+        # each input read once, each output written once, padding included
+        bytes_moved = 2 * (in_elems + out_elems + wk.numel()) + 4 * bk.numel()
+        t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_BF16_FLOPS * 1e3
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "sequitr_tpu_torch/csrc/conv3x3.cu",
+            "replaces": REPLACES[name],
+            "launches": None,
+            "max_abs_err": max_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        print(
+            f"kernel {name} 1024x1024 32->32 bf16 relu: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"F.conv2d + cast + bias + relu + cast {library_ms:.5f} ms, bound "
+            f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: {bytes_moved} bytes, {ops} operations)"
+        )
+        out.append(entry)
+    # the wider level-0 conv (dec0's first: 64 -> 32), kernel times only
+    x, w, b = wide
+    for name, (run, flat) in entries.items():
+        xin = x if flat is None else flat[0](x)
+        fn = run if flat is None else (lambda xf, w_, b_, f=flat[1]: f(xf, w_, b_, h, w_img))
+        print(f"kernel {name} 1024x1024 64->32 bf16 relu: {_median_ms(lambda: fn(xin, w, b)):.5f} ms")
+    return out
+
+
+def studies_phase(torch, fixtures, unet, conv):
+    """This slice's path at full width: enc0 of the folded bf16
+    unet2d_cells on a normalized 1024x1024 frame, chained through each conv
+    study entry point. Returns {entry name: kernel launches of its chain}."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.pipeline import infer
+
+    _, _, model, _ = fixtures.load("unet2d_cells", device="cuda")
+    model = unet.fold_batchnorm(model)
+    frame, _ = synthetic.cells_frame(424_010, (1024, 1024))
+    frames = torch.from_numpy(frame.clip(0, 65535).astype("uint16"))[None, ..., None].cuda()
+    x32 = infer._normalize(frames, infer.TileConfig())  # (1, H, W, 1) f32, the served normalize
+    blk = model.enc[0]
+    with torch.inference_mode():
+        want = model._block(x32.permute(0, 3, 1, 2), blk)[0].permute(1, 2, 0).to(torch.bfloat16)
+    x = x32[0].to(torch.bfloat16)
+    h, w_img = x.shape[:2]
+    layers = [
+        (c.w.permute(2, 3, 1, 0).contiguous(), c.b) for c in (blk.conv1, blk.conv2)
+    ]  # OIHW -> HWIO
+    # the same chain through the plain version: the kernels' own rounding points
+    plain = x
+    for w, b in layers:
+        plain = conv.conv3x3_nhwc_reference(plain, *conv.pack_weights(w, b, torch.bfloat16))
+    launches = {}
+    for name, (run, flat) in _conv_entries(torch).items():
+        torch.cuda.synchronize()
+        conv.conv3x3_nhwc.launches = 0
+        conv.conv3x3_flat_chw.launches = 0
+        if flat is None:
+            y = x
+            for w, b in layers:
+                y = run(y, w, b)
+        else:
+            flatten, conv_fn, repad, unflatten, _ = flat
+            y = conv_fn(flatten(x), *layers[0], h, w_img)
+            # the first output, re-padded as the layout contract says
+            y = conv_fn(repad(y, w_img), *layers[1], h, w_img)
+            y = unflatten(y, h, w_img)
+        torch.cuda.synchronize()
+        launches[name] = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
+        if tuple(y.shape) != (h, w_img, 32) or not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError(f"studies {name}: output {tuple(y.shape)}")
+        if launches[name] != 2:
+            raise AssertionError(f"studies {name}: {launches[name]} launches, expected 2")
+        # Two bars. Against the plain chain (the kernels' own rounding
+        # points): >= 99.9% of outputs bit-equal. Against the UNet's block,
+        # which rounds each conv's output to bf16 before its f32 bias add
+        # and again at the next conv's input, where the kernel rounds once,
+        # after bias and ReLU: no share is asked. Both: no output further
+        # away than two bf16 steps at the scale of the block's largest
+        # output. (Steps of an output's own size are no measure here: a
+        # one-step change of a layer-1 output moves a layer-2 sum that
+        # cancels to near zero by many times its own size.)
+        bar = BF16_STEPS_BAR * 2.0**-7 * float(want.float().abs().max())
+        equal = float((y == plain).float().mean())
+        err_plain = float((y.float() - plain.float()).abs().max())
+        u_equal = float((y == want).float().mean())
+        err = float((y.float() - want.float()).abs().max())
+        print(
+            f"studies {name} enc0 1024x1024 1->32->32 bf16: {launches[name]} launches; vs the "
+            f"plain chain {equal:.6f} of outputs equal (bar {BF16_EQUAL_BAR}), max |diff| "
+            f"{err_plain:.4g}; vs the UNet's enc0 block {u_equal:.6f} equal, max |diff| {err:.4g}; "
+            f"bar on both {bar:.4g} ({BF16_STEPS_BAR} bf16 steps of the largest output)"
+        )
+        if equal < BF16_EQUAL_BAR or err_plain > bar:
+            raise AssertionError(f"studies {name}: differs from the plain chain")
+        if err > bar:
+            raise AssertionError(f"studies {name}: enc0 differs from the UNet block by {err} > {bar}")
+    return launches
+
+
+def polyphase_phase(torch, fixtures, unet):
+    """models.polyphase against the standard forward on the card."""
+    from sequitr_tpu_torch.models import polyphase
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(11)
+    for dtype, size, n in (("float32", 256, 20), ("bfloat16", 1024, 20)):
+        _, _, model, _ = fixtures.load("unet2d_cells", compute_dtype=dtype, device="cuda")
+        model = unet.fold_batchnorm(model)
+        poly = polyphase.Polyphase(model)
+        x = torch.rand((1, size, size, 1), generator=gen).cuda()
+        with torch.inference_mode():
+            base, got = model(x), poly(x)
+            rel = float((got - base).abs().max() / base.abs().max())
+            agree = float((got.argmax(-1) == base.argmax(-1)).float().mean())
+            base_ms = _median_ms(lambda: model(x), n=n)
+            poly_ms = _median_ms(lambda: poly(x), n=n)
+        print(
+            f"polyphase unet2d_cells {dtype} {size}x{size}: rel err {rel:.3g}, argmax agreement "
+            f"{agree:.6f}, standard {base_ms:.4f} ms, polyphase {poly_ms:.4f} ms "
+            f"({base_ms / poly_ms:.3f}x)"
+        )
+        if dtype == "float32" and not rel < 1e-5:
+            raise AssertionError(f"polyphase f32 relative error {rel} >= 1e-5")
+        if agree < POLY_AGREE_BAR:
+            raise AssertionError(f"polyphase {dtype} argmax agreement {agree} < {POLY_AGREE_BAR}")
+
+
 def model_phase(torch, fixtures, unet):
     """unet2d_cells at f32: the card against the CPU, and its bf16 time."""
     torch.backends.cudnn.allow_tf32 = False
@@ -237,8 +534,8 @@ def profile_phase(torch, fixtures, unet):
         print(f"profile {us / 1e3 / n:.4f} ms/frame {name[:110]}")
 
 
-def serve_phase(torch, hist, smi_line):
-    """Two segmentation_unet2d jobs through ImageServer on the card."""
+def serve_phase(torch, hist, conv, smi_line):
+    """Three segmentation_unet2d jobs through ImageServer on the card."""
     import numpy as np
 
     from sequitr_tpu_torch import __main__ as cli
@@ -271,12 +568,14 @@ def serve_phase(torch, hist, smi_line):
         specs = {
             "a": {"localize": False},
             "b": {"localize": False, "save_probs": True, "patch": [512, 512], "overlap": [64, 64]},
+            "c": {"localize": False, "polyphase": True},
         }
         server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
         launches = {}
-        labels_a = None
-        # one job at a time, each with its own launch count: job (a) is
-        # the main path, job (b) the tiled save_probs path
+        labels_a = labels_c = None
+        # one job at a time, each with its own launch counts: job (a) is
+        # the main path, job (b) the tiled save_probs path, job (c) the
+        # polyphase forward
         for name, params in specs.items():
             submit_job(jobs, {
                 "module": "segmentation_unet2d",
@@ -286,10 +585,13 @@ def serve_phase(torch, hist, smi_line):
             })
             torch.cuda.synchronize()
             hist.histogram_2d.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
             torch.cuda.synchronize()
             launches[name] = hist.histogram_2d.launches
+            conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
             if status["state"] != "complete":
@@ -305,8 +607,11 @@ def serve_phase(torch, hist, smi_line):
             )
             print(
                 f"serve job {name} histogram_2d launches {launches[name]} for "
-                f"{metrics['n_frames']} served frames"
+                f"{metrics['n_frames']} served frames; conv3x3 study kernels "
+                f"launched {conv_launches} times (the served graph does not use them)"
             )
+            if conv_launches:
+                raise AssertionError(f"job {name}: served path launched a study kernel")
             if launches[name] < metrics["n_frames"]:
                 raise AssertionError(
                     f"job {name}: histogram kernel launched {launches[name]} times "
@@ -314,6 +619,8 @@ def serve_phase(torch, hist, smi_line):
                 )
             if name == "a":
                 labels_a = labels
+            elif name == "c":
+                labels_c = labels
             else:
                 probs = tiff.read_stack(status["outputs"]["probs"])
                 if probs.shape != (12, 1024, 1024) or not np.isfinite(probs).all():
@@ -347,6 +654,14 @@ def serve_phase(torch, hist, smi_line):
         print(f"serve job a miou_truth {truth:.6f}, ref miou_truth {truth_ref:.6f}")
         if miou < MIOU_BAR:
             raise AssertionError(f"miou_vs_ref {miou} < {MIOU_BAR}")
+        agree = float(np.mean(labels_c == labels_a))
+        miou_c = float(np.mean([_miou(a, b, k) for a, b in zip(labels_c, ref)]))
+        print(
+            f"serve job c (polyphase) labels equal to job a's on {agree:.6f} of pixels "
+            f"(bar {POLY_AGREE_BAR}), miou_vs_ref {miou_c:.6f}"
+        )
+        if agree < POLY_AGREE_BAR:
+            raise AssertionError(f"polyphase job agrees with job a on {agree} < {POLY_AGREE_BAR}")
         return launches["a"]
 
 
@@ -365,6 +680,7 @@ def main() -> int:
     try:
         from sequitr_tpu_torch.models import fixtures, unet
         from sequitr_tpu_torch.ops.kernels import build
+        from sequitr_tpu_torch.ops.kernels import conv3x3 as conv
         from sequitr_tpu_torch.ops.kernels import histogram as hist
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
@@ -377,20 +693,36 @@ def main() -> int:
     print(smi_line)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("histogram", "conv3x3")
     t0 = time.perf_counter()
-    log = build.build("histogram", force=True)
-    print(f"build: histogram in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "ptxas info" in line:
-            print(f"build histogram: {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = list(pool.map(lambda name: build.build(name, force=True), names))
+    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
+    for name, log in zip(names, logs):
+        for line in log.splitlines():
+            if "ptxas info" in line:
+                print(f"build {name}: {line.strip()}")
 
     entry = kernel_phase(torch, hist)
+    conv_entries = conv_kernel_phase(torch, conv)
+    studies_launches = studies_phase(torch, fixtures, unet, conv)
     model_phase(torch, fixtures, unet)
+    polyphase_phase(torch, fixtures, unet)
     profile_phase(torch, fixtures, unet)
-    entry["launches"] = serve_phase(torch, hist, smi_line)
+    entry["launches"] = serve_phase(torch, hist, conv, smi_line)
     if entry["launches"] < 1:
         raise AssertionError("histogram_2d was not launched on the main path")
-    print(json.dumps({"kernels": [entry]}))
+    for e in conv_entries:
+        e["launches"] = studies_launches[e["name"]]
+    print(
+        "kernels: histogram_2d launches are those of served job a; the conv3x3 "
+        "entries' launches are those of the studies path (enc0 chained through "
+        "each entry point); served job a launches the conv3x3 kernels 0 times"
+    )
+    print(json.dumps({"kernels": [entry] + conv_entries}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -11,8 +11,10 @@ card (``device="cuda"``) unless the caller passes ``device="cpu"``; without
 a CUDA device they raise instead of quietly running on the CPU.
 
 Ported so far: the ``segmentation_unet2d`` serving path (percentile
-normalize on the histogram kernel, U-Net2D, tiling/stitch, labels.tif and
-objects.h5). Subpackages import lazily so ``import sequitr_tpu_torch`` stays
+normalize on the histogram kernel, U-Net2D, standard or polyphase forward,
+tiling/stitch, labels.tif and objects.h5) and the conv studies
+(``studies``: the fused 3x3 conv kernels, Winograd, the polyphase A/B).
+Subpackages import lazily so ``import sequitr_tpu_torch`` stays
 light.
 """
 
@@ -20,7 +22,7 @@ __version__ = "0.1.0"
 
 _LAZY = (
     "config", "data", "localize", "models", "native", "ops", "pipeline",
-    "server", "utils",
+    "server", "studies", "utils",
 )
 
 __all__ = ["__version__", *_LAZY]

@@ -26,7 +26,7 @@ import torch
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
 
-__all__ = ["load_flat", "to_flat"]
+__all__ = ["load_flat", "to_flat", "conv_to_torch", "conv_from_torch", "pack_conv3x3"]
 
 _STATE = "state/"
 _BUFFERS = ("mean", "var")
@@ -34,6 +34,34 @@ _BUFFERS = ("mean", "var")
 # HWIO -> torch layout, per kernel kind
 _CONV_AXES = (3, 2, 0, 1)  # (kh, kw, ci, co) -> (co, ci, kh, kw)
 _CONVT_AXES = (2, 3, 0, 1)  # (kh, kw, ci, co) -> (ci, co, kh, kw)
+
+
+def conv_to_torch(w_hwio: np.ndarray) -> torch.Tensor:
+    """A conv's HWIO kernel ``(kh, kw, c_in, c_out)`` as torch's OIHW tensor."""
+    return torch.tensor(np.transpose(np.asarray(w_hwio), _CONV_AXES))
+
+
+def conv_from_torch(w: torch.Tensor) -> np.ndarray:
+    """The inverse of ``conv_to_torch``: an OIHW tensor as an HWIO array."""
+    arr = w.detach().cpu().numpy()
+    return np.ascontiguousarray(np.transpose(arr, _inverse(_CONV_AXES)))
+
+
+def pack_conv3x3(
+    w_hwio: np.ndarray,
+    b: np.ndarray,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device, None] = None,
+):
+    """HWIO ``(3, 3, C_in, C_out)`` weights and ``(C_out,)`` bias as the 3x3
+    conv kernels take them (``ops.kernels.conv3x3.pack_weights``):
+    ``(9*C_in, C_out)`` in ``dtype`` and an f32 bias, on ``device``."""
+    from sequitr_tpu_torch.ops.kernels import conv3x3
+
+    device = resolve_device(device)
+    w = torch.tensor(np.asarray(w_hwio, dtype=np.float32), device=device)
+    bias = torch.tensor(np.asarray(b, dtype=np.float32), device=device)
+    return conv3x3.pack_weights(w, bias, dtype)
 
 
 def _flat_key(sd_key: str) -> str:

@@ -21,11 +21,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+_COMMON_HEAD = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_COMMON_TAIL = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc flags per kernel. The histogram forbids fused multiply-add: its bucket
+# must round the subtract and the multiply separately, as the plain version
+# does. The convolution's accumulation is made of fused multiply-adds.
+NVCC_FLAGS = {
+    "histogram": _COMMON_HEAD + ("-fmad=false",) + _COMMON_TAIL,
+    "conv3x3": _COMMON_HEAD + _COMMON_TAIL,
+}
 
 
 def _nvcc() -> str:
@@ -49,6 +54,8 @@ def build(name: str, force: bool = False) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is up to date (or
     ``force``); returns nvcc's output (the ``-Xptxas -v`` register and
     shared-memory report), ``""`` when nothing was built."""
+    if name not in NVCC_FLAGS:
+        raise ValueError(f"unknown kernel {name!r}: one of {sorted(NVCC_FLAGS)}")
     src, lib = _paths(name)
     if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
         return ""
@@ -58,7 +65,7 @@ def build(name: str, force: bool = False) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=_BUILD_DIR)
     os.close(fd)
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        [_nvcc(), *NVCC_FLAGS[name], "-o", tmp, src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:

@@ -16,8 +16,10 @@ host->card copies of pinned frames run on a side stream, and results start
 their card->host copy into pinned memory on another side stream as soon as
 they are queued, with a CUDA event the consumer waits on.
 
-Not ported yet (later slices): polyphase serving, 3D volumes, and the GAN,
-denoiser, flows and stars inferrers.
+``TileConfig.polyphase`` serves through ``models.polyphase`` (2D only).
+
+Not ported yet (later slices): 3D volumes, and the GAN, denoiser, flows and
+stars inferrers.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple, Uni
 import numpy as np
 import torch
 
+from sequitr_tpu_torch.models import polyphase
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.ops import normalize as norm_ops
 from sequitr_tpu_torch.ops import tiling
@@ -71,6 +74,12 @@ class TileConfig:
     # test-time augmentation: average softmax maps over 2/4/8 flip (and, at
     # 8, transpose: square frames only) variants of the whole frame
     tta: int = 1
+    # polyphase serving forward (models.polyphase): the two thin
+    # full-resolution U-Net levels run at half resolution x 4-wide channels
+    # on the same weights, exactly (up to float reassociation). 2D folded
+    # transpose-upsample models with even patch dims only; the build fails
+    # loudly otherwise
+    polyphase: bool = False
     # False = labels-only: no softmax maps are returned, and a single-tile
     # no-TTA serve skips the softmax altogether (argmax of logits == argmax
     # of softmax)
@@ -230,6 +239,26 @@ def _tta_average(run: Callable, x: torch.Tensor, variants) -> torch.Tensor:
     return acc if len(variants) == 1 else acc / len(variants)
 
 
+def _check_polyphase(tc: TileConfig, cfg: UNetConfig) -> None:
+    """Build-time gate of ``tc.polyphase``. ``cfg`` may carry batch norm:
+    serving folds it (``unet.fold_batchnorm``), so it is judged as folded."""
+    if not tc.polyphase:
+        return
+    if cfg.dims == 3:
+        raise NotImplementedError(
+            "polyphase serving of 3D models is not ported yet (the 3D "
+            "serving slice of the port)"
+        )
+    if not polyphase.eligible(dataclasses.replace(cfg, norm="none"), tc.patch):
+        raise ValueError(
+            "polyphase serving requires a transpose-upsample model "
+            "without model-level space_to_depth and an even patch "
+            "(H, W axes for 3D); "
+            f"got dims={cfg.dims} s2d={cfg.space_to_depth} "
+            f"upsample={cfg.upsample!r} patch={tc.patch}"
+        )
+
+
 def _make_batch_infer(
     cfg: UNetConfig,
     tc: TileConfig,
@@ -256,6 +285,7 @@ def _make_batch_infer(
     )
     grid = tiling.tile_grid(padded_spatial, tc.patch, tc.overlap)
     variants = _tta_variants(tc.tta, padded_spatial)
+    _check_polyphase(tc, cfg)
     # labels-only single-tile serves skip the softmax: one tile means the
     # stitch is a per-pixel positive rescale, and argmax is invariant under it
     logits_fast = (
@@ -273,8 +303,10 @@ def _make_batch_infer(
             if any(edge_pad):
                 x = _pad_trailing(x, edge_pad, pad_mode)
 
+            net = polyphase.serving(model) if tc.polyphase else model
+
             def forward(batch):
-                logits = model(batch)
+                logits = net(batch)
                 return logits if logits_fast else torch.softmax(logits, dim=-1)
 
             probs = _tta_average(
@@ -311,7 +343,8 @@ def make_frame_inferrer(
     whole-frame symmetry variants.
 
     ``model`` is a ``UNet`` for ``cfg`` (BN folded or not: the server folds
-    once at load). ``probs`` is None when ``tc.emit_probs`` is False.
+    once at load; ``tc.polyphase`` needs it folded). ``probs`` is None when
+    ``tc.emit_probs`` is False.
     """
     batch_infer = _make_batch_infer(cfg, tc, frame_spatial, resolve_device(device))
 

@@ -25,6 +25,7 @@ from sequitr_tpu_torch.server.server import (
     _normalized_entropy,
     _out_compression,
     _require_model,
+    _require_polyphase_model,
     _resolve_inputs,
     _run_frames,
     _tile_config,
@@ -39,7 +40,9 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
 
     params: model (name under models_dir), patch, overlap, window,
     normalize, p_lo, p_hi, save_probs (bool), localize (bool, default True),
-    min_area.
+    min_area, polyphase (bool, default False: serve through
+    ``models.polyphase``; even patch axes, transpose-upsample models without
+    model-level space-to-depth).
     Outputs: labels.tif (+ probs.tif), objects.h5 (btrack layout).
     """
     from collections import deque
@@ -49,11 +52,6 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
     from sequitr_tpu_torch.data.source import FrameSource
     from sequitr_tpu_torch.utils import PhaseTimer
 
-    if job.params.get("polyphase"):
-        raise jobs_lib.JobError(
-            "polyphase serving is not ported yet (a later slice of the port); "
-            "omit the polyphase param to serve the standard graph"
-        )
     device = resolve_device(config.device)
     paths = _resolve_inputs(job)
     try:
@@ -73,7 +71,17 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
     tc = _tile_config(
         job.params, dims=2,
         frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+        allow_polyphase=True,
     )
+    if tc.polyphase:
+        # the polyphase forward covers the plain serving topology; reject
+        # the rest loudly rather than silently serving the standard graph
+        _require_polyphase_model(cfg)
+        if job.params.get("spatial_parallel"):
+            raise jobs_lib.JobError(
+                "polyphase + spatial_parallel is not supported; the "
+                "spatial path runs its own halo-exchange forward"
+            )
 
     timer = PhaseTimer()
     n_frames = len(source)

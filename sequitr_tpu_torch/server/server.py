@@ -13,7 +13,7 @@ server's orbax checkpoint. ``python -m sequitr_tpu export-model`` output
 imports with ``python -m sequitr_tpu_torch import-model``.
 
 Jobs run on ``config.device`` (default the CUDA card). Multi-card data or
-spatial parallelism and polyphase serving are later slices of the port.
+spatial parallelism is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -500,6 +500,7 @@ def _tile_config(
     frame_spatial=None,
     min_multiple: int = 1,
     exact_only: bool = False,
+    allow_polyphase: bool = False,
 ):
     """Tiling policy for a job.
 
@@ -543,6 +544,15 @@ def _tile_config(
             raise jobs_lib.JobError(
                 f"patch_batch must be >= 1 (omit it for auto), got {pb}"
             )
+    # polyphase serving forward (models.polyphase): only the pipelines that
+    # honor it read the param; elsewhere it stays unread and the completion
+    # status carries the unknown-param warning
+    poly = bool(params.get("polyphase", False)) if allow_polyphase else False
+    # 2D phases all axes; 3D phases (H, W) only
+    if poly and any(p % 2 for p in patch[-2:]):
+        raise jobs_lib.JobError(
+            f"polyphase needs even H/W patch axes, got {tuple(patch)}"
+        )
     try:
         return infer_lib.TileConfig(
             patch=patch,
@@ -556,10 +566,24 @@ def _tile_config(
             labels_dtype="uint16",
             probs_dtype=str(params.get("probs_dtype", "float32")),
             tta=int(params.get("tta", 1)),
+            polyphase=poly,
         )
     except ValueError as e:
         # bad tiling/dtype params are deterministic — fail fast, never retry
         raise jobs_lib.JobError(str(e))
+
+
+def _require_polyphase_model(cfg) -> None:
+    """Deterministic rejection for models the polyphase serve can't cover
+    (``cfg``: the serving model's ``UNetConfig``); shared by every pipeline
+    with a ``polyphase`` param."""
+    if cfg.space_to_depth != 1 or cfg.upsample != "transpose" or cfg.depth < 2:
+        raise jobs_lib.JobError(
+            "polyphase serving requires a space_to_depth=1 "
+            "transpose-upsample model of depth >= 2; this model has "
+            f"s2d={cfg.space_to_depth}, upsample={cfg.upsample!r}, "
+            f"depth={cfg.depth}"
+        )
 
 
 def _run_frames(cfg, tc, model, source, job: Job, device):

@@ -25,12 +25,14 @@ MODULES = [
     "sequitr_tpu_torch.models.unet",
     "sequitr_tpu_torch.models.convert",
     "sequitr_tpu_torch.models.fixtures",
+    "sequitr_tpu_torch.models.polyphase",
     "sequitr_tpu_torch.ops",
     "sequitr_tpu_torch.ops.normalize",
     "sequitr_tpu_torch.ops.tiling",
     "sequitr_tpu_torch.ops.kernels",
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
+    "sequitr_tpu_torch.ops.kernels.conv3x3",
     "sequitr_tpu_torch.pipeline",
     "sequitr_tpu_torch.pipeline.infer",
     "sequitr_tpu_torch.server",
@@ -38,6 +40,12 @@ MODULES = [
     "sequitr_tpu_torch.server.server",
     "sequitr_tpu_torch.server.pipelines",
     "sequitr_tpu_torch.server.pipelines.segmentation",
+    "sequitr_tpu_torch.studies",
+    "sequitr_tpu_torch.studies.conv2d",
+    "sequitr_tpu_torch.studies.conv2d_gemm",
+    "sequitr_tpu_torch.studies.conv2d_gemm2",
+    "sequitr_tpu_torch.studies.winograd",
+    "sequitr_tpu_torch.studies.polyphase_conv",
 ]
 
 PROBE = """
@@ -55,8 +63,9 @@ import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
 from sequitr_tpu_torch import utils
 from sequitr_tpu_torch.config import ServerConfiguration
-from sequitr_tpu_torch.models import unet
+from sequitr_tpu_torch.models import convert, unet
 from sequitr_tpu_torch.pipeline import infer
+from sequitr_tpu_torch.studies import polyphase_conv
 from sequitr_tpu_torch.server import ImageServer
 
 assert utils.DEFAULT_DEVICE == "cuda"
@@ -67,6 +76,9 @@ calls = [
     lambda: utils.resolve_device(),
     lambda: unet.UNet(cfg),
     lambda: infer.make_frame_inferrer(cfg, tc, (16, 16)),
+    lambda: convert.pack_conv3x3(torch.zeros(3, 3, 1, 1).numpy(), torch.zeros(1).numpy()),
+    lambda: polyphase_conv.run(size=16, iters=1),
+    lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
     lambda: ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r})),
 ]
 for call in calls:

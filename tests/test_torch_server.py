@@ -163,9 +163,15 @@ def test_imported_model_is_folded_and_matches(env):
 
 
 def test_polyphase_is_a_job_error(env):
-    status = _serve(env, "torch", "polyphase", {"polyphase": True})
-    assert status["state"] == "failed"
-    assert "JobError" in status["error"] and "later slice" in status["error"]
+    """An odd patch axis under ``polyphase`` is the JAX server's JobError,
+    word for word; an even one serves (tests/test_torch_polyphase.py)."""
+    params = {"polyphase": True, "patch": [63, 64], "localize": False}
+    st = _serve(env, "torch", "polyphase", params)
+    sj = _serve(env, "jax", "polyphase", params)
+    assert st["state"] == sj["state"] == "failed"
+    message = "polyphase needs even H/W patch axes, got (63, 64)"
+    assert "JobError" in st["error"] and message in st["error"]
+    assert message in sj["error"]
 
 
 def test_malformed_job_is_quarantined(env, tmp_path):
