@@ -11,8 +11,14 @@ on failure:
 2. build the port's CUDA kernels from ``sequitr_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at its path's shapes and at ragged ones, then timed (CUDA events, median
-   of many) beside its bound, its plain version and a PyTorch yardstick;
+   at its path's shapes and at ragged ones (for the conv kernels: shapes that
+   reach every body and every branch of the tensor-core bodies, with the body
+   the launcher picks printed and held to the alignment rule), then timed
+   (CUDA events, median of many) beside its bound, its plain version and a
+   PyTorch yardstick; the conv entries carry ``ms`` (as a user calls the
+   entry point, weights packed inside the call) and ``kernel_ms`` (the kernel
+   alone on packed weights), and the timed shapes must have run the
+   pipelined tensor-core body;
 4. studies phase: ``enc0`` of the folded bf16 ``unet2d_cells`` (1 -> 32 ->
    32 channels) on a normalized 1024x1024 frame, chained through each of the
    three conv study entry points, the launch counts reset before each chain
@@ -35,8 +41,15 @@ on failure:
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
+
+    python3 chip_smoke.py --phases conv,studies
+
+runs only the named phases (of ``histogram``, ``conv``, ``studies``,
+``model``, ``polyphase``, ``profile``, ``serve``) after the build, for work on
+one kernel, and prints neither of the two closing lines.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -60,34 +73,11 @@ def _fail(msg: str) -> int:
 
 
 def _median_ms(fn, n: int = 100) -> float:
-    """Median device time of ``fn()`` over ``n`` calls, from CUDA events.
+    """Median device time of ``fn()`` over ``n`` calls: the package's timer
+    (CUDA events, the stream held while the host queues the calls)."""
+    from sequitr_tpu_torch.utils import device_median_ms
 
-    A sleep kernel first holds the stream for twice the time the host takes
-    to queue all ``n`` calls, so the events see back-to-back device time,
-    not launch overhead.
-    """
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    events = [
-        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        for _ in range(n)
-    ]
-    # cycles at up to 2 GHz: a slower clock only sleeps longer
-    torch.cuda._sleep(int(2e9 * (2 * n * enqueue_s + 0.01)))
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in events)
-    return times[n // 2]
+    return device_median_ms(fn, n)
 
 
 def _miou(a, b, k: int) -> float:
@@ -232,10 +222,23 @@ REPLACES = {
 }
 
 
+def _expected_body(torch, name, w_img, c_in, dtype, wb):
+    """The launchers' rule, from the arguments alone: the tensor cores take
+    bf16 input whose channels fill k = 16 steps; their tiles are copied
+    asynchronously in 16-byte pieces where every piece is aligned (fresh
+    allocations are; the flat layout's row stride must be a multiple of 8)."""
+    if dtype != torch.bfloat16 or c_in % 16:
+        return "cuda_cores"
+    if name != "conv3x3_bias_act" and wb % 8:
+        return "mma_synchronous"
+    return "mma_pipelined"
+
+
 def conv_kernel_phase(torch, conv):
     """Each conv entry point against its plain version on the card (TF32
-    off), at the shapes of the CPU tests, ragged ones, C_in = 1 and the
-    full-width bf16 shapes; then timed at 1024x1024 32 -> 32 bf16, ReLU."""
+    off), at the shapes of the CPU tests, ragged ones, C_in = 1, bf16 shapes
+    that reach every branch of the tensor-core bodies and the full-width bf16
+    shapes; then timed at 1024x1024 32 -> 32 bf16, ReLU."""
     import torch.nn.functional as F
 
     from sequitr_tpu_torch.studies import conv2d_gemm as g
@@ -249,12 +252,20 @@ def conv_kernel_phase(torch, conv):
         (32, 120, 16, 8, torch.float32),
         (333, 517, 3, 5, torch.float32),
         (1024, 1024, 1, 32, torch.float32),
+        # ragged: partial tiles; W+8 = 108 is no multiple of 8, so conv3x3_gemm
+        # gathers its tiles synchronously
+        (70, 100, 32, 32, torch.bfloat16),
+        (72, 104, 16, 8, torch.bfloat16),  # aligned and ragged
+        (40, 72, 48, 40, torch.bfloat16),  # a second, partial block of channels
+        (5, 7, 16, 8, torch.bfloat16),  # smaller than one tile
+        (8, 56, 32, 32, torch.bfloat16),  # fewer tiles (2) than ring stages
         (1024, 1024, 32, 32, torch.bfloat16),
         (1024, 1024, 64, 32, torch.bfloat16),
     ]
     entries = _conv_entries(torch)
     max_err = {name: 0.0 for name in entries}
     timed = wide = None
+    timed_bodies = {}
     for h, w_img, c_in, c_out, dtype in cases:
         x = torch.randn((h, w_img, c_in), generator=gen).to(dtype).cuda()
         w = (torch.randn((3, 3, c_in, c_out), generator=gen) * 0.1).cuda()
@@ -267,12 +278,15 @@ def conv_kernel_phase(torch, conv):
             wide = (x, w, b)
         for name, (run, flat) in entries.items():
             if flat is None:
+                wb = 0
+                body = conv.conv3x3_nhwc_body(x, wk)
                 got = run(x, w, b)
                 want = conv.conv3x3_nhwc_reference(x, wk, bk)
             else:
                 flatten, conv_fn, _, _, wb_of = flat
                 wb = wb_of(w_img)
                 xf = flatten(x)
+                body = conv.conv3x3_flat_chw_body(xf, wk, h, w_img, wb, g.MARGIN)
                 got = conv_fn(xf, w, b, h, w_img)
                 want = conv.conv3x3_flat_chw_reference(xf, wk, bk, h, w_img, wb, g.MARGIN)
                 cols = got.reshape(c_out, h, wb)
@@ -281,17 +295,25 @@ def conv_kernel_phase(torch, conv):
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != dtype:
                 raise AssertionError(f"{name} {shape}: {got.shape} {got.dtype}")
+            if body["body"] != _expected_body(torch, name, w_img, c_in, dtype, wb):
+                raise AssertionError(f"{name} {shape}: the launcher picked {body}")
+            if timed is not None and x is timed[0]:
+                timed_bodies[name] = body
+            ran = (
+                f"body {body['body']}{' by TMA' if body['tma'] else ''}, {body['stages']} tiles in flight, "
+                f"{body['blocks_per_sm']} blocks an SM, {body['smem_bytes']} B shared"
+            )
             if dtype == torch.float32:
                 err = float((got - want).abs().max())
                 max_err[name] = max(max_err[name], err)
                 if not err <= F32_CONV_BAR:
                     raise AssertionError(f"{name} {shape}: max |diff| {err} > {F32_CONV_BAR}")
-                print(f"kernel {name} {shape}: max |diff| vs plain {err:.3g} (bar {F32_CONV_BAR})")
+                print(f"kernel {name} {shape}: max |diff| vs plain {err:.3g} (bar {F32_CONV_BAR}); {ran}")
             else:
                 equal, worst = _hold_bf16(torch, f"{name} {shape}", got, want)
                 print(
                     f"kernel {name} {shape}: {equal:.6f} of outputs equal to plain "
-                    f"(bar {BF16_EQUAL_BAR}), worst {worst:.3g} bf16 steps (bar {BF16_STEPS_BAR})"
+                    f"(bar {BF16_EQUAL_BAR}), worst {worst:.3g} bf16 steps (bar {BF16_STEPS_BAR}); {ran}"
                 )
 
     # timing at the full-width shape of the studies: 1024x1024, 32 -> 32, bf16
@@ -310,11 +332,25 @@ def conv_kernel_phase(torch, conv):
     # product is up against, beside the whole chain it replaces
     conv_only_ms = _median_ms(lambda: F.conv2d(xc, wc, padding=1))
     print(f"kernel yardstick 1024x1024 32->32 bf16: F.conv2d alone {conv_only_ms:.5f} ms")
+    # a device-to-device copy of x: as many bytes read and written as the NHWC
+    # conv moves, at the rate the card's memory gives a mixed stream
+    y_copy = torch.empty_like(x)
+    copy_ms = _median_ms(lambda: y_copy.copy_(x))
+    print(
+        f"kernel yardstick device-to-device copy of {x.numel() * 2} bytes: {copy_ms:.5f} ms "
+        f"({2 * x.numel() * 2 / copy_ms / 1e9:.3f} TB/s read + written)"
+    )
     ops = 2 * 9 * c_in * c_out * h * w_img
     out = []
     for name, (run, flat) in entries.items():
+        body = timed_bodies[name]
+        if body["body"] != "mma_pipelined" or body["stages"] < 2:
+            raise AssertionError(f"{name}: the timed shape ran {body}, not the pipelined body")
+        # ms: the entry point as a user calls it (it packs the weights: two
+        # small cast kernels); kernel_ms: the kernel alone on packed weights
         if flat is None:
             ms = _median_ms(lambda: run(x, w, b))
+            kernel_ms = _median_ms(lambda: conv.conv3x3_nhwc(x, wk, bk))
             plain_ms = _median_ms(lambda: conv.conv3x3_nhwc_reference(x, wk, bk), n=20)
             in_elems, out_elems = x.numel(), h * w_img * c_out
         else:
@@ -322,6 +358,9 @@ def conv_kernel_phase(torch, conv):
             wb = wb_of(w_img)
             xf = flatten(x)
             ms = _median_ms(lambda: conv_fn(xf, w, b, h, w_img))
+            kernel_ms = _median_ms(
+                lambda: conv.conv3x3_flat_chw(xf, wk, bk, h, w_img, wb, g.MARGIN)
+            )
             plain_ms = _median_ms(
                 lambda: conv.conv3x3_flat_chw_reference(xf, wk, bk, h, w_img, wb, g.MARGIN), n=20
             )
@@ -343,14 +382,22 @@ def conv_kernel_phase(torch, conv):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
+            "kernel_ms": kernel_ms,
+            "body": body["body"],
+            "stages": body["stages"],
+            "blocks_per_sm": body["blocks_per_sm"],
+            "tma": body["tma"],
         }
         print(
-            f"kernel {name} 1024x1024 32->32 bf16 relu: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"kernel {name} 1024x1024 32->32 bf16 relu: {ms:.5f} ms as called, {kernel_ms:.5f} ms "
+            f"the kernel alone ({entry['bound_ms'] / kernel_ms:.3f} of its bound), body "
+            f"{body['body']}{' by TMA' if body['tma'] else ''} with {body['stages']} tiles in flight and {body['blocks_per_sm']} "
+            f"blocks an SM, plain {plain_ms:.5f} ms, "
             f"F.conv2d + cast + bias + relu + cast {library_ms:.5f} ms, bound "
             f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: {bytes_moved} bytes, {ops} operations)"
         )
         out.append(entry)
-    # the wider level-0 conv (dec0's first: 64 -> 32), kernel times only
+    # the wider level-0 conv (dec0's first: 64 -> 32), times as called only
     x, w, b = wide
     for name, (run, flat) in entries.items():
         xin = x if flat is None else flat[0](x)
@@ -669,7 +716,19 @@ def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
-def main() -> int:
+PHASES = ("histogram", "conv", "studies", "model", "polyphase", "profile", "serve")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of sequitr_tpu_torch on one CUDA card.")
+    parser.add_argument(
+        "--phases", default=None,
+        help=f"comma-separated subset of {', '.join(PHASES)}: run only these, print no result",
+    )
+    args = parser.parse_args(argv)
+    phases = args.phases.split(",") if args.phases else None
+    if phases and set(phases) - set(PHASES):
+        parser.error(f"unknown phase in {args.phases!r}")
     try:
         import torch
     except ImportError:
@@ -703,8 +762,23 @@ def main() -> int:
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
     for name, log in zip(names, logs):
         for line in log.splitlines():
-            if "ptxas info" in line:
+            if "ptxas info" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}")
+
+    if phases is not None:
+        run = {
+            "histogram": lambda: kernel_phase(torch, hist),
+            "conv": lambda: conv_kernel_phase(torch, conv),
+            "studies": lambda: studies_phase(torch, fixtures, unet, conv),
+            "model": lambda: model_phase(torch, fixtures, unet),
+            "polyphase": lambda: polyphase_phase(torch, fixtures, unet),
+            "profile": lambda: profile_phase(torch, fixtures, unet),
+            "serve": lambda: serve_phase(torch, hist, conv, smi_line),
+        }
+        for name in phases:
+            run[name]()
+        print(f"chip_smoke: ran only {', '.join(phases)}; no result line")
+        return 0
 
     entry = kernel_phase(torch, hist)
     conv_entries = conv_kernel_phase(torch, conv)

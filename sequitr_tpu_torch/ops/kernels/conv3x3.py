@@ -24,6 +24,17 @@ activation are applied to the f32 sum, which is rounded once, to
 For a CUDA tensor each entry point launches its kernel (counted in
 ``.launches``) or raises; for a CPU tensor it runs the plain PyTorch version
 beside it (``*_reference``), which no card path calls.
+
+Each kernel has three bodies, and its launcher picks one from the arguments
+(``conv3x3_nhwc_body`` / ``conv3x3_flat_chw_body`` report the choice without
+launching): ``"mma_pipelined"``, the tensor cores fed by a ring of tiles that
+asynchronous copies fill (bf16 input, C_in a multiple of 16, and every
+16-byte piece aligned: the base of ``x``; for the flat layout also the row
+stride and the margin multiples of 8), by the copy engine (TMA) where C_in
+is 16, 32 or 64, else by ``cp.async``; ``"mma_synchronous"``, the same
+product with tiles gathered in 2-byte pieces (flat layout whose stride, margin
+or base is not aligned, e.g. odd widths); ``"cuda_cores"``, f32 multiply-add
+(f32 input, or C_in that fills no k = 16 step).
 """
 
 from __future__ import annotations
@@ -43,39 +54,73 @@ __all__ = [
     "conv3x3_nhwc_reference",
     "conv3x3_flat_chw",
     "conv3x3_flat_chw_reference",
+    "conv3x3_nhwc_body",
+    "conv3x3_flat_chw_body",
+    "BODIES",
+    "bind",
 ]
 
 ACTIVATIONS = ("relu", "none")
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # rows the flat layout carries beyond H (1 ring row above, 15 below)
 FLAT_EXTRA_ROWS = 16
+# the bodies of a kernel, by the code ``seq_conv3x3_body`` reports
+BODIES = ("cuda_cores", "mma_synchronous", "mma_pipelined")
 
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``csrc/conv3x3.cu`` on ``lib``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.seq_conv3x3_nhwc.restype = i32
+    lib.seq_conv3x3_nhwc.argtypes = [
+        ptr, ptr, ptr, ptr,  # x, w, bias, y
+        i32, i32, i32, i32,  # H, W, C_in, C_out
+        i32, i32, i32,  # relu, in type, out type
+        ptr,  # stream
+    ]
+    lib.seq_conv3x3_flat_chw.restype = i32
+    lib.seq_conv3x3_flat_chw.argtypes = [
+        ptr, ptr, ptr, ptr,  # x, w, bias, y
+        i32, i32, i32, i32,  # H, W, Wb, margin
+        i32, i32,  # C_in, C_out
+        i32, i32, i32,  # relu, in type, out type
+        ptr,  # stream
+    ]
+    lib.seq_conv3x3_body.restype = i32
+    lib.seq_conv3x3_body.argtypes = [
+        i32, ptr, ptr,  # flat layout?, x, y (addresses only)
+        i32, i32, i32, i32,  # H, W, Wb, margin
+        i32, i32,  # C_in, C_out
+        i32, i32,  # in type, out type
+        ptr,  # int[5]: body, stages, blocks an SM, shared memory bytes, TMA?
+    ]
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     """The kernels' library, built and bound at first use."""
     global _lib
     if _lib is None:
-        lib = build_lib.load("conv3x3")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.seq_conv3x3_nhwc.restype = i32
-        lib.seq_conv3x3_nhwc.argtypes = [
-            ptr, ptr, ptr, ptr,  # x, w, bias, y
-            i32, i32, i32, i32,  # H, W, C_in, C_out
-            i32, i32, i32,  # relu, in type, out type
-            ptr,  # stream
-        ]
-        lib.seq_conv3x3_flat_chw.restype = i32
-        lib.seq_conv3x3_flat_chw.argtypes = [
-            ptr, ptr, ptr, ptr,  # x, w, bias, y
-            i32, i32, i32, i32,  # H, W, Wb, margin
-            i32, i32,  # C_in, C_out
-            i32, i32, i32,  # relu, in type, out type
-            ptr,  # stream
-        ]
-        _lib = lib
+        _lib = bind(build_lib.load("conv3x3"))
     return _lib
+
+
+def _body(flat: bool, x, y_ptr: int, h, w_img, wb, margin, c_in, c_out, out_dtype) -> dict:
+    info = (ctypes.c_int * 5)()
+    rc = _library().seq_conv3x3_body(
+        int(flat), x.data_ptr(), y_ptr, h, w_img, wb, margin, c_in, c_out,
+        _TYPE_CODES[x.dtype], _TYPE_CODES[out_dtype], info,
+    )
+    _raise_on(rc, "conv3x3 body query", f"H={h} W={w_img} C_in={c_in} C_out={c_out}")
+    return {
+        "body": BODIES[info[0]],
+        "stages": info[1],
+        "blocks_per_sm": info[2],
+        "smem_bytes": info[3],
+        "tma": bool(info[4]),
+    }
 
 
 def pack_weights(
@@ -186,6 +231,22 @@ def conv3x3_nhwc(
 conv3x3_nhwc.launches = 0
 
 
+def conv3x3_nhwc_body(
+    x: torch.Tensor, wk: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> dict:
+    """Which body ``conv3x3_nhwc`` runs for this CUDA ``x`` and these packed
+    weights, without launching: ``{"body": one of BODIES, "stages": tiles in
+    flight in a block, "blocks_per_sm", "smem_bytes", "tma": tiles brought by the
+    copy engine rather than by cp.async}``. The output is taken
+    to be a fresh allocation (16-byte aligned), as the entry point makes it."""
+    _require_cuda(x, "conv3x3_nhwc_body")
+    h, w_img, c_in = (int(d) for d in x.shape)
+    return _body(
+        False, x.contiguous(), 0, h, w_img, 0, 0, c_in, int(wk.shape[1]),
+        out_dtype or x.dtype,
+    )
+
+
 # ---------------------------------------------------------------------------
 # flat channel-major layout
 # ---------------------------------------------------------------------------
@@ -271,3 +332,17 @@ def conv3x3_flat_chw(
 
 
 conv3x3_flat_chw.launches = 0
+
+
+def conv3x3_flat_chw_body(
+    x_flat: torch.Tensor, wk: torch.Tensor, h: int, w_img: int, wb: int, margin: int,
+    out_dtype: Optional[torch.dtype] = None,
+) -> dict:
+    """Which body ``conv3x3_flat_chw`` runs for these arguments, without
+    launching; the keys of ``conv3x3_nhwc_body``."""
+    _require_cuda(x_flat, "conv3x3_flat_chw_body")
+    _check_flat(x_flat, h, w_img, wb, margin)
+    return _body(
+        True, x_flat.contiguous(), 0, h, w_img, wb, margin, int(x_flat.shape[0]),
+        int(wk.shape[1]), out_dtype or x_flat.dtype,
+    )

@@ -4,11 +4,13 @@ Seeded numpy inputs go through the Pallas study kernels (run by the Pallas
 interpreter on the CPU, as ``tests/test_studies.py`` runs them) and through
 ``sequitr_tpu_torch.studies`` on CPU tensors, where each entry point runs
 its kernel's plain PyTorch version. f32 results agree to 1e-4 (sums of at
-most 288 products of unit-scale values, taken in another order); bf16
+most 576 products of unit-scale values, taken in another order); bf16
 results to two bf16 steps (one rounding each, from f32 sums that differ in
 their last bits). The CUDA kernels themselves are held against the same
 plain versions on the card by ``chip_smoke.py``.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from sequitr_tpu_torch.ops.kernels import conv3x3 as torch_kernels
 from sequitr_tpu_torch.studies import conv2d as torch_nhwc
 from sequitr_tpu_torch.studies import conv2d_gemm as torch_g
 from sequitr_tpu_torch.studies import conv2d_gemm2 as torch_g2
+from sequitr_tpu_torch.studies import conv3x3_parts as torch_parts
 from sequitr_tpu_torch.studies import winograd as torch_wino
 
 
@@ -40,6 +43,17 @@ CASES = {
     "gemm": (1, (64, 64, 32), 16),
     "gemm2": (2, (32, 120, 16), 8),
 }
+# ... and, as "kind:shape", the shapes that reach every branch of the CUDA
+# kernels' tensor-core bodies on the card (chip_smoke.py's conv kernel phase):
+# ragged with an unaligned flat stride, aligned and ragged, a partial block
+# of output channels, smaller than one tile, fewer tiles than ring stages
+CARD_SHAPES = [
+    ((70, 100, 32), 32), ((72, 104, 16), 8), ((40, 72, 48), 40), ((5, 7, 16), 8),
+    ((8, 56, 32), 32),
+]
+for _i, (_shape, _c_out) in enumerate(CARD_SHAPES):
+    for _kind in ("nhwc", "gemm", "gemm2"):
+        CASES[f"{_kind}:{_shape[0]}x{_shape[1]}x{_shape[2]}to{_c_out}"] = (10 + _i, _shape, _c_out)
 FLAT = {
     "gemm": (jax_g, jax_g.flatten_chw, jax_g.unflatten_chw, jax_g.conv3x3_gemm,
              torch_g.flatten_chw, torch_g.unflatten_chw, torch_g.conv3x3_gemm,
@@ -65,20 +79,37 @@ def _inputs(kind, c_out=None, border=1.0):
     return x, w, b
 
 
+def _jax_plain_conv(x, w, b, act="relu"):
+    """``jax.lax.conv_general_dilated`` + bias + activation with the study
+    kernels' rounding points: operands in x's dtype, f32 sums, one rounding."""
+    y = jax.lax.conv_general_dilated(
+        x[None].astype(jnp.float32), w.astype(x.dtype).astype(jnp.float32), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=jax.lax.Precision.HIGHEST,
+    )[0] + b
+    y = jnp.maximum(y, 0.0) if act == "relu" else y
+    return np.asarray(y.astype(x.dtype).astype(jnp.float32))
+
+
 def _jax_conv(kind, x, w, b, **kw):
-    """The Pallas study kernel in interpret mode -> (H, W, C_out) array."""
+    """The Pallas study kernel in interpret mode -> (H, W, C_out) array;
+    where its TPU tile rules refuse the shape, the plain JAX conv."""
     h, w_img = x.shape[:2]
-    if kind == "nhwc":
-        return np.asarray(
-            jax_nhwc.conv3x3_bias_act(x, w, b, interpret=True, **kw).astype(jnp.float32)
-        )
-    _, flatten, unflatten, conv = FLAT[kind][:4]
-    yf = conv(flatten(x), w, b, h, w_img, interpret=True, **kw)
-    return np.asarray(unflatten(yf, h, w_img).astype(jnp.float32))
+    kind = kind.split(":")[0]
+    try:
+        if kind == "nhwc":
+            return np.asarray(
+                jax_nhwc.conv3x3_bias_act(x, w, b, interpret=True, **kw).astype(jnp.float32)
+            )
+        _, flatten, unflatten, conv = FLAT[kind][:4]
+        yf = conv(flatten(x), w, b, h, w_img, interpret=True, **kw)
+        return np.asarray(unflatten(yf, h, w_img).astype(jnp.float32))
+    except ValueError:
+        return _jax_plain_conv(x, w, b, **kw)
 
 
 def _torch_conv(kind, x, w, b, **kw):
     h, w_img = x.shape[:2]
+    kind = kind.split(":")[0]
     if kind == "nhwc":
         return torch_nhwc.conv3x3_bias_act(x, w, b, **kw).float().numpy()
     flatten, unflatten, conv = FLAT[kind][4:7]
@@ -256,6 +287,43 @@ def test_no_card_raises_and_cpu_never_counts_launches(monkeypatch):
     before = (torch_kernels.conv3x3_nhwc.launches, torch_kernels.conv3x3_flat_chw.launches)
     torch_kernels.conv3x3_nhwc(torch.zeros(4, 4, 2), wk, bk)
     assert before == (torch_kernels.conv3x3_nhwc.launches, torch_kernels.conv3x3_flat_chw.launches)
+
+
+def test_failed_build_leaves_no_file(monkeypatch):
+    """Neither a missing nvcc nor one that fails leaves a temporary file in
+    the build directory."""
+    def leftovers():
+        d = torch_build._BUILD_DIR
+        return sorted(f for f in os.listdir(d) if f.endswith(".tmp")) if os.path.isdir(d) else []
+
+    assert leftovers() == []
+    monkeypatch.setattr(torch_build, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        torch_build.build("conv3x3", force=True)
+    assert leftovers() == []
+    monkeypatch.setattr(torch_build, "_nvcc", lambda: "false")  # exits 1, writes nothing
+    with pytest.raises(RuntimeError, match="build failed"):
+        torch_build.build("histogram", force=True)
+    assert leftovers() == []
+
+
+def test_build_variants_and_card_only_study():
+    """A study builds a variant of a kernel under its own name, from the
+    same source with switches set; the parts study refuses to run without a
+    card instead of timing the CPU."""
+    src, lib = torch_build._paths("conv3x3", "without_stores")
+    assert src.endswith("csrc/conv3x3.cu") and lib.endswith("libconv3x3-without_stores.so")
+    assert torch_build._paths("conv3x3")[1].endswith("libconv3x3.so")
+    with pytest.raises(ValueError, match="variant"):
+        torch_build.build("conv3x3", defines=("CONV3X3_WITHOUT_STORES",))
+    with open(src) as f:
+        text = f.read()
+    for defines in torch_parts.VARIANTS.values():
+        assert all(f"#ifdef {d}" in text or f"#ifndef {d}" in text for d in defines)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_parts.run()
 
 
 def test_build_flags_are_per_kernel():

@@ -46,6 +46,7 @@ MODULES = [
     "sequitr_tpu_torch.studies.conv2d_gemm2",
     "sequitr_tpu_torch.studies.winograd",
     "sequitr_tpu_torch.studies.polyphase_conv",
+    "sequitr_tpu_torch.studies.conv3x3_parts",
 ]
 
 PROBE = """

@@ -1,0 +1,142 @@
+// Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu for the
+// CPU: one std::thread per CUDA thread of a block, blocks one after another,
+// a std::barrier for __syncthreads and one per warp for __syncwarp and the
+// warp-wide operations of ptx_emulation.h. It rehearses index arithmetic and
+// the order of copies, waits and barriers, not speed.
+#pragma once
+
+#include "cuda.h"
+
+#include <atomic>
+#include <barrier>
+#include <chrono>
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <deque>
+#include <memory>
+#include <thread>
+#include <utility>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n)
+#define __grid_constant__
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+struct float4 {
+  float x, y, z, w;
+};
+
+using std::fmaf;
+using std::fmaxf;
+template <typename T>
+inline T min(T a, T b) { return a < b ? a : b; }
+
+// --- the runtime calls the launchers make; a small pretend card so that a
+// persistent block walks several tiles ---
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchOutOfResources = 701,
+  cudaErrorNotSupported = 801,
+};
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize };
+namespace emu {
+constexpr int kSmemOptin = 232448 - 1024;
+constexpr int kSmemPerSm = 232448;
+constexpr int kSms = 2;
+constexpr int kBlocksByRegisters = 3;  // what the tensor-core kernels' registers allow
+}  // namespace emu
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? emu::kSmemOptin : emu::kSms;
+  return cudaSuccess;
+}
+template <typename K>
+inline cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
+  return bytes <= emu::kSmemOptin ? cudaSuccess : cudaErrorInvalidValue;
+}
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t bytes) {
+  *n = static_cast<int>(emu::kSmemPerSm / (bytes + 1024));
+  if (*n > emu::kBlocksByRegisters) *n = emu::kBlocksByRegisters;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDriverEntryPoint(const char*, void** fn, int,
+                                           cudaDriverEntryPointQueryResult* found) {
+  *fn = reinterpret_cast<void*>(&emu_encode_tiled);
+  *found = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
+inline void __trap() { std::abort(); }
+
+// --- threads, blocks, barriers ---
+namespace emu {
+struct Warp {
+  std::barrier<> bar{32};
+  const void* addr[32];
+  uint32_t regs[32][6];
+};
+struct Block {
+  explicit Block(int threads) : bar(threads), warps((threads + 31) / 32) {
+    for (auto& w : warps) w = std::make_unique<Warp>();
+  }
+  std::barrier<> bar;
+  std::vector<std::unique_ptr<Warp>> warps;
+  std::vector<unsigned char> smem;
+};
+struct Idx {
+  unsigned x, y, z;
+};
+inline thread_local Block* block = nullptr;
+inline thread_local Warp* warp = nullptr;
+inline thread_local int lane = 0;
+}  // namespace emu
+inline thread_local emu::Idx threadIdx, blockIdx, gridDim;
+
+inline void __syncthreads() { emu::block->bar.arrive_and_wait(); }
+inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
+inline unsigned char* emu_smem() { return emu::block->smem.data(); }
+
+template <typename K, typename... A>
+void emu_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        emu::Block blk(threads);
+        // poisoned, so that a read of shared memory nobody wrote shows
+        blk.smem.assign(bytes + 16, 0x7f);
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t)
+          pool.emplace_back([&, t] {
+            emu::block = &blk;
+            emu::warp = blk.warps[t / 32].get();
+            emu::lane = t % 32;
+            threadIdx = {static_cast<unsigned>(t), 0, 0};
+            blockIdx = {bx, by, bz};
+            gridDim = {grid.x, grid.y, grid.z};
+            kernel(args...);
+          });
+        for (auto& th : pool) th.join();
+      }
+}
