@@ -11,7 +11,12 @@ on failure:
 2. build the port's CUDA kernels from ``sequitr_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at its path's shapes and at ragged ones (for the conv kernels: shapes that
+   at its path's shapes and at ragged ones (for the quantile pass: lo, scale
+   and quantiles equal to the CPU's, counts integer-equal, on the main
+   path's frame, ragged and batched shapes and the frames of the two
+   division faults; no host sync under ``set_sync_debug_mode("error")``, 1
+   or 2 device operations a call, the normalize's device operations a
+   frame; for the conv kernels: shapes that
    reach every body and every branch of the tensor-core bodies, with the body
    the launcher picks printed and held to the alignment rule), then timed
    (CUDA events, median of many) beside its bound, its plain version and a
@@ -91,61 +96,141 @@ def _miou(a, b, k: int) -> float:
     return float(np.mean(ious))
 
 
-def kernel_phase(torch, hist):
-    """Histogram kernel vs its plain version: counts integer-equal,
-    quantiles equal; then timed at the main path's shape."""
-    gen = torch.Generator().manual_seed(20_261_016)
+QS = [0.05, 0.995]
+ULP_SEED = 98  # gamma(2, 100, (64, 256)): 1023 / t is an ulp off the quotient here
+
+
+def _quantile_cases(torch, gen):
+    """name -> (slices, n) f32 on the CPU: the main path's frame, ragged and
+    batched shapes, and the two frames of the division faults."""
+    import numpy as np
 
     def gamma(shape, scale):
         # gamma(2, scale) pixels, like fluorescence background, made on the CPU
         e = torch.empty(shape + (2,)).exponential_(generator=gen)
         return (e.sum(-1) * scale).to(torch.float32)
 
-    cases = {
+    ulp = np.random.default_rng(ULP_SEED).gamma(2.0, 100.0, (64, 256)).astype(np.float32)
+    return {
         "frame 1024x1024": gamma((1, 1024 * 1024), 60.0),
         "ragged 1000x1500": gamma((1, 1000 * 1500), 60.0),
         "odd 333x517": gamma((1, 333 * 517), 60.0),
         "volume (4, 32, 500)": gamma((1, 4 * 32 * 500), 1.0),
         "two channels 512x768": torch.cat([gamma((1, 512 * 768), 1.0), gamma((1, 512 * 768), 500.0)]),
         "batch 8 x 256x256": gamma((8, 256 * 256), 60.0),
+        "ragged slices 3 x 1001": gamma((3, 1001), 60.0),
+        f"ulp frame 64x256 (seed {ULP_SEED})": torch.from_numpy(ulp.reshape(1, -1)),
+        "tie frame 10x10": torch.cat([torch.zeros(5), torch.linspace(1.0, 100.0, 95)])[None],
     }
+
+
+def _device_ops(torch, fn, reps=10):
+    """Device operations and device ms per call of ``fn`` (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 / reps
+    return len(ops) / reps, device_ms, sorted({e.name[:60] for e in ops})
+
+
+def kernel_phase(torch, hist):
+    """The quantile pass against its plain version: lo, scale and quantiles
+    equal to the CPU's (the plain version on the card too), counts
+    integer-equal, the counting launch alone (``histogram_2d``) the same,
+    the scratch zero after every call; no host sync and 1 or 2 device
+    operations a call; then timed at the main path's shape."""
+    from sequitr_tpu_torch.ops import normalize as norm
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.pipeline import infer
+
+    gen = torch.Generator().manual_seed(20_261_016)
+    cases = _quantile_cases(torch, gen)
     max_err = 0
     for name, x_cpu in cases.items():
         x = x_cpu.cuda()
-        lo, hi = torch.aminmax(x, dim=1)
-        scale = 1023 / torch.clamp_min(hi - lo, 1e-20)
-        got = hist.histogram_2d(x, lo, scale)
-        want = hist.histogram_2d_reference(x, lo, scale)
+        got = hist.quantile_pass(x, QS)
+        want = hist.quantile_pass(x_cpu, QS)  # the plain version on the CPU
+        plain_card = hist.quantile_pass_reference(x, QS)
+        counts = hist.histogram_2d(x, want[0].cuda(), want[1].cuda())
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        if err or int(got.sum()) != x.numel():
-            raise AssertionError(f"histogram counts differ on {name}: max |diff| {err}")
-        q_kernel = hist.kernel_quantiles(x, [0.05, 0.995]).cpu()
-        q_plain = hist.kernel_quantiles(x_cpu, [0.05, 0.995])
-        if not torch.equal(q_kernel, q_plain):
-            raise AssertionError(f"quantiles differ on {name}: {q_kernel} vs {q_plain}")
-        print(f"kernel histogram_2d {name}: counts equal, quantiles equal {q_kernel.tolist()}")
+        err = int((got[2].cpu().long() - want[2].long()).abs().max())
+        max_err = max(max_err, err, int((counts.cpu().long() - want[2].long()).abs().max()))
+        if max_err or int(got[2].sum()) != x.numel():
+            raise AssertionError(f"histogram counts differ on {name}: max |diff| {max_err}")
+        for i, what in ((0, "lo"), (1, "scale"), (3, "quantiles")):
+            if not torch.equal(got[i].cpu(), want[i]):
+                raise AssertionError(f"{what} differ on {name}: kernel {got[i]} vs CPU {want[i]}")
+            if not torch.equal(plain_card[i].cpu(), want[i]):
+                raise AssertionError(f"{what} of the plain version differ on {name}: card {plain_card[i]} vs CPU {want[i]}")
+        if any(int(b.abs().sum()) for b in hist._SCRATCH.values()):
+            raise AssertionError(f"{name}: the scratch is not zero after the pass")
+        print(
+            f"kernel quantile_pass {name}: counts equal, lo, scale and quantiles equal to the "
+            f"CPU's (and the plain version's on the card) {got[3].cpu().tolist()}"
+        )
+    # the fault the tensor divisor repairs: a host-scalar divisor is
+    # multiplied in as its reciprocal on the card
+    five = torch.tensor([5.0], device="cuda")
+    by_scalar = float((five / 100)[0])
+    by_tensor = float((five / torch.full((), 100.0, device="cuda"))[0])
+    print(
+        f"kernel tie frame on the card: 5 / 100 by a host scalar {by_scalar!r}, by an f32 tensor "
+        f"{by_tensor!r}, f32(0.05) {float(torch.tensor(0.05))!r}"
+    )
 
+    # no host sync, and the pass is the only device work of kernel_quantiles
     x = cases["frame 1024x1024"].cuda()
-    lo, hi = torch.aminmax(x, dim=1)
-    scale = 1023 / torch.clamp_min(hi - lo, 1e-20)
-    lo_f, hi_f = float(lo), float(hi)
+    frame, _ = synthetic.cells_frame(424_000, (1024, 1024))
+    frames = torch.from_numpy(frame.clip(0, 65535).astype("uint16"))[None, ..., None].cuda()
+    tc = infer.TileConfig()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist.kernel_quantiles(x, QS)
+        norm.percentile_normalize_pallas(x.reshape(1024, 1024))
+        infer._normalize(frames, tc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("kernel quantile_pass: kernel_quantiles, percentile_normalize_pallas and infer._normalize ran with no host sync")
+    pass_ops, pass_dev_ms, pass_names = _device_ops(torch, lambda: hist.kernel_quantiles(x, QS))
+    if pass_ops not in (1.0, 2.0):
+        raise AssertionError(f"kernel_quantiles makes {pass_ops} device operations a call: {pass_names}")
+    norm_ops, norm_dev_ms, norm_names = _device_ops(torch, lambda: infer._normalize(frames, tc))
+    norm_ms = _median_ms(lambda: infer._normalize(frames, tc), n=20)
+    print(f"kernel quantile_pass: {pass_ops:.0f} device ops a call ({'; '.join(pass_names)})")
+    print(
+        f"normalize infer._normalize 1024x1024 uint16: {norm_ops:.1f} device ops, {norm_dev_ms:.5f} "
+        f"device ms a frame (torch.profiler), {norm_ms:.5f} ms as called ({'; '.join(norm_names)})"
+    )
+
+    lo, scale = hist.quantile_pass(x, QS)[:2]
+    lo_f, hi_f = float(lo), float(x.max())
     ms = _median_ms(lambda: hist.histogram_2d(x, lo, scale))
-    plain_ms = _median_ms(lambda: hist.histogram_2d_reference(x, lo, scale), n=30)
+    quantiles_ms = _median_ms(lambda: hist.kernel_quantiles(x, QS))
+    # calls of many operations over fewer calls: the queued launches must
+    # fit the launch queue, or the timer waits for the host
+    plain_ms = _median_ms(lambda: hist.histogram_2d_reference(x, lo, scale), n=20)
+    quantiles_plain_ms = _median_ms(lambda: hist.quantile_pass_reference(x, QS), n=20)
+    kernel_ms = _device_ops(torch, lambda: hist.histogram_2d(x, lo, scale))[1]
     library_ms = _median_ms(lambda: torch.histc(x, bins=1024, min=lo_f, max=hi_f))
     # the same size with pixels spread evenly over the bins: how much of the
     # time is shared-memory atomics piling onto the background's few bins
     u = torch.rand((1, 1024 * 1024), generator=gen).cuda()
-    u_lo, u_hi = torch.aminmax(u, dim=1)
-    u_scale = 1023 / torch.clamp_min(u_hi - u_lo, 1e-20)
+    u_lo, u_scale = hist.quantile_pass(u, QS)[:2]
     u_ms = _median_ms(lambda: hist.histogram_2d(u, u_lo, u_scale))
     print(f"kernel histogram_2d 1024x1024 uniform pixels, 1024 bins: {u_ms:.5f} ms")
     n = x.numel()
-    bytes_moved = n * 4 + 2 * 4 + 1024 * 4  # pixels read, lo+scale read, counts written
-    ops = n * 4  # subtract, multiply, two clamps per pixel (f32, CUDA cores)
-    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    # each pixel read once; lo + scale read, counts written (histogram_2d);
+    # counts, lo, scale and the quantiles written (the pass)
+    t_bytes = (n * 4 + 2 * 4 + 1024 * 4) / H100_BYTES_PER_S * 1e3
+    t_ops = n * 4 / H100_F32_FLOPS * 1e3  # subtract, multiply, two clamps a pixel
+    q_bytes = (n * 4 + 1024 * 4 + 2 * 4 + len(QS) * 4) / H100_BYTES_PER_S * 1e3
+    q_ops = n * 6 / H100_F32_FLOPS * 1e3  # and a min and a max a pixel
     entry = {
         "name": "histogram_2d",
         "route": "cuda",
@@ -158,11 +243,28 @@ def kernel_phase(torch, hist):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+        "quantiles_ms": quantiles_ms,
+        "quantiles_bound_ms": max(q_bytes, q_ops),
+        "quantiles_plain_ms": quantiles_plain_ms,
+        "quantiles_device_ops": pass_ops,
+        "quantiles_kernel_ms": pass_dev_ms,
+        "kernel_ms": kernel_ms,
+        "blocks_per_slice": hist.blocks_per_slice(n, 1),
+        "normalize_device_ops": norm_ops,
+        "normalize_device_ms": norm_dev_ms,
     }
     print(
-        f"kernel histogram_2d 1024x1024 f32, 1024 bins: {ms:.5f} ms, plain "
-        f"{plain_ms:.5f} ms, torch.histc {library_ms:.5f} ms, bound "
-        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']})"
+        f"kernel histogram_2d 1024x1024 f32, 1024 bins, lo and scale given: {ms:.5f} ms "
+        f"({entry['bound_ms'] / ms:.3f} of its bound; {entry['blocks_per_slice']} blocks of 512 threads; "
+        f"the kernel's own device time {kernel_ms:.5f} ms), "
+        f"plain {plain_ms:.5f} ms, torch.histc {library_ms:.5f} ms, bound {entry['bound_ms']:.5f} ms "
+        f"({entry['bound_by']}; the frame is warm in L2, as on the served path)"
+    )
+    print(
+        f"kernel kernel_quantiles 1024x1024 f32, 1024 bins, as called: {quantiles_ms:.5f} ms "
+        f"({entry['quantiles_bound_ms'] / quantiles_ms:.3f} of its bound {entry['quantiles_bound_ms']:.5f} ms; "
+        f"the two kernels' own device time {pass_dev_ms:.5f} ms), "
+        f"plain {quantiles_plain_ms:.5f} ms; no single PyTorch call computes it"
     )
     return entry
 
@@ -632,12 +734,14 @@ def serve_phase(torch, hist, conv, smi_line):
             })
             torch.cuda.synchronize()
             hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
             torch.cuda.synchronize()
             launches[name] = hist.histogram_2d.launches
+            passes = hist.quantile_pass.launches
             conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
@@ -653,13 +757,13 @@ def serve_phase(torch, hist, conv, smi_line):
                 f"(metrics {json.dumps(metrics)})"
             )
             print(
-                f"serve job {name} histogram_2d launches {launches[name]} for "
-                f"{metrics['n_frames']} served frames; conv3x3 study kernels "
+                f"serve job {name} histogram_2d launches {launches[name]} (in {passes} quantile "
+                f"passes, each min/max + counts) for {metrics['n_frames']} served frames; conv3x3 study kernels "
                 f"launched {conv_launches} times (the served graph does not use them)"
             )
             if conv_launches:
                 raise AssertionError(f"job {name}: served path launched a study kernel")
-            if launches[name] < metrics["n_frames"]:
+            if min(launches[name], passes) < metrics["n_frames"]:
                 raise AssertionError(
                     f"job {name}: histogram kernel launched {launches[name]} times "
                     f"for {metrics['n_frames']} frames"

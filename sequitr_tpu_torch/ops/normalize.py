@@ -9,9 +9,10 @@ Three ways to find ``lo``/``hi``, as in the JAX package:
   interpolation (``jnp.percentile``'s default);
 * ``percentile_normalize_fast``: a 4096-bin histogram in plain PyTorch
   (min/max pass, integer bucketing, one scatter-add of counts);
-* ``percentile_normalize_pallas``: a 1024-bin histogram on the CUDA kernel
-  (``ops.kernels.histogram``), the name kept so job JSON's
-  ``"normalize": "pallas"`` means the same thing on both packages.
+* ``percentile_normalize_pallas``: a 1024-bin histogram on the CUDA
+  kernels (``ops.kernels.histogram``: min/max, counts and quantiles in one
+  pass on the device), the name kept so job JSON's ``"normalize":
+  "pallas"`` means the same thing on both packages.
 
 All run per channel on the trailing axis when ``channel_axis`` is set, on
 whatever device the input lies on, and never sync with the host.
@@ -23,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from sequitr_tpu_torch.ops.kernels.histogram import invert_cdf, kernel_quantiles
+from sequitr_tpu_torch.ops.kernels.histogram import invert_cdf, kernel_quantiles, scale_of
 
 __all__ = [
     "percentile_normalize",
@@ -69,7 +70,7 @@ def histogram_quantiles(
     s, c = flat.shape
     lo = flat.amin(dim=0)
     hi = flat.amax(dim=0)
-    scale = (bins - 1) / torch.clamp_min(hi - lo, 1e-20)
+    scale = scale_of(lo, hi, bins)
     idx = ((flat - lo) * scale).to(torch.int32).clamp(0, bins - 1)
     # per-channel histogram: channel c's bins start at c*bins
     offsets = torch.arange(c, dtype=torch.int32, device=flat.device) * bins

@@ -7,9 +7,9 @@ The per-frame chain of the JAX package:
 
 in eager PyTorch on the caller's device. Frames arrive in their storage
 dtype (uint16 stacks cross to the card at 2 bytes a pixel) and are cast
-there. A batch of frames runs as one batch: one histogram-kernel launch
-normalizes every frame, and all their patches go through the network
-together.
+there. A batch of frames runs as one batch: one quantile pass (two kernel
+launches) finds every frame's percentiles, and all their patches go
+through the network together.
 
 ``stream_frames`` keeps frames flowing two ahead of the consumer:
 host->card copies of pinned frames run on a side stream, and results start

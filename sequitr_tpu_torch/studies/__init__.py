@@ -7,6 +7,10 @@
 * ``polyphase_conv`` — the standard forward against the polyphase forward
   (``models.polyphase``), error and time:
   ``python -m sequitr_tpu_torch.studies.polyphase_conv``.
+* ``normalize_pass`` — what the percentile normalize costs on the card (the
+  quantile pass, ``torch.histc``, ``infer._normalize``'s device operations),
+  for this checkout's port or another's:
+  ``python sequitr_tpu_torch/studies/normalize_pass.py [--root DIR]``.
 
 ``roofline``, ``int8_conv`` and ``ptq_unet`` are not ported yet.
 """

@@ -47,6 +47,7 @@ MODULES = [
     "sequitr_tpu_torch.studies.winograd",
     "sequitr_tpu_torch.studies.polyphase_conv",
     "sequitr_tpu_torch.studies.conv3x3_parts",
+    "sequitr_tpu_torch.studies.normalize_pass",
 ]
 
 PROBE = """

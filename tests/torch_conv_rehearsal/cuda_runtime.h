@@ -1,8 +1,9 @@
-// Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu for the
-// CPU: one std::thread per CUDA thread of a block, blocks one after another,
-// a std::barrier for __syncthreads and one per warp for __syncwarp and the
-// warp-wide operations of ptx_emulation.h. It rehearses index arithmetic and
-// the order of copies, waits and barriers, not speed.
+// Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu and
+// csrc/histogram.cu for the CPU: one std::thread per CUDA thread of a block,
+// blocks one after another (launches too), a std::barrier for __syncthreads
+// and one per warp for __syncwarp, the shuffles and the warp-wide operations
+// of ptx_emulation.h; atomics as std::atomic_ref. It rehearses index
+// arithmetic and the order of copies, waits, barriers and tickets, not speed.
 #pragma once
 
 #include "cuda.h"
@@ -43,6 +44,7 @@ struct float4 {
 
 using std::fmaf;
 using std::fmaxf;
+using std::fminf;
 template <typename T>
 inline T min(T a, T b) { return a < b ? a : b; }
 
@@ -96,6 +98,7 @@ struct Warp {
   std::barrier<> bar{32};
   const void* addr[32];
   uint32_t regs[32][6];
+  uint32_t xchg[32];  // the shuffles' values
 };
 struct Block {
   explicit Block(int threads) : bar(threads), warps((threads + 31) / 32) {
@@ -118,11 +121,13 @@ inline void __syncthreads() { emu::block->bar.arrive_and_wait(); }
 inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
 inline unsigned char* emu_smem() { return emu::block->smem.data(); }
 
+// Blocks run one after another, the last index first: a card runs them in
+// any order, and a kernel must not take the highest index for the last.
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
+  for (unsigned bz = grid.z; bz-- > 0;)
+    for (unsigned by = grid.y; by-- > 0;)
+      for (unsigned bx = grid.x; bx-- > 0;) {
         emu::Block blk(threads);
         // poisoned, so that a read of shared memory nobody wrote shows
         blk.smem.assign(bytes + 16, 0x7f);
@@ -139,4 +144,92 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
           });
         for (auto& th : pool) th.join();
       }
+}
+
+// launches with attributes: run as any other launch, in order, so a
+// programmatic dependent launch finds the launch it depends on finished
+enum cudaLaunchAttributeID { cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue {
+  int programmaticStreamSerializationAllowed;
+  unsigned char pad[64];
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim;
+  dim3 blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <typename... P, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&... args) {
+  emu_launch(kernel, cfg->gridDim, static_cast<int>(cfg->blockDim.x), cfg->dynamicSmemBytes,
+             static_cast<P>(args)...);
+  return cudaSuccess;
+}
+
+// --- arithmetic rounded once (g++ with -ffp-contract=off, SSE), bit casts ---
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+// --- atomics and fences: threads of a block run at once here ---
+template <typename T>
+inline T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+template <typename T>
+inline T atomicMax(T* p, T v) {
+  std::atomic_ref<T> a(*p);
+  T old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+template <typename T>
+inline T atomicMin(T* p, T v) {
+  std::atomic_ref<T> a(*p);
+  T old = a.load();
+  while (v < old && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+template <typename T>
+inline T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+
+// --- shuffles: every lane of the warp takes part ---
+namespace emu {
+template <typename T, typename Src>
+inline T shuffle(T v, Src src) {
+  Warp& w = *warp;
+  static_assert(sizeof(T) == 4, "32-bit shuffles");
+  std::memcpy(&w.xchg[lane], &v, 4);
+  w.bar.arrive_and_wait();
+  T out;
+  std::memcpy(&out, &w.xchg[src(lane)], 4);
+  w.bar.arrive_and_wait();
+  return out;
+}
+}  // namespace emu
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  return emu::shuffle(v, [mask](int l) { return l ^ mask; });
+}
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, int delta) {
+  return emu::shuffle(v, [delta](int l) { return l >= delta ? l - delta : l; });
 }

@@ -1,8 +1,16 @@
-// The PTX operations of csrc/conv3x3.cu on the CPU, as the PTX manual defines
-// them. cp.async copies are carried out as late as the program allows: when
-// the thread waits for their group. A tile that is read without that wait
-// (and a barrier) holds the poison of emu_launch, not data.
+// The PTX operations of csrc/conv3x3.cu and csrc/histogram.cu on the CPU, as
+// the PTX manual defines them. cp.async copies are carried out as late as the
+// program allows: when the thread waits for their group. A tile that is read
+// without that wait (and a barrier) holds the poison of emu_launch, not data.
 #pragma once
+
+#include "cuda_bf16.h"
+
+// griddepcontrol: launches run one after another here, so a dependent launch
+// always finds the launch it depends on finished
+inline void grid_dependency_wait() {}
+inline void allow_dependent_launch() {}
+inline unsigned take_ticket(unsigned* ticket) { return std::atomic_ref<unsigned>(*ticket).fetch_add(1); }
 
 namespace emu_ptx {
 struct Copy {
