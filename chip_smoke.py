@@ -32,16 +32,33 @@ on failure:
    (TF32 off), logits within 1e-3 (cuDNN sums in other orders);
 6. polyphase phase: ``models.polyphase`` against the standard forward on
    the card, f32 (TF32 off) at 256x256 and bf16 at 1024x1024, both timed;
-7. profile phase: where a served frame's time goes (torch.profiler);
-8. serve phase: the ``segmentation_unet2d`` job served by ``ImageServer``
-   on the card for three jobs over a 4-frame 1024x1024 uint16 stack, one at
-   a time, every kernel's launch count reset just before each job and read
-   just after (job (a), the default job, is the served main path: its
-   histogram count goes in the ``kernels`` line; it launches the conv study
-   kernels 0 times, as the JAX package's server never reaches its study
-   kernels), job (a)'s labels held against the port's f32 exact-normalize
-   path (mIoU >= 0.997), and job (c), ``polyphase: true``, held against
-   job (a)'s labels.
+7. volume phase: ``unet3d_cells`` at f32 on the card against the CPU (TF32
+   off), then ``polyphase.apply3d`` against the standard 3D forward, f32 at
+   8x64x64 and bf16 at 32x512x512, both timed, with their peak memory and
+   device operations (and any layout transposes among them);
+8. enhance phase: the folded ``gan_denoise`` generator and ``n2v_cells`` at
+   1024x1024, the card against the CPU at f32, then timed at bf16;
+9. profile phase: where a served item's time goes (torch.profiler): 2D
+   frames, volumes (the default tiling and the whole-volume polyphase
+   path) and GAN frames, streamed: wall, busy share, device ops, peak
+   memory, kernels;
+10. serve phase: jobs served by ``ImageServer`` on the card one at a time,
+   every kernel's launch count reset just before each job and read just
+   after: (a)-(c) ``segmentation_unet2d`` over a 4-frame 1024x1024 uint16
+   stack (job (a), the default job, is the served main path: its histogram
+   count goes in the ``kernels`` line; the served jobs launch the conv
+   study kernels 0 times, as the JAX package's server never reaches its
+   study kernels), job (a)'s labels held against the port's f32
+   exact-normalize path (mIoU >= 0.997), job (c), ``polyphase: true``,
+   against job (a)'s labels; (d)-(f) ``segmentation_unet3d`` on 32x512x512
+   uint16 z-stacks from ``synthetic.cells_volume`` (the default tiled job,
+   the whole-volume polyphase job, a 2-timepoint timelapse through ``z``),
+   held against the port's f32 exact-normalize path (mIoU >= 0.99) and (e)
+   against (d); (g) ``enhancement_gan`` and (h) ``denoise`` (``normalize:
+   "none"``, as ``fidelity.py::n2v_fidelity``) on 4-frame 1024x1024 stacks,
+   held against the port's f32 path by PSNR (>= 40 dB), and (i) ``denoise``
+   with the kernel normalize, held against the same bf16 path called
+   directly.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -50,8 +67,9 @@ outside a checkout of the repository.
     python3 chip_smoke.py --phases conv,studies
 
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
-``model``, ``polyphase``, ``profile``, ``serve``) after the build, for work on
-one kernel, and prints neither of the two closing lines.
+``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``, ``serve``)
+after the build, for work on one kernel or path, and prints neither of the
+two closing lines.
 """
 
 import argparse
@@ -70,6 +88,10 @@ F32_CONV_BAR = 1e-4  # sums of <= 576 products of unit-scale values, reordered
 BF16_EQUAL_BAR = 0.999  # share of outputs bit-equal to the plain version's
 BF16_STEPS_BAR = 2  # and no output further than this many bf16 values away
 POLY_AGREE_BAR = 0.999
+MIOU3D_BAR = 0.99  # served volume labels against the f32 exact-normalize path
+PSNR_BAR_DB = 40.0  # GAN / N2V served output against the f32 path
+PSNR_DIRECT_BAR_DB = 80.0  # a served output against the same path called directly
+VOLUME = (32, 512, 512)  # the JAX bench's z-stack (bench.py::bench_unet3d)
 
 
 def _fail(msg: str) -> int:
@@ -121,21 +143,37 @@ def _quantile_cases(torch, gen):
         "ragged slices 3 x 1001": gamma((3, 1001), 60.0),
         f"ulp frame 64x256 (seed {ULP_SEED})": torch.from_numpy(ulp.reshape(1, -1)),
         "tie frame 10x10": torch.cat([torch.zeros(5), torch.linspace(1.0, 100.0, 95)])[None],
+        "volume 32x512x512": gamma((1, 32 * 512 * 512), 60.0),
     }
 
 
-def _device_ops(torch, fn, reps=10):
-    """Device operations and device ms per call of ``fn`` (torch.profiler)."""
+def _device_events(torch, fn, reps):
+    """The device operations of ``reps`` calls of ``fn`` after a warm-up
+    call (torch.profiler). A window in which the profiler caught no device
+    operation at all is taken again (seen once on the card: a trace of ten
+    kernel launches came back empty)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 / reps
-    return len(ops) / reps, device_ms, sorted({e.name[:60] for e in ops})
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    raise AssertionError("torch.profiler caught no device operation in three windows")
+
+
+def _ms(events, reps) -> float:
+    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / reps
+
+
+def _device_ops(torch, fn, reps=10):
+    """Device operations and device ms per call of ``fn``, and their names."""
+    ops = _device_events(torch, fn, reps)
+    return len(ops) / reps, _ms(ops, reps), sorted({e.name[:60] for e in ops})
 
 
 def kernel_phase(torch, hist):
@@ -265,6 +303,60 @@ def kernel_phase(torch, hist):
         f"({entry['quantiles_bound_ms'] / quantiles_ms:.3f} of its bound {entry['quantiles_bound_ms']:.5f} ms; "
         f"the two kernels' own device time {pass_dev_ms:.5f} ms), "
         f"plain {quantiles_plain_ms:.5f} ms; no single PyTorch call computes it"
+    )
+
+    # the 3D jobs' shape: a whole volume is one slice of 32*512*512 values
+    v = cases["volume 32x512x512"].cuda()
+    v_lo, v_scale = hist.quantile_pass(v, QS)[:2]
+    v_lo_f, v_hi_f = float(v_lo), float(v.max())
+    nv = v.numel()
+    v_ms = _median_ms(lambda: hist.histogram_2d(v, v_lo, v_scale))
+    v_q_ms = _median_ms(lambda: hist.kernel_quantiles(v, QS))
+    v_plain_ms = _median_ms(lambda: hist.histogram_2d_reference(v, v_lo, v_scale), n=20)
+    v_q_plain_ms = _median_ms(lambda: hist.quantile_pass_reference(v, QS), n=20)
+    v_kernel_ms = _device_ops(torch, lambda: hist.histogram_2d(v, v_lo, v_scale))[1]
+    v_q_ops, v_q_dev_ms, _ = _device_ops(torch, lambda: hist.kernel_quantiles(v, QS))
+    v_lib_ms = _median_ms(lambda: torch.histc(v, bins=1024, min=v_lo_f, max=v_hi_f))
+    vt_bytes = (nv * 4 + 2 * 4 + 1024 * 4) / H100_BYTES_PER_S * 1e3
+    vt_ops = nv * 4 / H100_F32_FLOPS * 1e3
+    vq_bytes = (nv * 4 + 1024 * 4 + 2 * 4 + len(QS) * 4) / H100_BYTES_PER_S * 1e3
+    vq_ops = nv * 6 / H100_F32_FLOPS * 1e3
+    vol_u16 = (cases["volume 32x512x512"].reshape((1,) + VOLUME + (1,)).clamp(0, 65535)
+               .to(torch.int32).to(torch.uint16).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        infer._normalize(vol_u16, tc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    v_norm_ops, v_norm_dev_ms, _ = _device_ops(torch, lambda: infer._normalize(vol_u16, tc), reps=5)
+    entry.update({
+        "volume_shape": list(VOLUME),
+        "volume_ms": v_ms,
+        "volume_kernel_ms": v_kernel_ms,
+        "volume_bound_ms": max(vt_bytes, vt_ops),
+        "volume_plain_ms": v_plain_ms,
+        "volume_library_ms": v_lib_ms,
+        "volume_quantiles_ms": v_q_ms,
+        "volume_quantiles_kernel_ms": v_q_dev_ms,
+        "volume_quantiles_device_ops": v_q_ops,
+        "volume_quantiles_bound_ms": max(vq_bytes, vq_ops),
+        "volume_quantiles_plain_ms": v_q_plain_ms,
+        "volume_blocks_per_slice": hist.blocks_per_slice(nv, 1),
+        "volume_normalize_device_ops": v_norm_ops,
+        "volume_normalize_device_ms": v_norm_dev_ms,
+    })
+    print(
+        f"kernel histogram_2d volume {VOLUME} ({nv} values, one slice) f32, 1024 bins: {v_ms:.5f} ms "
+        f"by events, own device time {v_kernel_ms:.5f} ms ({entry['volume_bound_ms'] / v_ms:.3f} of its "
+        f"bound {entry['volume_bound_ms']:.5f} ms by events, {entry['volume_bound_ms'] / v_kernel_ms:.3f} "
+        f"by own time), plain {v_plain_ms:.5f} ms, torch.histc {v_lib_ms:.5f} ms"
+    )
+    print(
+        f"kernel kernel_quantiles volume {VOLUME}: {v_q_ms:.5f} ms as called, {v_q_ops:.0f} device ops, "
+        f"the two kernels' own time {v_q_dev_ms:.5f} ms, bound {entry['volume_quantiles_bound_ms']:.5f} ms, "
+        f"plain {v_q_plain_ms:.5f} ms; infer._normalize of a uint16 volume: {v_norm_ops:.1f} device ops, "
+        f"{v_norm_dev_ms:.5f} device ms, no host sync"
     )
     return entry
 
@@ -631,35 +723,165 @@ def model_phase(torch, fixtures, unet):
     print(f"model unet2d_cells bf16 folded, 1x1024x1024: forward {fwd_ms:.4f} ms")
 
 
-def profile_phase(torch, fixtures, unet):
-    """Where a served frame's time goes: the labels-only whole-frame path
-    (the default job) streaming 1024x1024 uint16 frames, under
-    torch.profiler: wall time per frame, the card's busy share, kernels."""
-    import numpy as np
+def _profiled(torch, fn, reps=2):
+    """``_device_ops``' count and ms per call of ``fn``, the layout
+    transposes among its operations, and its six costliest kernels."""
+    ops = _device_events(torch, fn, reps)
+    layout_ops = [
+        e for e in ops if any(w in e.name.lower() for w in ("tonchw", "tonhwc", "transpose"))
+    ]
+    layout = sorted({e.name[:80] for e in layout_ops})
+    if layout:
+        layout = [
+            f"{len(layout_ops) / reps:.0f} a call, {_ms(layout_ops, reps):.4f} device ms: "
+            + "; ".join(layout)
+        ]
+    by_name = {}
+    for e in ops:
+        by_name.setdefault(e.name, []).append(e)
+    top = sorted(by_name.items(), key=lambda kv: -_ms(kv[1], reps))[:6]
+    return len(ops) / reps, _ms(ops, reps), layout, [(n[:90], _ms(es, reps)) for n, es in top]
 
-    from sequitr_tpu_torch.pipeline import infer
 
-    _, cfg, model, _ = fixtures.load("unet2d_cells", device="cuda")
-    model = unet.fold_batchnorm(model)
-    tc = infer.TileConfig(
-        patch=(1024, 1024), overlap=(0, 0), emit_probs=False, labels_dtype="uint16"
-    )
-    fn = infer.make_frame_inferrer(cfg, tc, (1024, 1024), device="cuda")
-    rng = np.random.default_rng(5)
-    frames = [rng.gamma(2.0, 60.0, (1024, 1024)).astype(np.uint16) for _ in range(8)]
+def _peak_gb(torch, fn):
+    """``fn()``'s result and the card's peak allocated memory during it, GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
-    def run():
-        for r in infer.infer_stack(fn, model, iter(frames), device="cuda"):
-            np.asarray(r.labels)
 
+def volume_phase(torch, fixtures, unet):
+    """unet3d_cells on the card: f32 against the CPU, then the volumetric
+    polyphase forward against the standard one, f32 at 8x64x64 and bf16 at
+    the served 32x512x512, timed, with peak memory and device operations."""
+    from sequitr_tpu_torch.models import polyphase
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(13)
+    _, _, cpu_model, _ = fixtures.load("unet3d_cells", compute_dtype="float32", device="cpu")
+    _, _, gpu_model, _ = fixtures.load("unet3d_cells", compute_dtype="float32", device="cuda")
+    x = torch.rand((1, 8, 64, 64, 1), generator=gen)
+    with torch.inference_mode():
+        want = cpu_model(x)
+        got = gpu_model(x.cuda()).cpu()
+    err = float((got - want).abs().max())
+    print(f"volume unet3d_cells f32 8x64x64: card vs CPU max |logit diff| {err:.3g}")
+    if not err < 1e-3:
+        raise AssertionError(f"3D card and CPU logits differ by {err}")
+    out = {}
+    for dtype, shape, n in (("float32", (8, 64, 64), 20), ("bfloat16", VOLUME, 5)):
+        _, _, model, _ = fixtures.load("unet3d_cells", compute_dtype=dtype, device="cuda")
+        model = unet.fold_batchnorm(model)
+        poly = polyphase.Polyphase3d(model)
+        x = torch.rand((1,) + shape + (1,), generator=gen).cuda()
+        with torch.inference_mode():
+            base, base_gb = _peak_gb(torch, lambda: model(x))
+            got, poly_gb = _peak_gb(torch, lambda: poly(x))
+            rel = float((got - base).abs().max() / base.abs().max())
+            agree = float((got.argmax(-1) == base.argmax(-1)).float().mean())
+            del base, got
+            base_ms = _median_ms(lambda: model(x), n=n)
+            poly_ms = _median_ms(lambda: poly(x), n=n)
+            ops, dev_ms, layout, top = _profiled(torch, lambda: model(x))
+            p_ops, p_dev_ms, p_layout, p_top = _profiled(torch, lambda: poly(x))
+        mvox = shape[0] * shape[1] * shape[2] / 1e6
+        print(
+            f"volume unet3d_cells {dtype} {'x'.join(map(str, shape))}: polyphase rel err {rel:.3g}, "
+            f"argmax agreement {agree:.6f}; standard {base_ms:.4f} ms ({mvox / base_ms * 1e3:.1f} Mvox/s), "
+            f"peak {base_gb:.3f} GB, {ops:.0f} device ops ({dev_ms:.4f} device ms), layout transposes "
+            f"{layout or 'none'}; polyphase {poly_ms:.4f} ms ({mvox / poly_ms * 1e3:.1f} Mvox/s), peak "
+            f"{poly_gb:.3f} GB, {p_ops:.0f} device ops ({p_dev_ms:.4f} device ms), layout transposes "
+            f"{p_layout or 'none'}"
+        )
+        for which, rows in (("standard", top), ("polyphase", p_top)):
+            for name, ms in rows:
+                print(f"volume {dtype} {which} {ms:.4f} ms/forward {name}")
+        if dtype == "bfloat16":
+            # which convs of the standard forward bring layout transposes
+            calls, conv_fn = [], model._conv
+            model._conv = lambda t, p: calls.append((t, p)) or conv_fn(t, p)
+            with torch.inference_mode():
+                model(x)
+            del model._conv
+            for i, (t, p) in enumerate(calls):
+                with torch.inference_mode():
+                    n_ops, _, t_layout, _ = _profiled(torch, lambda: model._conv(t, p), reps=1)
+                if t_layout:
+                    print(
+                        f"volume bf16 conv {i} (weight {tuple(p.w.shape)}, input "
+                        f"{tuple(t.shape)} {t.dtype}): {t_layout[0]}"
+                    )
+            del calls
+        if dtype == "float32" and not rel < 1e-5:
+            raise AssertionError(f"3D polyphase f32 relative error {rel} >= 1e-5")
+        if agree < POLY_AGREE_BAR:
+            raise AssertionError(f"3D polyphase {dtype} argmax agreement {agree} < {POLY_AGREE_BAR}")
+        out[dtype] = dict(standard_ms=base_ms, polyphase_ms=poly_ms, standard_gb=base_gb,
+                          polyphase_gb=poly_gb, ops=ops, polyphase_ops=p_ops)
+    return out
+
+
+def enhance_phase(torch, fixtures, unet):
+    """The folded gan_denoise generator and n2v_cells at 1024x1024: the card
+    against the CPU at f32 (TF32 off), then timed at bf16."""
+    from sequitr_tpu_torch.models import gan
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(17)
+    x = torch.rand((1, 1024, 1024, 1), generator=gen)
+
+    def served(name, dtype, device):
+        kind, _, model, _ = fixtures.load(name, compute_dtype=dtype, device=device)
+        if kind == "gan":
+            model = gan.fold_generator(model)
+            return lambda t: gan.generator_apply(model, t)
+        model = unet.fold_batchnorm(model)
+        return model
+
+    for name in ("gan_denoise", "n2v_cells"):
+        with torch.inference_mode():
+            want = served(name, "float32", "cpu")(x)
+            got = served(name, "float32", "cuda")(x.cuda()).cpu()
+            err = float((got - want).abs().max())
+            fwd = served(name, "bfloat16", "cuda")
+            xc = x.cuda()
+            ms = _median_ms(lambda: fwd(xc), n=20)
+            ops, dev_ms, layout, _ = _profiled(torch, lambda: fwd(xc))
+        print(
+            f"enhance {name} 1024x1024: f32 card vs CPU max |diff| {err:.3g}; bf16 folded forward "
+            f"{ms:.4f} ms ({1e3 / ms:.2f} frames/s), {ops:.0f} device ops ({dev_ms:.4f} device ms), "
+            f"layout transposes {layout or 'none'}"
+        )
+        if not err < 1e-3:
+            raise AssertionError(f"{name}: card and CPU differ by {err}")
+
+
+def _profile_stream(torch, label, run, n, unit, top=10):
+    """One warm ``run()`` (``n`` items streamed to the host) under
+    torch.profiler: wall ms an item, the card's busy time (the union of its
+    kernels' spans), device ops an item, peak memory, and the costliest
+    kernels; and the wall time of a run without the profiler, over which
+    the busy share is taken (the profiler's own host work once tripled a
+    stream's wall time)."""
     run()  # warm up
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernels = [
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -673,27 +895,97 @@ def profile_phase(torch, fixtures, unet):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    n = len(frames)
     print(
-        f"profile labels-only 1024x1024 uint16 x{n}: {wall / n * 1e3:.4f} ms/frame wall, "
-        f"card busy {busy / 1e3 / n:.4f} ms/frame ({busy / (wall * 1e6):.3f} of wall), "
-        f"{len(kernels) / n:.1f} device ops/frame"
+        f"profile {label} x{n}: {plain_wall / n * 1e3:.4f} ms/{unit} wall "
+        f"({wall / n * 1e3:.4f} under the profiler), card busy {busy / 1e3 / n:.4f} ms/{unit} "
+        f"({busy / (plain_wall * 1e6):.3f} of the wall), "
+        f"{len(kernels) / n:.1f} device ops/{unit}, peak {peak_gb:.3f} GB"
     )
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"profile {us / 1e3 / n:.4f} ms/frame {name[:110]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"profile {us / 1e3 / n:.4f} ms/{unit} {name[:110]}")
+
+
+def profile_phase(torch, fixtures, unet):
+    """Where a served item's time goes, under torch.profiler: the
+    labels-only whole-frame path (the default 2D job) streaming 1024x1024
+    uint16 frames; the default 3D job's tiled path and the whole-volume
+    polyphase path streaming 32x512x512 uint16 volumes; the GAN enhancer
+    streaming 1024x1024 frames."""
+    import numpy as np
+
+    from sequitr_tpu_torch.models import gan
+    from sequitr_tpu_torch.pipeline import infer
+
+    rng = np.random.default_rng(5)
+
+    def streamed(fn, model, items, labels=True):
+        def run():
+            if labels:
+                for r in infer.infer_stack(fn, model, iter(items), device="cuda"):
+                    np.asarray(r.labels)
+            else:
+                for out in infer.stream_frames(
+                    lambda f: fn(model, f), iter(items),
+                    prefetch_host=infer._copy_to_host_async, device="cuda",
+                ):
+                    np.asarray(out)
+
+        return run
+
+    _, cfg, model, _ = fixtures.load("unet2d_cells", device="cuda")
+    model = unet.fold_batchnorm(model)
+    tc = infer.TileConfig(
+        patch=(1024, 1024), overlap=(0, 0), emit_probs=False, labels_dtype="uint16"
+    )
+    fn = infer.make_frame_inferrer(cfg, tc, (1024, 1024), device="cuda")
+    frames = [rng.gamma(2.0, 60.0, (1024, 1024)).astype(np.uint16) for _ in range(8)]
+    _profile_stream(torch, "labels-only 1024x1024 uint16", streamed(fn, model, frames), 8, "frame")
+
+    _, cfg3, model3, _ = fixtures.load("unet3d_cells", device="cuda")
+    model3 = unet.fold_batchnorm(model3)
+    vols = [rng.gamma(2.0, 60.0, VOLUME).astype(np.uint16) for _ in range(2)]
+    for label, kw in (
+        ("volume default tiling 16x128x128/4x32x32", dict(patch=(16, 128, 128), overlap=(4, 32, 32))),
+        ("volume whole, polyphase", dict(patch=VOLUME, overlap=(0, 0, 0), polyphase=True)),
+    ):
+        tc3 = infer.TileConfig(emit_probs=False, labels_dtype="uint16", **kw)
+        fn3 = infer.make_frame_inferrer(cfg3, tc3, VOLUME, device="cuda")
+        _profile_stream(
+            torch, f"{label} 32x512x512 uint16", streamed(fn3, model3, vols), 2, "volume", top=8
+        )
+
+    _, gcfg, gmodel, _ = fixtures.load("gan_denoise", device="cuda")
+    gmodel = gan.fold_generator(gmodel)
+    gtc = infer.TileConfig(patch=(1024, 1024), overlap=(0, 0))
+    enhance = infer.make_gan_enhancer(gcfg, gtc, (1024, 1024), device="cuda")
+    _profile_stream(
+        torch, "enhancement_gan 1024x1024 uint16", streamed(enhance, gmodel, frames, labels=False),
+        8, "frame", top=8,
+    )
+
+
+def _psnr_db(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10.0 * float(np.log10(1.0 / max(mse, 1e-12)))
 
 
 def serve_phase(torch, hist, conv, smi_line):
-    """Three segmentation_unet2d jobs through ImageServer on the card."""
+    """The served jobs through ImageServer on the card, one at a time, each
+    with its own launch counts. Returns {job: (histogram_2d launches,
+    quantile passes)}."""
     import numpy as np
 
     from sequitr_tpu_torch import __main__ as cli
     from sequitr_tpu_torch.config import ServerConfiguration
     from sequitr_tpu_torch.data import synthetic, tiff
-    from sequitr_tpu_torch.models import fixtures
+    from sequitr_tpu_torch.models import fixtures, unet
     from sequitr_tpu_torch.pipeline import infer
     from sequitr_tpu_torch.server import ImageServer, submit_job
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     # the dtypes the served path relies on, on the card
     probe = torch.tensor([0, 1, 65535], dtype=torch.int32).to(torch.uint16).cuda()
     if probe.to(torch.float32).cpu().tolist() != [0.0, 1.0, 65535.0]:
@@ -703,36 +995,60 @@ def serve_phase(torch, hist, conv, smi_line):
 
     with tempfile.TemporaryDirectory() as tmp:
         jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
-        arch = os.path.join(tmp, "arch.json")
-        with open(arch, "w") as f:
-            json.dump(fixtures.manifest()["unet2d_cells"]["config"], f)
-        npz = os.path.join(fixtures.fixture_dir(), "unet2d_cells.npz")
-        if cli.main(["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, "unet2d_cells"]):
-            raise AssertionError("import-model failed")
+        for name in ("unet2d_cells", "unet3d_cells", "gan_denoise", "n2v_cells"):
+            meta = fixtures.manifest()[name]
+            arch = os.path.join(tmp, f"{name}.json")
+            with open(arch, "w") as f:
+                json.dump(dict(meta["config"], __kind__=meta["kind"]), f)
+            npz = os.path.join(fixtures.fixture_dir(), f"{name}.npz")
+            if cli.main(["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, name]):
+                raise AssertionError(f"import-model {name} failed")
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
         scenes = [synthetic.cells_frame(424_000 + i, (1024, 1024)) for i in range(4)]
         frames = np.stack([img for img, _ in scenes]).clip(0, 65535).astype(np.uint16)
         truth_labels = [lab for _, lab in scenes]
-        stack = os.path.join(tmp, "stack.tif")
-        tiff.write_stack(stack, frames)
+        stack = write("stack.tif", frames)
+        vols = [synthetic.cells_volume(31_600 + t, VOLUME)[0] for t in range(2)]
+        vols = np.stack(vols).clip(0, 65535).astype(np.uint16)
+        volume = write("volume.tif", vols[0])
+        paged = write("paged.tif", vols.reshape((-1,) + VOLUME[1:]))
+        gan_frames = np.stack(
+            [synthetic.cells_frame(434_000 + i, (1024, 1024))[0] for i in range(4)]
+        ).clip(0, 65535).astype(np.uint16)
+        gan_stack = write("gan_stack.tif", gan_frames)
+        pairs = [synthetic.denoise_pair(515_000 + i, (1024, 1024)) for i in range(4)]
+        noisy = np.stack([n for _, n in pairs]).astype(np.float32)
+        clean = np.stack([c for c, _ in pairs])
+        noisy_stack = write("noisy.tif", noisy)
+
         specs = {
-            "a": {"localize": False},
-            "b": {"localize": False, "save_probs": True, "patch": [512, 512], "overlap": [64, 64]},
-            "c": {"localize": False, "polyphase": True},
+            "a": ("segmentation_unet2d", "unet2d_cells", stack, {"localize": False}),
+            "b": ("segmentation_unet2d", "unet2d_cells", stack,
+                  {"localize": False, "save_probs": True, "patch": [512, 512], "overlap": [64, 64]}),
+            "c": ("segmentation_unet2d", "unet2d_cells", stack, {"localize": False, "polyphase": True}),
+            "d": ("segmentation_unet3d", "unet3d_cells", volume, {"localize": False}),
+            "e": ("segmentation_unet3d", "unet3d_cells", volume,
+                  {"localize": False, "patch": list(VOLUME), "overlap": [0, 0, 0], "polyphase": True}),
+            "f": ("segmentation_unet3d", "unet3d_cells", paged, {"localize": False, "z": VOLUME[0]}),
+            "g": ("enhancement_gan", "gan_denoise", gan_stack, {}),
+            "h": ("denoise", "n2v_cells", noisy_stack, {"normalize": "none"}),
+            "i": ("denoise", "n2v_cells", noisy_stack, {}),
         }
+        units = {"a": 4, "b": 4, "c": 4, "d": 1, "e": 1, "f": 2, "g": 4, "h": 4, "i": 4}
         server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
-        launches = {}
-        labels_a = labels_c = None
-        # one job at a time, each with its own launch counts: job (a) is
-        # the main path, job (b) the tiled save_probs path, job (c) the
-        # polyphase forward
-        for name, params in specs.items():
+        counts, outputs, peaks = {}, {}, {}
+        for name, (module, model, path, params) in specs.items():
             submit_job(jobs, {
-                "module": "segmentation_unet2d",
-                "params": dict(model="unet2d_cells", **params),
-                "input": [stack],
-                "output": os.path.join(tmp, f"out_{name}"),
+                "module": module, "params": dict(model=model, **params),
+                "input": [path], "output": os.path.join(tmp, f"out_{name}"),
             })
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             hist.histogram_2d.launches = 0
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
@@ -740,48 +1056,42 @@ def serve_phase(torch, hist, conv, smi_line):
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
             torch.cuda.synchronize()
-            launches[name] = hist.histogram_2d.launches
-            passes = hist.quantile_pass.launches
+            counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
             conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
+            peaks[name] = torch.cuda.max_memory_allocated() / 1e9
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
             if status["state"] != "complete":
                 raise AssertionError(f"job {name}: {status.get('error')}")
-            labels = tiff.read_stack(status["outputs"]["labels"])
-            if labels.shape != (4, 1024, 1024) or labels.dtype != np.uint16:
-                raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
+            outputs[name] = status["outputs"]
             metrics = json.loads(status["outputs"]["metrics"])
             print(
-                f"serve job {name} {json.dumps(params_summary(params))}: "
-                f"frames_per_sec {metrics.get('frames_per_sec')} on {smi_line} "
-                f"(metrics {json.dumps(metrics)})"
+                f"serve job {name} {module} {model} {json.dumps(params_summary(params))}: "
+                f"frames_per_sec {metrics.get('frames_per_sec')} mvox_per_sec "
+                f"{metrics.get('mvox_per_sec')} volumes_per_sec {metrics.get('volumes_per_sec')} "
+                f"peak {peaks[name]:.3f} GB on {smi_line} (metrics {json.dumps(metrics)})"
             )
+            # (h) normalizes with "none": its path runs no quantile pass
+            want_passes = 0 if params.get("normalize") == "none" else units[name]
             print(
-                f"serve job {name} histogram_2d launches {launches[name]} (in {passes} quantile "
-                f"passes, each min/max + counts) for {metrics['n_frames']} served frames; conv3x3 study kernels "
-                f"launched {conv_launches} times (the served graph does not use them)"
+                f"serve job {name} histogram_2d launches {counts[name][0]} in {counts[name][1]} quantile "
+                f"passes (each min/max + counts) for {units[name]} served frames or volumes (expected "
+                f"{want_passes} passes); conv3x3 study kernels launched {conv_launches} times"
             )
             if conv_launches:
                 raise AssertionError(f"job {name}: served path launched a study kernel")
-            if min(launches[name], passes) < metrics["n_frames"]:
+            if counts[name] != (want_passes, want_passes):
                 raise AssertionError(
-                    f"job {name}: histogram kernel launched {launches[name]} times "
-                    f"for {metrics['n_frames']} frames"
+                    f"job {name}: {counts[name][0]} histogram launches in {counts[name][1]} passes, "
+                    f"expected {want_passes} of each"
                 )
-            if name == "a":
-                labels_a = labels
-            elif name == "c":
-                labels_c = labels
-            else:
-                probs = tiff.read_stack(status["outputs"]["probs"])
-                if probs.shape != (12, 1024, 1024) or not np.isfinite(probs).all():
-                    raise AssertionError(f"job b: probs {probs.shape}")
 
-        # reference: the port's f32 exact-normalize path on the card; two
-        # more paths split the served path's disagreement between its bf16
-        # compute and its 1024-bin kernel normalize
-        from sequitr_tpu_torch.models import unet
+        def read(name, key="labels"):
+            return tiff.read_stack(outputs[name][key])
 
+        # 2D: the port's f32 exact-normalize path on the card as reference;
+        # two more paths split the served path's disagreement between its
+        # bf16 compute and its 1024-bin kernel normalize
         def labels_of(dtype, normalize):
             _, cfg, model, _ = fixtures.load("unet2d_cells", compute_dtype=dtype, device="cuda")
             tc = infer.TileConfig(
@@ -793,6 +1103,14 @@ def serve_phase(torch, hist, conv, smi_line):
                 fn(model, torch.from_numpy(f).cuda())[1].cpu().numpy() for f in frames
             ]
 
+        labels_a, labels_c = read("a"), read("c")
+        for name in ("a", "b", "c"):
+            labels = read(name)
+            if labels.shape != (4, 1024, 1024) or labels.dtype != np.uint16:
+                raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
+        probs = read("b", "probs")
+        if probs.shape != (12, 1024, 1024) or not np.isfinite(probs).all():
+            raise AssertionError(f"job b: probs {probs.shape}")
         k, ref = labels_of("float32", "exact")
         miou = float(np.mean([_miou(a, b, k) for a, b in zip(labels_a, ref)]))
         print(f"serve job a miou_vs_ref {miou:.6f} (bar {MIOU_BAR}; ref: f32, exact normalize, on the card)")
@@ -813,14 +1131,112 @@ def serve_phase(torch, hist, conv, smi_line):
         )
         if agree < POLY_AGREE_BAR:
             raise AssertionError(f"polyphase job agrees with job a on {agree} < {POLY_AGREE_BAR}")
-        return launches["a"]
+
+        # 3D: each job against the port's f32 exact-normalize path with the
+        # job's own tiling (whole volume, untransformed, for (e))
+        def volume_labels(vol, patch, overlap):
+            _, cfg, model, _ = fixtures.load("unet3d_cells", compute_dtype="float32", device="cuda")
+            tc = infer.TileConfig(patch=patch, overlap=overlap, normalize="exact", emit_probs=False)
+            fn = infer.make_frame_inferrer(cfg, tc, VOLUME, device="cuda")
+            return fn(unet.fold_batchnorm(model), torch.from_numpy(vol).cuda())[1].cpu().numpy()
+
+        labels_d, labels_e = read("d"), read("e")
+        for name, labels in (("d", labels_d), ("e", labels_e)):
+            if labels.shape != VOLUME or labels.dtype != np.uint16:
+                raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
+        ref_tiled = volume_labels(vols[0], (16, 128, 128), (4, 32, 32))
+        ref_whole = volume_labels(vols[0], VOLUME, (0, 0, 0))
+        miou_d = _miou(labels_d, ref_tiled, 3)
+        miou_e = _miou(labels_e, ref_whole, 3)
+        agree_de = float(np.mean(labels_e == labels_d))
+        print(
+            f"serve job d (tiled 16x128x128/4x32x32, 75 tiles) miou_vs_ref {miou_d:.6f}; job e "
+            f"(whole volume, polyphase) miou_vs_ref {miou_e:.6f} (bar {MIOU3D_BAR}; ref: f32, exact "
+            f"normalize, the job's own tiling, on the card); e vs d labels equal on {agree_de:.6f} "
+            f"(bar {POLY_AGREE_BAR}); the two f32 references equal on "
+            f"{float(np.mean(ref_tiled == ref_whole)):.6f}"
+        )
+        for t in range(2):
+            lt = tiff.read_stack(os.path.join(outputs["f"]["labels"], f"labels_t{t:04d}.tif"))
+            if lt.shape != VOLUME:
+                raise AssertionError(f"job f: timepoint {t} labels {lt.shape}")
+            if t == 0:
+                same = float(np.mean(lt == labels_d))
+                print(f"serve job f timepoint 0 labels equal to job d's (same volume) on {same:.6f}")
+                if same < 0.9999:
+                    raise AssertionError(f"job f: timepoint 0 agrees with job d on {same}")
+        if min(miou_d, miou_e) < MIOU3D_BAR:
+            raise AssertionError(f"3D miou_vs_ref d {miou_d}, e {miou_e} < {MIOU3D_BAR}")
+        if agree_de < POLY_AGREE_BAR:
+            raise AssertionError(f"job e agrees with job d on {agree_de} < {POLY_AGREE_BAR}")
+
+        # GAN (fidelity.py::gan_fidelity): served output against the port's
+        # f32 enhancer with the exact normalize, and against the smoothed
+        # exactly normalized scene the fixture was trained toward
+        from scipy import ndimage
+
+        from sequitr_tpu_torch.ops import normalize as norm_ops
+
+        _, gcfg, gmodel, _ = fixtures.load("gan_denoise", compute_dtype="float32", device="cuda")
+        gtc = infer.TileConfig(patch=(1024, 1024), overlap=(0, 0), normalize="exact")
+        enhance = infer.make_gan_enhancer(gcfg, gtc, (1024, 1024), device="cuda")
+        enhanced = read("g", "enhanced")
+        psnr_ref, psnr_tgt = [], []
+        for f, dev in zip(gan_frames, enhanced):
+            ref = enhance(gmodel, torch.from_numpy(f).cuda()).cpu().numpy()[..., 0]
+            x01 = norm_ops.percentile_normalize(torch.from_numpy(f.astype(np.float32)), 5.0, 99.5).numpy()
+            psnr_ref.append(_psnr_db(dev, ref))
+            psnr_tgt.append(_psnr_db(dev, ndimage.gaussian_filter(x01, 1.5)))
+        g_psnr = float(np.mean(psnr_ref))
+        print(
+            f"serve job g psnr_vs_ref_db {g_psnr:.4f} (bar {PSNR_BAR_DB}; ref: f32, exact normalize, on "
+            f"the card), psnr_target_db {float(np.mean(psnr_tgt)):.4f}"
+        )
+
+        # N2V (fidelity.py::n2v_fidelity): (h) against the port's f32
+        # denoiser with normalize "none"; the pair's clean frames are the
+        # truth. (i) runs the kernel normalize on the same frames, which puts
+        # them outside the fixture's trained scale: it is held against the
+        # port's bf16 denoiser called directly (the served plumbing), and its
+        # distance from the f32 path is printed, not barred
+        def denoised(dtype, normalize):
+            _, ncfg, nmodel, _ = fixtures.load("n2v_cells", compute_dtype=dtype, device="cuda")
+            ntc = infer.TileConfig(patch=(1024, 1024), overlap=(0, 0), normalize=normalize)
+            den = infer.make_denoiser(ncfg, ntc, (1024, 1024), device="cuda")
+            return [den(nmodel, torch.from_numpy(f).cuda()).float().cpu().numpy()[..., 0] for f in noisy]
+
+        out_h, out_i = read("h", "denoised"), read("i", "denoised")
+        h_psnr = float(np.mean([_psnr_db(a, b) for a, b in zip(out_h, denoised("float32", "none"))]))
+        truth_db = float(np.mean([_psnr_db(a, c) for a, c in zip(out_h, clean)]))
+        noisy_db = float(np.mean([_psnr_db(n, c) for n, c in zip(noisy, clean)]))
+        print(
+            f"serve job h psnr_vs_ref_db {h_psnr:.4f} (bar {PSNR_BAR_DB}; ref: f32, normalize 'none'), "
+            f"psnr_truth_db {truth_db:.4f}, psnr_noisy_db {noisy_db:.4f}"
+        )
+        direct = denoised("bfloat16", "auto")
+        i_psnr = float(np.mean([_psnr_db(a, b) for a, b in zip(out_i, direct)]))
+        i_err = float(max(np.abs(a - b).max() for a, b in zip(out_i, direct)))
+        i_f32 = float(np.mean([_psnr_db(a, b) for a, b in zip(out_i, denoised("float32", "auto"))]))
+        print(
+            f"serve job i (kernel normalize) against the bf16 denoiser called directly: max |diff| "
+            f"{i_err:.3g}, psnr {i_psnr:.4f} dB (bar {PSNR_DIRECT_BAR_DB}); against the f32 path "
+            f"{i_f32:.4f} dB (outside the trained scale; no bar)"
+        )
+        for what, value, bar in (
+            ("g", g_psnr, PSNR_BAR_DB), ("h", h_psnr, PSNR_BAR_DB), ("i", i_psnr, PSNR_DIRECT_BAR_DB),
+        ):
+            if not value >= bar:
+                raise AssertionError(f"job {what}: psnr {value} dB < {bar}")
+        return counts
 
 
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
-PHASES = ("histogram", "conv", "studies", "model", "polyphase", "profile", "serve")
+PHASES = (
+    "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "serve",
+)
 
 
 def main(argv=None) -> int:
@@ -876,6 +1292,8 @@ def main(argv=None) -> int:
             "studies": lambda: studies_phase(torch, fixtures, unet, conv),
             "model": lambda: model_phase(torch, fixtures, unet),
             "polyphase": lambda: polyphase_phase(torch, fixtures, unet),
+            "volume": lambda: volume_phase(torch, fixtures, unet),
+            "enhance": lambda: enhance_phase(torch, fixtures, unet),
             "profile": lambda: profile_phase(torch, fixtures, unet),
             "serve": lambda: serve_phase(torch, hist, conv, smi_line),
         }
@@ -889,16 +1307,22 @@ def main(argv=None) -> int:
     studies_launches = studies_phase(torch, fixtures, unet, conv)
     model_phase(torch, fixtures, unet)
     polyphase_phase(torch, fixtures, unet)
+    volume_phase(torch, fixtures, unet)
+    enhance_phase(torch, fixtures, unet)
     profile_phase(torch, fixtures, unet)
-    entry["launches"] = serve_phase(torch, hist, conv, smi_line)
+    counts = serve_phase(torch, hist, conv, smi_line)
+    entry["launches"] = counts["a"][0]
+    entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
+    entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
     if entry["launches"] < 1:
         raise AssertionError("histogram_2d was not launched on the main path")
     for e in conv_entries:
         e["launches"] = studies_launches[e["name"]]
     print(
-        "kernels: histogram_2d launches are those of served job a; the conv3x3 "
-        "entries' launches are those of the studies path (enc0 chained through "
-        "each entry point); served job a launches the conv3x3 kernels 0 times"
+        "kernels: histogram_2d launches are those of served job a (launches_by_job: every "
+        "served job's, each counted on its own; job h normalizes with 'none' and runs no "
+        "pass); the conv3x3 entries' launches are those of the studies path (enc0 chained "
+        "through each entry point); the served jobs launch the conv3x3 kernels 0 times"
     )
     print(json.dumps({"kernels": [entry] + conv_entries}))
     print(json.dumps({

@@ -117,6 +117,11 @@ def _parser() -> argparse.ArgumentParser:
         help="architecture JSON: num_classes/depth/base_features/... (a JAX"
              " model directory's config.json works as it is)",
     )
+    ap_imp.add_argument(
+        "--kind", default=None,
+        help="model kind (unet, n2v, flows, stars, gan); default: the"
+             " arch JSON's __kind__, else unet",
+    )
     ap_imp.add_argument("name", help="model name to register")
     return ap
 
@@ -220,13 +225,16 @@ def main(argv=None) -> int:
         import numpy as np
 
         from sequitr_tpu_torch.models import convert as convert_lib
-        from sequitr_tpu_torch.server.server import save_model, unet_config_from_params
+        from sequitr_tpu_torch.server.server import config_from_arch, save_model
 
         with open(args.arch) as f:
-            cfg = unet_config_from_params(json.load(f))
+            arch = json.load(f)
+        kind = args.kind or arch.get("__kind__", "unet")
+        cfg = config_from_arch(kind, arch)
         with np.load(args.npz) as npz:
             flat = {k: npz[k] for k in npz.files}
-        if cfg.norm == "batch" and not any(k.startswith("state/") for k in flat):
+        norm = cfg.gen_norm if kind == "gan" else cfg.norm
+        if norm == "batch" and not any(k.startswith("state/") for k in flat):
             print(
                 "npz carries no state/ entries: batch-norm running statistics"
                 " are required (export with python -m sequitr_tpu"
@@ -234,7 +242,7 @@ def main(argv=None) -> int:
             )
             return 1
         model = convert_lib.load_flat(cfg, flat, device="cpu")
-        print(save_model(args.models_dir, args.name, "unet", cfg, model))
+        print(save_model(args.models_dir, args.name, kind, cfg, model))
         return 0
 
     return 1

@@ -1,19 +1,20 @@
-"""Weight interchange: the flat npz layout <-> ``UNet`` modules.
+"""Weight interchange: the flat npz layout <-> ``UNet`` and ``GAN`` modules.
 
 The interchange format is the JAX package's (``sequitr_tpu.models.convert``):
 a flat dict of numpy arrays keyed by the parameter path joined with '/'
-(``enc/0/conv1/w``, ``dec/1/bn2/scale``, ``up/0/w``, ``head/b``), conv
-kernels in HWIO (``(kh, kw, c_in, c_out)``, the transposed conv's too), and
-batch-norm running statistics under a ``state/`` prefix
-(``state/enc/0/bn1/mean``). It is what ``flatten_params`` gives, what the
+(``enc/0/conv1/w``, ``dec/1/bn2/scale``, ``up/0/w``, ``head/b``; a GAN's
+under ``gen/`` and ``disc/``), conv kernels in HWIO (``(kh, kw, c_in,
+c_out)``; DHWIO for 3D; the transposed conv's too), and batch-norm running
+statistics under a ``state/`` prefix (``state/enc/0/bn1/mean``,
+``state/gen/enc/0/bn1/mean``). It is what ``flatten_params`` gives, what the
 committed fixtures store and what ``python -m sequitr_tpu export-model``
 writes.
 
-The path names are the ``UNet`` module's own state-dict names with '/' for
-'.'; only the kernels change layout: a conv's HWIO kernel becomes torch's
-(c_out, c_in, kh, kw), the transposed conv's becomes (c_in, c_out, kh, kw)
-with no spatial flip (``sequitr_tpu/models/torch_reference.py`` documents
-both maps).
+The path names are the module's own state-dict names with '/' for '.';
+only the kernels change layout: a conv's HWIO (DHWIO) kernel becomes
+torch's (c_out, c_in, k...), the transposed conv's becomes (c_in, c_out,
+k...) with no spatial flip (``sequitr_tpu/models/torch_reference.py``
+documents both maps in 2D; 3D adds the depth axis in front).
 """
 
 from __future__ import annotations
@@ -22,18 +23,26 @@ from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from sequitr_tpu_torch.models.gan import GAN, GANConfig
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
 
-__all__ = ["load_flat", "to_flat", "conv_to_torch", "conv_from_torch", "pack_conv3x3"]
+__all__ = ["build", "load_flat", "to_flat", "conv_to_torch", "conv_from_torch", "pack_conv3x3"]
 
 _STATE = "state/"
 _BUFFERS = ("mean", "var")
 
-# HWIO -> torch layout, per kernel kind
+# HWIO / DHWIO -> torch layout, per kernel rank and kind
 _CONV_AXES = (3, 2, 0, 1)  # (kh, kw, ci, co) -> (co, ci, kh, kw)
 _CONVT_AXES = (2, 3, 0, 1)  # (kh, kw, ci, co) -> (ci, co, kh, kw)
+_CONV3D_AXES = (4, 3, 0, 1, 2)  # (kd, kh, kw, ci, co) -> (co, ci, kd, kh, kw)
+_CONVT3D_AXES = (3, 4, 0, 1, 2)  # (kd, kh, kw, ci, co) -> (ci, co, kd, kh, kw)
+_AXES = {
+    (4, False): _CONV_AXES, (4, True): _CONVT_AXES,
+    (5, False): _CONV3D_AXES, (5, True): _CONVT3D_AXES,
+}
 
 
 def conv_to_torch(w_hwio: np.ndarray) -> torch.Tensor:
@@ -69,29 +78,34 @@ def _flat_key(sd_key: str) -> str:
     return _STATE + key if key.rsplit("/", 1)[-1] in _BUFFERS else key
 
 
-def _axes(model: UNet, sd_key: str, ndim: int):
-    if ndim != 4 or not sd_key.endswith(".w"):
+def _axes(model: nn.Module, sd_key: str, ndim: int):
+    if ndim not in (4, 5) or not sd_key.endswith(".w"):
         return None
     conv = model.get_submodule(sd_key[: -len(".w")])
-    return _CONVT_AXES if conv.transpose else _CONV_AXES
+    return _AXES[ndim, conv.transpose]
 
 
 def _inverse(axes):
     return tuple(int(i) for i in np.argsort(axes))
 
 
+def build(cfg: Union[UNetConfig, GANConfig], device=None) -> nn.Module:
+    """The zero-initialised module of ``cfg``: a ``UNet`` or a ``GAN``."""
+    return GAN(cfg, device=device) if isinstance(cfg, GANConfig) else UNet(cfg, device=device)
+
+
 def load_flat(
-    cfg: UNetConfig,
+    cfg: Union[UNetConfig, GANConfig],
     flat: Mapping[str, np.ndarray],
     device: Union[str, torch.device, None] = None,
-) -> UNet:
-    """Build the ``UNet`` of ``cfg`` from the flat interchange dict.
+) -> nn.Module:
+    """Build the ``UNet`` (or ``GAN``) of ``cfg`` from the flat interchange dict.
 
     Every parameter and buffer must be present with its shape (float16
     storage is read as f32); raises ValueError listing what is missing or
     mismatched. Extra keys are ignored, as ``unflatten_like`` does.
     """
-    model = UNet(cfg, device="cpu")
+    model = build(cfg, device="cpu")
     sd = model.state_dict()
     new_sd: Dict[str, torch.Tensor] = {}
     problems = []
@@ -116,7 +130,7 @@ def load_flat(
     return model.to(resolve_device(device))
 
 
-def to_flat(model: UNet) -> Dict[str, np.ndarray]:
+def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of ``load_flat``: {flat/path: f32 numpy array}."""
     flat = {}
     for key, t in model.state_dict().items():

@@ -17,8 +17,11 @@ from typing import Any, Dict, Tuple, Union
 import numpy as np
 import torch
 
+import torch.nn as nn
+
 from sequitr_tpu_torch.models import convert as convert_lib
-from sequitr_tpu_torch.models.unet import UNet, UNetConfig
+from sequitr_tpu_torch.models.gan import GANConfig
+from sequitr_tpu_torch.models.unet import UNetConfig
 
 __all__ = ["fixture_dir", "names", "load", "manifest"]
 
@@ -28,6 +31,16 @@ _DIR = os.path.join(
 
 # model kinds whose config is a UNetConfig (regression heads included)
 UNET_KINDS = ("unet", "n2v", "flows", "stars")
+KINDS = UNET_KINDS + ("gan",)
+
+
+def config_class(kind: str):
+    """The configuration class of a model kind; KeyError for an unknown one."""
+    if kind == "gan":
+        return GANConfig
+    if kind in UNET_KINDS:
+        return UNetConfig
+    raise KeyError(f"unknown model kind {kind!r}; known: {list(KINDS)}")
 
 
 def fixture_dir() -> str:
@@ -50,23 +63,20 @@ def load(
     name: str,
     compute_dtype=None,
     device: Union[str, torch.device, None] = None,
-) -> Tuple[str, UNetConfig, UNet, Dict[str, Any]]:
+) -> Tuple[str, Any, nn.Module, Dict[str, Any]]:
     """Load a committed fixture: ``(kind, cfg, model, meta)``.
 
-    ``compute_dtype`` ("bfloat16" / "float32") overrides the stored one.
-    Weights load as f32 either way; the dtype only sets the casts inside
-    the forward. The model is returned unfolded (``unet.fold_batchnorm``).
+    ``cfg`` is a ``UNetConfig`` (a ``GANConfig`` for kind ``gan``) and
+    ``model`` its ``UNet`` (``GAN``). ``compute_dtype`` ("bfloat16" /
+    "float32") overrides the stored one. Weights load as f32 either way;
+    the dtype only sets the casts inside the forward. The model is returned
+    unfolded (``unet.fold_batchnorm``, ``gan.fold_generator``).
     """
     meta = manifest().get(name)
     if meta is None:
         raise KeyError(f"unknown fixture {name!r}; available: {names()}")
     kind = meta["kind"]
-    if kind not in UNET_KINDS:
-        raise NotImplementedError(
-            f"fixture {name!r} is a {kind!r} model: only U-Net kinds are "
-            "ported so far (the GAN is a later slice of the port)"
-        )
-    cfg = UNetConfig(**meta["config"])
+    cfg = config_class(kind)(**meta["config"])
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     with np.load(os.path.join(fixture_dir(), f"{name}.npz")) as npz:

@@ -1,22 +1,21 @@
-"""2D U-Net for cell segmentation (port of ``sequitr_tpu.models.unet``).
+"""2D/3D U-Net for cell segmentation (port of ``sequitr_tpu.models.unet``).
 
-Same topology and numerics as the JAX package: two SAME 3x3 convs (+ eval
-batch norm) + ReLU per level, 2x2 VALID max-pool down, a kernel-2 stride-2
-transposed conv up, concat in ``[skip, up]`` order, a 1x1 head, and the
-optional space-to-depth wrapper.
+Same topology and numerics as the JAX package: two SAME 3x3 (3x3x3) convs
+(+ eval batch norm) + ReLU per level, 2x2 (2x2x2) VALID max-pool down, a
+kernel-2 stride-2 transposed conv up, concat in ``[skip, up]`` order, a 1x1
+head, and the optional space-to-depth wrapper (2D only).
 
 Numerics follow ``unet.py``'s rounding points: inputs and weights are cast
 to ``cfg.compute_dtype``, the conv emits that dtype (cuDNN accumulates in
 f32), and the bias is added after the upcast to f32; batch norm, ReLU,
 max-pool and the concat run in f32.
 
-Layout: ``UNet.forward`` takes and returns NHWC like ``unet.apply``; inside,
-the NHWC tensor is viewed as NCHW with channels_last strides (no copy),
-the layout cuDNN prefers. Weights live in torch layouts: convs
-(c_out, c_in, kh, kw), the transposed conv (c_in, c_out, kh, kw) — the
-stored HWIO kernel transposed with no spatial flip (``models.convert``).
-
-``dims=3`` is not ported yet (a later slice of the port).
+Layout: ``UNet.forward`` takes and returns NHWC (NDHWC for ``dims=3``) like
+``unet.apply``; inside, the channels-last tensor is viewed as NCHW (NCDHW)
+with channels_last (channels_last_3d) strides, no copy, the layout cuDNN
+prefers. Weights live in torch layouts: convs (c_out, c_in, k...), the
+transposed conv (c_in, c_out, k...) — the stored HWIO (DHWIO) kernel
+transposed with no spatial flip (``models.convert``).
 """
 
 from __future__ import annotations
@@ -86,16 +85,22 @@ class UNetConfig:
         return _DTYPES[self.compute_dtype]
 
 
+def channels_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the channels-last memory format of its rank (4-D or 5-D)."""
+    fmt = torch.channels_last if t.ndim == 4 else torch.channels_last_3d
+    return t.contiguous(memory_format=fmt)
+
+
 class _Conv(nn.Module):
     """Conv weights in torch layout plus a bias (``w``/``b``, as the flat keys)."""
 
-    def __init__(self, k: int, c_in: int, c_out: int, transpose: bool, device):
+    def __init__(self, k: int, c_in: int, c_out: int, transpose: bool, device, dims: int = 2):
         super().__init__()
-        shape = (c_in, c_out, k, k) if transpose else (c_out, c_in, k, k)
+        shape = ((c_in, c_out) if transpose else (c_out, c_in)) + (k,) * dims
         self.transpose = transpose
-        # channels_last weights make cuDNN keep activations NHWC end to end
-        # (an NCHW weight leads it to transpose every input and output)
-        w = torch.zeros(shape, device=device).to(memory_format=torch.channels_last)
+        # channels-last weights make cuDNN keep activations channels-last end
+        # to end (an NCHW weight leads it to transpose every input and output)
+        w = channels_last(torch.zeros(shape, device=device))
         self.w = nn.Parameter(w, requires_grad=False)
         self.b = nn.Parameter(torch.zeros(c_out, device=device), requires_grad=False)
 
@@ -112,7 +117,7 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
         def ch(t):
-            return t.view(1, -1, 1, 1)
+            return t.view((1, -1) + (1,) * (x.ndim - 2))
 
         inv = torch.rsqrt(self.var + eps)
         return (x.to(torch.float32) - ch(self.mean)) * ch(inv) * ch(self.scale) + ch(self.bias)
@@ -121,10 +126,10 @@ class _BatchNorm(nn.Module):
 class _Block(nn.Module):
     """conv -> norm -> relu, twice."""
 
-    def __init__(self, c_in: int, c_out: int, norm: str, device):
+    def __init__(self, c_in: int, c_out: int, norm: str, device, dims: int = 2):
         super().__init__()
-        self.conv1 = _Conv(3, c_in, c_out, False, device)
-        self.conv2 = _Conv(3, c_out, c_out, False, device)
+        self.conv1 = _Conv(3, c_in, c_out, False, device, dims)
+        self.conv2 = _Conv(3, c_out, c_out, False, device, dims)
         if norm == "batch":
             self.bn1 = _BatchNorm(c_out, device)
             self.bn2 = _BatchNorm(c_out, device)
@@ -147,8 +152,9 @@ def _depth_to_space(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 class UNet(nn.Module):
-    """The U-Net of ``cfg`` (2D). ``forward``: (N, H, W, C_in) -> f32 logits
-    (N, H, W, num_classes); H and W divisible by ``cfg.min_input_multiple``.
+    """The U-Net of ``cfg``. ``forward``: (N, *spatial, C_in) -> f32 logits
+    (N, *spatial, num_classes), spatial (H, W) or (Z, H, W) by ``cfg.dims``,
+    each divisible by ``cfg.min_input_multiple``.
 
     Parameters start at zero; ``models.convert.load_flat`` loads trained
     ones.
@@ -156,42 +162,42 @@ class UNet(nn.Module):
 
     def __init__(self, cfg: UNetConfig, device: Union[str, torch.device, None] = None):
         super().__init__()
-        if cfg.dims != 2:
-            raise NotImplementedError(
-                f"dims={cfg.dims}: only the 2D U-Net is ported so far; 3D "
-                "serving is a later slice of the port"
-            )
+        if cfg.space_to_depth > 1 and cfg.dims != 2:
+            raise ValueError("space_to_depth is 2D-only")
         if cfg.upsample not in ("transpose", "resize"):
             raise ValueError(f"unknown upsample {cfg.upsample!r}")
         device = resolve_device(device)
         self.cfg = cfg
-        s2d = cfg.space_to_depth
+        s2d, dims = cfg.space_to_depth, cfg.dims
         self.enc = nn.ModuleList()
         self.dec = nn.ModuleList()
         self.up = nn.ModuleList()
         c_prev = cfg.in_channels * s2d * s2d
         for lvl in range(cfg.depth):
             c = cfg.features(lvl)
-            self.enc.append(_Block(c_prev, c, cfg.norm, device))
+            self.enc.append(_Block(c_prev, c, cfg.norm, device, dims))
             c_prev = c
         for lvl in reversed(range(cfg.depth - 1)):
             c_skip = cfg.features(lvl)
             if cfg.upsample == "transpose":
-                self.up.append(_Conv(2, c_prev, c_skip, True, device))
+                self.up.append(_Conv(2, c_prev, c_skip, True, device, dims))
             else:
-                self.up.append(_Conv(1, c_prev, c_skip, False, device))
-            self.dec.append(_Block(c_skip * 2, c_skip, cfg.norm, device))
+                self.up.append(_Conv(1, c_prev, c_skip, False, device, dims))
+            self.dec.append(_Block(c_skip * 2, c_skip, cfg.norm, device, dims))
             c_prev = c_skip
-        self.head = _Conv(1, c_prev, cfg.num_classes * s2d * s2d, False, device)
+        self.head = _Conv(1, c_prev, cfg.num_classes * s2d * s2d, False, device, dims)
 
     def _conv(self, x: torch.Tensor, p: _Conv) -> torch.Tensor:
         dt = self.cfg.torch_dtype
         w = p.w.to(dt)
+        three = self.cfg.dims == 3
         if p.transpose:
-            y = F.conv_transpose2d(x.to(dt), w, stride=2)
+            conv_t = F.conv_transpose3d if three else F.conv_transpose2d
+            y = conv_t(x.to(dt), w, stride=2)
         else:
-            y = F.conv2d(x.to(dt), w, padding=w.shape[-1] // 2)
-        return y.to(torch.float32) + p.b.view(1, -1, 1, 1)
+            conv = F.conv3d if three else F.conv2d
+            y = conv(x.to(dt), w, padding=w.shape[-1] // 2)
+        return y.to(torch.float32) + p.b.view((1, -1) + (1,) * self.cfg.dims)
 
     def _block(self, x: torch.Tensor, blk: _Block) -> torch.Tensor:
         for i in (1, 2):
@@ -207,6 +213,9 @@ class UNet(nn.Module):
         # nearest 2x resize (index i -> i // 2, as jax.image.resize) + 1x1 conv
         return self._conv(F.interpolate(x.to(torch.float32), scale_factor=2), p)
 
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool3d(x, 2) if self.cfg.dims == 3 else F.max_pool2d(x, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         for d in x.shape[1:-1]:
@@ -214,14 +223,15 @@ class UNet(nn.Module):
                 raise ValueError(
                     f"spatial dim {d} not divisible by {cfg.min_input_multiple}"
                 )
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view with channels_last strides
+        # NHWC -> NCHW (NDHWC -> NCDHW) view with channels-last strides
+        x = torch.movedim(x, -1, 1)
         s2d = cfg.space_to_depth
         if s2d > 1:
             x = _space_to_depth(x, s2d)
         skips = []
         for lvl in range(cfg.depth):
             if lvl > 0:
-                x = F.max_pool2d(x, 2)
+                x = self._pool(x)
             x = self._block(x, self.enc[lvl])
             if lvl < cfg.depth - 1:
                 skips.append(x)
@@ -233,7 +243,7 @@ class UNet(nn.Module):
         logits = self._conv(x, self.head)
         if s2d > 1:
             logits = _depth_to_space(logits, s2d)
-        return logits.permute(0, 2, 3, 1).to(torch.float32)
+        return torch.movedim(logits, 1, -1).to(torch.float32)
 
 
 def fold_batchnorm(model: UNet) -> UNet:
@@ -257,7 +267,7 @@ def fold_batchnorm(model: UNet) -> UNet:
                     conv, bn = getattr(src, f"conv{i}"), getattr(src, f"bn{i}")
                     g = bn.scale * torch.rsqrt(bn.var + cfg.bn_eps)
                     out = getattr(dst, f"conv{i}")
-                    out.w.copy_(conv.w * g.view(-1, 1, 1, 1))
+                    out.w.copy_(conv.w * g.view((-1,) + (1,) * (conv.w.ndim - 1)))
                     out.b.copy_((conv.b - bn.mean) * g + bn.bias)
         folded.up.load_state_dict(model.up.state_dict())
         folded.head.load_state_dict(model.head.state_dict())

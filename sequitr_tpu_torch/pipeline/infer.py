@@ -16,10 +16,17 @@ host->card copies of pinned frames run on a side stream, and results start
 their card->host copy into pinned memory on another side stream as soon as
 they are queued, with a CUDA event the consumer waits on.
 
-``TileConfig.polyphase`` serves through ``models.polyphase`` (2D only).
+Frames are 2D (H, W) or 3D (Z, H, W) volumes, by the length of
+``frame_spatial``; a volume's percentiles are over all its Z*H*W voxels.
+``TileConfig.polyphase`` serves through ``models.polyphase`` (``apply3d``
+for volumes).
 
-Not ported yet (later slices): 3D volumes, and the GAN, denoiser, flows and
-stars inferrers.
+The GAN enhancer (``make_gan_enhancer``) and the Noise2Void denoiser
+(``make_denoiser``) run the same normalize -> tile -> forward -> stitch
+chain with TTA, but no softmax and no edge padding: their output is the
+network's (activated) regression map in ``tc.probs_dtype``.
+
+Not ported yet (a later slice): the flows and stars inferrers.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple, Uni
 import numpy as np
 import torch
 
+from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import polyphase
+from sequitr_tpu_torch.models import unet as unet_lib
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.ops import normalize as norm_ops
 from sequitr_tpu_torch.ops import tiling
@@ -46,6 +55,10 @@ __all__ = [
     "make_frame_inferrer",
     "cached_frame_inferrer",
     "cached_batch_inferrer",
+    "make_gan_enhancer",
+    "cached_gan_enhancer",
+    "make_denoiser",
+    "cached_denoiser",
     "stream_frames",
     "infer_stack",
 ]
@@ -71,14 +84,15 @@ class TileConfig:
     # dtype of the emitted softmax maps ("float16" halves the copy and
     # probs.tif); argmax runs on the f32 maps before the cast
     probs_dtype: str = "float32"
-    # test-time augmentation: average softmax maps over 2/4/8 flip (and, at
-    # 8, transpose: square frames only) variants of the whole frame
+    # test-time augmentation: average softmax maps over 2/4/8 flip variants
+    # of the whole frame (8 adds the transpose in 2D, square frames only,
+    # or the z-flip in 3D)
     tta: int = 1
     # polyphase serving forward (models.polyphase): the two thin
     # full-resolution U-Net levels run at half resolution x 4-wide channels
-    # on the same weights, exactly (up to float reassociation). 2D folded
-    # transpose-upsample models with even patch dims only; the build fails
-    # loudly otherwise
+    # on the same weights, exactly (up to float reassociation). Folded
+    # transpose-upsample models without model-level space-to-depth, even
+    # patch dims (the H, W axes for 3D); the build fails loudly otherwise
     polyphase: bool = False
     # False = labels-only: no softmax maps are returned, and a single-tile
     # no-TTA serve skips the softmax altogether (argmax of logits == argmax
@@ -199,25 +213,35 @@ def tiled_apply(
     )
 
 
-def _tta_variants(tta: int, spatial: Tuple[int, int]):
-    """2D symmetry variants as (flip_axes, transpose) pairs, identity first.
+def _tta_variants(nd: int, tta: int, spatial: Tuple[int, ...]):
+    """Symmetry variants as (flip_axes, transpose) pairs, identity first.
 
-    Axes are frame axes (0 = rows). tta=8 composes the 4 flips with the
-    transpose (square frames only).
+    Axes are frame axes (0 = rows in 2D, z in 3D). 2D tta=8 composes the 4
+    flips with the transpose (square frames only); 3D flips the in-plane
+    axes (1, 2) at tta=2/4, and tta=8 is the full 2^3 flip group with z.
     """
-    flips4 = [(), (0,), (1,), (0, 1)]
     if tta == 1:
         return [((), False)]
+    if nd == 2:
+        flips4 = [(), (0,), (1,), (0, 1)]
+        if tta == 2:
+            return [((), False), ((0,), False)]
+        if tta == 4:
+            return [(f, False) for f in flips4]
+        if spatial[0] != spatial[1]:
+            raise ValueError(
+                f"tta=8 in 2D adds the transpose and needs a square frame, "
+                f"got {spatial}"
+            )
+        return [(f, t) for t in (False, True) for f in flips4]
     if tta == 2:
-        return [((), False), ((0,), False)]
+        return [((), False), ((1,), False)]
     if tta == 4:
-        return [(f, False) for f in flips4]
-    if spatial[0] != spatial[1]:
-        raise ValueError(
-            f"tta=8 in 2D adds the transpose and needs a square frame, "
-            f"got {spatial}"
-        )
-    return [(f, t) for t in (False, True) for f in flips4]
+        return [(f, False) for f in [(), (1,), (2,), (1, 2)]]
+    return [
+        (f, False)
+        for f in [(), (0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2)]
+    ]
 
 
 def _tta_average(run: Callable, x: torch.Tensor, variants) -> torch.Tensor:
@@ -241,15 +265,17 @@ def _tta_average(run: Callable, x: torch.Tensor, variants) -> torch.Tensor:
 
 def _check_polyphase(tc: TileConfig, cfg: UNetConfig) -> None:
     """Build-time gate of ``tc.polyphase``. ``cfg`` may carry batch norm:
-    serving folds it (``unet.fold_batchnorm``), so it is judged as folded."""
+    serving folds it (``unet.fold_batchnorm``), so it is judged as folded.
+    3D models use the (1, 2, 2) phase factor (z never phased)."""
     if not tc.polyphase:
         return
-    if cfg.dims == 3:
-        raise NotImplementedError(
-            "polyphase serving of 3D models is not ported yet (the 3D "
-            "serving slice of the port)"
-        )
-    if not polyphase.eligible(dataclasses.replace(cfg, norm="none"), tc.patch):
+    folded = dataclasses.replace(cfg, norm="none")
+    ok = (
+        polyphase.eligible3d(folded, tc.patch)
+        if cfg.dims == 3
+        else polyphase.eligible(folded, tc.patch)
+    )
+    if not ok:
         raise ValueError(
             "polyphase serving requires a transpose-upsample model "
             "without model-level space_to_depth and an even patch "
@@ -266,14 +292,10 @@ def _make_batch_infer(
     device: torch.device,
 ) -> Callable:
     """``infer(model, frames) -> (probs | None, labels)`` over a leading
-    frame axis: frames (B, H, W) or (B, H, W, C)."""
+    frame axis: frames (B, *spatial) or (B, *spatial, C), spatial (H, W) or
+    (Z, H, W)."""
     frame_spatial = tuple(frame_spatial)
     nd = len(frame_spatial)
-    if nd != 2:
-        raise NotImplementedError(
-            f"{nd}D frames: only 2D serving is ported so far (3D is a later "
-            "slice of the port)"
-        )
     edge_pad = tuple(max(0, p - s) for s, p in zip(frame_spatial, tc.patch))
     padded_spatial = tuple(s + d for s, d in zip(frame_spatial, edge_pad))
     # "symmetric" allows pad == size (whole-frame mirror); beyond that the
@@ -284,7 +306,7 @@ def _make_batch_infer(
         else "edge"
     )
     grid = tiling.tile_grid(padded_spatial, tc.patch, tc.overlap)
-    variants = _tta_variants(tc.tta, padded_spatial)
+    variants = _tta_variants(nd, tc.tta, padded_spatial)
     _check_polyphase(tc, cfg)
     # labels-only single-tile serves skip the softmax: one tile means the
     # stitch is a per-pixel positive rescale, and argmax is invariant under it
@@ -334,6 +356,7 @@ def make_frame_inferrer(
 ) -> Callable:
     """Build ``infer(model, frame) -> (probs, labels)`` for one frame shape.
 
+    ``frame_spatial`` is (H, W), or (Z, H, W) for a volume and a 3D model.
     ``frame``: (*frame_spatial,) or (*frame_spatial, C_in), a tensor or a
     numpy array (moved to ``device``, default the CUDA card). Normalize,
     tile, U-Net forward over all patches, per-patch softmax, stitch-blend,
@@ -386,6 +409,145 @@ def cached_batch_inferrer(
         return batch_infer(model, frames)
 
     return infer
+
+
+# fold once per model, as the server does at load: the enhancer and the
+# denoiser take models folded or not, as the JAX package's fold in-graph
+_folded_unet = functools.lru_cache(maxsize=8)(unet_lib.fold_batchnorm)
+_folded_gan = functools.lru_cache(maxsize=8)(gan_lib.fold_generator)
+
+
+def _make_batch_map(
+    run_cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    device: torch.device,
+    forward_of: Callable,
+    out_channels: int,
+) -> Callable:
+    """``run(model, frames) -> (B, *spatial, out_channels)`` in
+    ``tc.probs_dtype``: normalize, TTA over tiled ``forward_of(model)``,
+    Hann stitch; no softmax, no edge padding (the regression serves of the
+    GAN enhancer and the denoiser). ``run_cfg``: the folded network's
+    ``UNetConfig``, for the polyphase gate."""
+    spatial = tuple(frame_spatial)
+    nd = len(spatial)
+    grid = tiling.tile_grid(spatial, tc.patch, tc.overlap)
+    variants = _tta_variants(nd, tc.tta, spatial)
+    _check_polyphase(tc, run_cfg)
+    out_dtype = _PROBS_DTYPES[tc.probs_dtype]
+
+    def run(model, frames):
+        with torch.inference_mode():
+            frames = torch.as_tensor(frames, device=device)
+            if frames.ndim == nd + 1:
+                frames = frames[..., None]
+            x = _normalize(frames, tc)
+            forward = forward_of(model)
+            out = _tta_average(
+                lambda xi: tiled_apply(forward, xi, grid, spatial, tc, out_channels),
+                x,
+                variants,
+            )
+            return out.to(out_dtype)
+
+    return run
+
+
+def _single_or_batch(run: Callable, batch: Optional[int]) -> Callable:
+    """``run(model, frames)`` as ``fn(model, frame)`` (``batch=None``) or as
+    ``fn(model, frames)`` over exactly ``batch`` frames."""
+    if batch is None:
+        return lambda model, frame: run(model, torch.as_tensor(frame)[None])[0]
+
+    def fn(model, frames):
+        if len(frames) != batch:
+            raise ValueError(f"expected {batch} frames, got {len(frames)}")
+        return run(model, frames)
+
+    return fn
+
+
+def _gan_batch_map(cfg: gan_lib.GANConfig, tc: TileConfig, frame_spatial, device) -> Callable:
+    def forward_of(model):
+        model = _folded_gan(model)
+        gen = polyphase.serving(model.gen) if tc.polyphase else model.gen
+        return lambda patches: gan_lib.activate(model.cfg, gen(patches))
+
+    run_cfg = dataclasses.replace(cfg.generator_config, norm="none")
+    return _make_batch_map(
+        run_cfg, tc, frame_spatial, resolve_device(device), forward_of, cfg.out_channels
+    )
+
+
+def make_gan_enhancer(
+    cfg: gan_lib.GANConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """``enhance(model, frame) -> (H, W, C_out)`` for one frame shape.
+
+    ``model`` is a ``gan.GAN`` for ``cfg`` (folded or not: it is folded
+    once, ``gan.fold_generator``). ``frame``: (H, W) or (H, W, C_in), on
+    the host or the card. Normalize, tiled generator + output activation,
+    Hann stitch, TTA over ``tc.tta`` symmetry variants; the output in
+    ``tc.probs_dtype``.
+    """
+    return _single_or_batch(_gan_batch_map(cfg, tc, frame_spatial, device), None)
+
+
+@functools.lru_cache(maxsize=32)
+def cached_gan_enhancer(
+    cfg: gan_lib.GANConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    batch: Optional[int] = None,
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """Process-wide cache of GAN enhancers: ``enhance(model, frame)`` for
+    ``batch=None``, else ``enhance(model, frames)`` over ``batch`` frames
+    (B, H, W[, C]) -> (B, H, W, C_out)."""
+    return _single_or_batch(_gan_batch_map(cfg, tc, frame_spatial, device), batch)
+
+
+def _denoise_batch_map(cfg: UNetConfig, tc: TileConfig, frame_spatial, device) -> Callable:
+    def forward_of(model):
+        model = _folded_unet(model)
+        return polyphase.serving(model) if tc.polyphase else model
+
+    run_cfg = dataclasses.replace(cfg, norm="none")
+    return _make_batch_map(
+        run_cfg, tc, frame_spatial, resolve_device(device), forward_of, cfg.num_classes
+    )
+
+
+def make_denoiser(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """``denoise(model, frame) -> (*frame_spatial, C_out)``: the serving
+    pass of a Noise2Void regression U-Net (kind ``n2v``, 2D or 3D).
+
+    The enhancer's chain with the raw head (no softmax): the output is the
+    predicted clean intensity in normalized space, in ``tc.probs_dtype``.
+    Batch norm is folded once per model, as the JAX package folds it.
+    """
+    return _single_or_batch(_denoise_batch_map(cfg, tc, frame_spatial, device), None)
+
+
+@functools.lru_cache(maxsize=32)
+def cached_denoiser(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    batch: Optional[int] = None,
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """Process-wide cache of denoisers (``cached_gan_enhancer``'s forms)."""
+    return _single_or_batch(_denoise_batch_map(cfg, tc, frame_spatial, device), batch)
 
 
 class _ReadError:

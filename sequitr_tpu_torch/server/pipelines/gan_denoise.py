@@ -1,0 +1,349 @@
+"""Enhancement/denoising serving: ``enhancement_gan`` and ``denoise``.
+
+Port of the serving jobs of ``sequitr_tpu.server.pipelines.gan_denoise``:
+the pix2pix generator pass (``enhanced.tif``) and the Noise2Void pass
+(``denoised.tif``, 2D stacks and volume sequences), with the same params,
+outputs and metrics. Frames stream through the cached enhancer/denoiser two
+ahead (``infer.stream_frames``), ``frame_batch`` frames a forward.
+
+Not ported yet: ``evaluate_gan`` and ``evaluate_denoise`` (with its
+volumetric branch) belong to the evaluation slice of the port, and
+``data_parallel`` / ``spatial_parallel`` across more than one card to the
+multi-card slice (a JobError there; on one card they serve single-device).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict
+
+import numpy as np
+
+from sequitr_tpu_torch.config import ServerConfiguration
+from sequitr_tpu_torch.server import jobs as jobs_lib
+from sequitr_tpu_torch.server.jobs import Job
+from sequitr_tpu_torch.server.server import (
+    _append_writer,
+    _apply_frame_range,
+    _apply_roi,
+    _auto_frame_batch,
+    _out_compression,
+    _parse_z_pages,
+    _reads_fail_fast,
+    _require_model,
+    _require_one_card,
+    _require_polyphase_model,
+    _resolve_inputs,
+    _tile_config,
+    register,
+)
+from sequitr_tpu_torch.utils import PhaseTimer, resolve_device
+
+
+def _frame_source(job: Job):
+    from sequitr_tpu_torch.data.source import FrameSource
+
+    paths = _resolve_inputs(job)
+    try:
+        source = FrameSource(paths=paths)
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    return _apply_roi(job, _apply_frame_range(job, source))
+
+
+def _out_params(job: Job) -> dict:
+    """The job's params with ``out_dtype`` as the tile config's output
+    dtype. ``.copy()`` (not ``dict(...)``) so a ParamTracker marks every
+    param read."""
+    p = job.params.copy()
+    if "out_dtype" in p:
+        p["probs_dtype"] = p["out_dtype"]
+    return p
+
+
+def _gan_setup(job: Job, config: ServerConfiguration, source):
+    """The job's GAN model (folded at load, ``gan.fold_generator``) and its
+    tile config; a channel-count mismatch is a deterministic JobError."""
+    cfg, model = _require_model(job, config, "gan")
+    if cfg.in_channels != source.n_channels:
+        raise jobs_lib.JobError(
+            f"model expects {cfg.in_channels} channel(s), "
+            f"got {source.n_channels} input stack(s)"
+        )
+    cfg = model.cfg  # the folded configuration keys the enhancer cache
+    tc = _tile_config(
+        _out_params(job), dims=2,
+        frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+        exact_only=True, allow_polyphase=True,
+    )
+    if tc.polyphase:
+        _require_polyphase_model(cfg.generator_config)
+        if job.params.get("spatial_parallel"):
+            raise jobs_lib.JobError(
+                "polyphase + spatial_parallel is not supported; the "
+                "spatial path runs its own halo-exchange forward"
+            )
+    return cfg, model, tc
+
+
+def _stream_to_writer(job, source, fn_for, timer, writer, c_out, device):
+    """Serve every frame of ``source`` through ``fn_for(batch)`` (the
+    single-frame form for ``batch=None``) and append each output channel
+    of each frame as a page; progress and cancellation once a frame."""
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    n_frames = len(source)
+    fb = job.params.get("frame_batch")
+    fb = int(fb) if fb else _auto_frame_batch(source.spatial)
+    fb = max(1, min(fb, n_frames))
+    rep = jobs_lib.ProgressReporter(job, n_frames)
+
+    def write_frame(got):  # (H, W, C_out)
+        with timer.phase("write"):
+            for c in range(c_out):
+                writer.append(got[..., c])
+        rep.step()
+
+    if fb > 1:
+        fn, feed = fn_for(fb), source.chunks(fb)
+    else:
+        fn, feed = fn_for(None), source.frames()
+    n_left = n_frames
+    with source:
+        for out in infer_lib.stream_frames(
+            fn, _reads_fail_fast(job, feed),
+            prefetch_host=infer_lib._copy_to_host_async, device=device,
+        ):
+            with timer.phase("fetch"):
+                got = np.asarray(out)
+            if fb > 1:
+                for k in range(min(fb, n_left)):
+                    write_frame(got[k])
+                n_left -= fb
+            else:
+                write_frame(got)
+    rep.finish()
+
+
+def _frames_metrics(timer, t0: float, n_frames: int, device) -> str:
+    total_s = time.time() - t0
+    metrics = dict(timer.summary(), total_s=round(total_s, 4), n_frames=n_frames)
+    if total_s > 0:
+        metrics["frames_per_sec"] = round(n_frames / total_s, 3)
+    metrics["device"] = str(device)
+    return json.dumps(metrics)
+
+
+@register("enhancement_gan")
+def enhancement_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """GAN generator enhancement pass over a TIFF stack.
+
+    input: one TIFF per input channel (stacked on the trailing axis).
+    params: model (kind ``gan``), patch, overlap, window, normalize, p_lo,
+    p_hi, tta, out_dtype, frame_batch, frame_range, roi, polyphase.
+    Frames that are a multiple of the model's input multiple and within the
+    4.4 M-pixel budget run whole. Output: enhanced.tif (float32 unless
+    ``out_dtype``; multi-channel output is frame-major paged, see
+    ``enhanced_layout``).
+    """
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    device = resolve_device(config.device)
+    source = _frame_source(job)
+    cfg, model, tc = _gan_setup(job, config, source)
+    for key in ("spatial_parallel", "data_parallel"):
+        _require_one_card(job, device, key)
+
+    timer = PhaseTimer()
+    n_frames = len(source)
+    c_out = cfg.out_channels
+    out_path = os.path.join(job.output, "enhanced.tif")
+    writer = _append_writer(
+        out_path,
+        float(n_frames) * np.prod(source.spatial) * c_out
+        * np.dtype(tc.probs_dtype).itemsize,
+        _out_compression(job),
+    )
+
+    def fn_for(batch):
+        enhance = infer_lib.cached_gan_enhancer(cfg, tc, tuple(source.spatial), batch, device)
+        return lambda frames: enhance(model, frames)
+
+    t0 = time.time()
+    try:
+        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device)
+    except BaseException:
+        writer.abort()
+        raise
+    writer.close()
+    outputs = {
+        "enhanced": out_path,
+        "metrics": _frames_metrics(timer, t0, n_frames, device),
+    }
+    if c_out > 1:
+        outputs["enhanced_layout"] = (
+            f"pages=(T={n_frames})*(C={c_out}), frame-major"
+        )
+    return outputs
+
+
+@register("denoise")
+def denoise(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Noise2Void denoising pass over a TIFF stack (kind ``n2v`` models).
+
+    The regression U-Net runs the enhancer's normalize -> tiled forward ->
+    stitch chain (raw head, no softmax) and writes the predicted clean
+    stack in normalized space. input: one TIFF per channel. params: model,
+    patch, overlap, window, normalize, p_lo/p_hi, tta, out_dtype,
+    frame_batch, frame_range, roi, polyphase. ``spatial_parallel`` is
+    refused (frames this size fit one card). Output: denoised.tif (float32
+    by default; multi-channel output is frame-major paged).
+
+    A 3D model routes to the volumetric branch (``_denoise_volumes``): ONE
+    volume-sequence entry (optional ``z`` pages per volume), each (Z, H, W)
+    volume through the 3D denoiser, volume-major pages.
+    """
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    device = resolve_device(config.device)
+    if job.params.get("spatial_parallel"):
+        raise jobs_lib.JobError(
+            "denoise does not support spatial_parallel (frames this size "
+            "fit one chip; use data_parallel for timelapse throughput)"
+        )
+    paths = _resolve_inputs(job)
+    cfg, model = _require_model(job, config, "n2v")
+    _require_one_card(job, device, "data_parallel")
+    if cfg.dims == 3:
+        return _denoise_volumes(job, cfg, model, paths, device)
+    source = _frame_source(job)
+    if cfg.in_channels != source.n_channels:
+        raise jobs_lib.JobError(
+            f"model expects {cfg.in_channels} channel(s), "
+            f"got {source.n_channels} input stack(s)"
+        )
+    tc = _tile_config(
+        _out_params(job), dims=2,
+        frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+        exact_only=True, allow_polyphase=True,
+    )
+    if tc.polyphase:
+        _require_polyphase_model(cfg)
+
+    timer = PhaseTimer()
+    n_frames = len(source)
+    c_out = cfg.num_classes
+    out_path = os.path.join(job.output, "denoised.tif")
+    writer = _append_writer(
+        out_path,
+        float(n_frames) * np.prod(source.spatial) * c_out
+        * np.dtype(tc.probs_dtype).itemsize,
+        _out_compression(job),
+    )
+
+    def fn_for(batch):
+        den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), batch, device)
+        return lambda frames: den(model, frames)
+
+    t0 = time.time()
+    try:
+        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device)
+    except BaseException:
+        writer.abort()
+        raise
+    writer.close()
+    outputs = {
+        "denoised": out_path,
+        "metrics": _frames_metrics(timer, t0, n_frames, device),
+    }
+    if c_out > 1:
+        outputs["denoised_layout"] = (
+            f"pages=(T={n_frames})*(C={c_out}), frame-major"
+        )
+    return outputs
+
+
+def _denoise_volumes(job: Job, cfg, model, paths, device) -> Dict[str, str]:
+    """Volumetric branch of ``denoise`` (kind ``n2v``, ``dims == 3``).
+
+    ONE volume-sequence entry (per-timepoint z-stack files, or a single
+    file with the ``z`` pages-per-volume param); each (Z, H, W) volume runs
+    the 3D denoiser (whole-volume when it fits the 4.4 M-voxel budget, else
+    the default 3D tiling), streamed two ahead, and its denoised planes
+    append to one page stack. ``frame_range`` selects timepoints; progress
+    and cancellation once a volume.
+    """
+    from sequitr_tpu_torch.data.source import VolumeSequence
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    if job.params.get("roi") is not None:
+        raise jobs_lib.JobError("roi serving is 2D-only (crop the volume upstream)")
+    if job.params.get("frame_batch"):
+        raise jobs_lib.JobError(
+            "3D denoise does not take frame_batch (volumes stream one at "
+            "a time; a whole volume already fills a dispatch)"
+        )
+    if len(paths) != 1:
+        raise jobs_lib.JobError(
+            f"3D denoise takes ONE volume-sequence entry (the model is "
+            f"single-channel), got {len(paths)}"
+        )
+    try:
+        source = VolumeSequence(paths[0], z=_parse_z_pages(job))
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        # close the sequence when a later parameter check rejects the job
+        source = _apply_frame_range(job, source)
+        tc = _tile_config(
+            _out_params(job), dims=3,
+            frame_spatial=source.spatial,
+            min_multiple=cfg.min_input_multiple,
+            exact_only=True,
+        )
+    except BaseException:
+        source.close()
+        raise
+    n_vols = len(source)
+    out_path = os.path.join(job.output, "denoised.tif")
+    writer = _append_writer(
+        out_path,
+        float(n_vols) * np.prod(source.spatial)
+        * np.dtype(tc.probs_dtype).itemsize,
+        _out_compression(job),
+    )
+    timer = PhaseTimer()
+    t0 = time.time()
+    den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), None, device)
+    try:
+        with source:
+            rep = jobs_lib.ProgressReporter(job, n_vols)
+            for out in infer_lib.stream_frames(
+                lambda v: den(model, v),
+                _reads_fail_fast(job, source.volumes()),
+                prefetch_host=infer_lib._copy_to_host_async, device=device,
+            ):
+                with timer.phase("fetch"):
+                    got = np.asarray(out)[..., 0]  # (Z, H, W)
+                with timer.phase("write"):
+                    for plane in got:
+                        writer.append(plane)
+                rep.step()
+            rep.finish()
+    except BaseException:
+        writer.abort()
+        raise
+    writer.close()
+    total_s = time.time() - t0
+    metrics = dict(timer.summary(), total_s=round(total_s, 4), n_volumes=n_vols)
+    if total_s > 0:
+        metrics["volumes_per_sec"] = round(n_vols / total_s, 3)
+    metrics["device"] = str(device)
+    outputs = {"denoised": out_path, "metrics": json.dumps(metrics)}
+    if n_vols > 1:
+        outputs["denoised_layout"] = (
+            f"pages=(T={n_vols})*(Z={source.spatial[0]}), volume-major"
+        )
+    return outputs

@@ -1,17 +1,23 @@
-"""Semantic-segmentation serving: ``segmentation_unet2d``.
+"""Semantic-segmentation serving: ``segmentation_unet2d`` and
+``segmentation_unet3d``.
 
-Port of ``sequitr_tpu.server.pipelines.segmentation.segmentation_unet2d``:
-the same params and outputs (labels.tif as uint16, probs.tif under
-``save_probs``, entropy.tif, objects.h5 / objects.csv, the
-``frames_per_sec`` metric). Registration happens at import time via the
-shared registry in ``sequitr_tpu_torch.server.server``.
+Port of the two jobs of ``sequitr_tpu.server.pipelines.segmentation``: the
+same params and outputs (labels.tif as uint16, probs.tif under
+``save_probs``, entropy.tif, objects.h5 / objects.csv; for volume
+timelapses one labels_t{t:04d}.tif a timepoint and one objects.h5; the
+``frames_per_sec`` / ``mvox_per_sec`` / ``volumes_per_sec`` metrics).
+Registration happens at import time via the shared registry in
+``sequitr_tpu_torch.server.server``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Dict
+import time
+from collections import deque
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -22,9 +28,14 @@ from sequitr_tpu_torch.server.server import (
     _append_writer,
     _apply_frame_range,
     _apply_roi,
+    _expand_inputs_entry,
     _normalized_entropy,
     _out_compression,
+    _parse_z_pages,
+    _read_stack_or_fail,
+    _reads_fail_fast,
     _require_model,
+    _require_one_card,
     _require_polyphase_model,
     _resolve_inputs,
     _run_frames,
@@ -45,7 +56,6 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
     model-level space-to-depth).
     Outputs: labels.tif (+ probs.tif), objects.h5 (btrack layout).
     """
-    from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
     from sequitr_tpu_torch import localize as loc_lib
@@ -216,4 +226,319 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
             csv_path = os.path.join(job.output, "objects.csv")
             loc_lib.export_objects_csv(csv_path, tables)
             outputs["objects_csv"] = csv_path
+    return outputs
+
+
+def _require_3d(job: Job, cfg, n_channels: int, what: str) -> None:
+    if cfg.dims != 3:
+        raise jobs_lib.JobError(f"job {job.id}: model is {cfg.dims}D, expected 3D")
+    if cfg.in_channels != n_channels:
+        raise jobs_lib.JobError(
+            f"model expects {cfg.in_channels} channel(s), got {n_channels} {what}"
+        )
+
+
+def _volume_tile_config(job: Job, cfg, zhw):
+    """The 3D job's tiling; the inferrer computes softmax maps only when
+    probs or entropy are saved (labels-only otherwise)."""
+    tc = _tile_config(
+        job.params, dims=3,
+        frame_spatial=zhw, min_multiple=cfg.min_input_multiple,
+        allow_polyphase=True,
+    )
+    if tc.polyphase:
+        _require_polyphase_model(cfg)
+    if job.params.get("save_entropy") and cfg.num_classes < 2:
+        raise jobs_lib.JobError(
+            "save_entropy requires a model with num_classes >= 2"
+        )
+    want_probs = bool(job.params.get("save_probs") or job.params.get("save_entropy"))
+    return dataclasses.replace(tc, emit_probs=want_probs)
+
+
+def _probs_planes(probs_np: np.ndarray) -> np.ndarray:
+    """(Z, H, W, K) -> (Z*K, H, W) pages, plane-major."""
+    return np.moveaxis(probs_np, -1, 1).reshape(-1, *probs_np.shape[1:3])
+
+
+@register("segmentation_unet3d")
+def segmentation_unet3d(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Tiled UNet3D segmentation of a (Z, H, W) volume.
+
+    Same output contract as the 2D pipeline: labels.tif (uint16, a (Z, H, W)
+    stack), optional per-class probs.tif (``save_probs``, plane-major),
+    entropy.tif (``save_entropy``), and btrack objects.h5 with 3D centroids
+    (``localize``, default True). Whole volumes within the 4.4 M-voxel
+    budget run as one patch; larger ones tile at (16, 128, 128) / (4, 32,
+    32) unless ``patch`` / ``overlap`` say otherwise. ``polyphase``: the
+    (1, 2, 2) phase forward (even H/W patch axes).
+
+    TIMELAPSES OF VOLUMES: a directory/glob input entry (one z-stack file
+    per timepoint) or a single file with the ``z`` pages-per-volume param
+    serves every timepoint through one cached inferrer, streamed two
+    ahead — per-timepoint ``labels_t{t:04d}.tif`` (+ probs/entropy) and ONE
+    ``objects.h5`` over all timepoints. ``frame_range`` selects timepoints.
+    """
+    from sequitr_tpu_torch import localize as loc_lib
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+    from sequitr_tpu_torch.utils import PhaseTimer
+
+    device = resolve_device(config.device)
+    if job.params.get("roi") is not None:
+        raise jobs_lib.JobError(
+            "roi serving is 2D-only (crop the volume upstream)"
+        )
+    # one TIFF per channel, stacked on the trailing axis
+    paths = _resolve_inputs(job)
+    z_param = job.params.get("z")
+    # a dir/glob entry IS the timelapse convention even when it expands
+    # to a single file (a 1-timepoint sequence, not a bare volume file)
+    if z_param is not None or any(
+        _expand_inputs_entry(p_) != [p_] for p_ in paths
+    ):
+        return _segment_volume_timelapse(
+            job, config, paths, _parse_z_pages(job), device
+        )
+    # the stored dtype crosses to the card (uint16: 2 bytes a voxel)
+    vols = []
+    for p_ in paths:
+        v = _read_stack_or_fail(job, p_)
+        if v.ndim != 3:
+            raise jobs_lib.JobError(
+                f"unet3d expects (Z, H, W) stacks, got {v.shape} from {p_}"
+            )
+        vols.append(v)
+    if len({v.shape for v in vols}) != 1:
+        raise jobs_lib.JobError(
+            f"channel stacks disagree in shape: {[v.shape for v in vols]}"
+        )
+    vol = np.stack(vols, axis=-1) if len(vols) > 1 else vols[0]
+    vol_spatial = tuple(vol.shape[:3])
+
+    cfg, model = _require_model(job, config, "unet")
+    _require_3d(job, cfg, vol.shape[-1] if vol.ndim == 4 else 1, "input stack(s)")
+    tc = _volume_tile_config(job, cfg, vol_spatial)
+    if tc.polyphase and job.params.get("spatial_parallel"):
+        raise jobs_lib.JobError(
+            "polyphase + spatial_parallel is not supported; the "
+            "spatial path runs its own halo-exchange forward"
+        )
+    _require_one_card(job, device, "spatial_parallel")
+
+    timer = PhaseTimer()
+    t0 = time.time()
+    fn = infer_lib.cached_frame_inferrer(cfg, tc, vol_spatial, device)
+    with timer.phase("infer"):
+        probs, labels = fn(model, vol)
+    with timer.phase("fetch"):
+        labels_np = labels.cpu().numpy()
+        probs_np = None if probs is None else probs.cpu().numpy()
+
+    outputs: Dict[str, str] = {}
+    comp = _out_compression(job)
+    labels_path = os.path.join(job.output, "labels.tif")
+    with timer.phase("write"):
+        tiff.write_stack(labels_path, labels_np.astype(np.uint16), compression=comp)
+    outputs["labels"] = labels_path
+    if job.params.get("save_entropy"):
+        # normalized softmax entropy per voxel (see the 2D path)
+        ent = _normalized_entropy(probs_np, cfg.num_classes)
+        entropy_path = os.path.join(job.output, "entropy.tif")
+        tiff.write_stack(entropy_path, ent, compression=comp)
+        outputs["entropy"] = entropy_path
+    if job.params.get("save_probs"):
+        probs_path = os.path.join(job.output, "probs.tif")
+        tiff.write_stack(probs_path, _probs_planes(probs_np), compression=comp)
+        outputs["probs"] = probs_path
+        outputs["probs_layout"] = (
+            f"pages=(Z={vol.shape[0]})*(K={probs_np.shape[-1]}), plane-major"
+        )
+    if job.params.get("localize", True):
+        with timer.phase("localize"):
+            # per-object mean intensity (f32, as read); channel-mean for
+            # multi-channel input
+            vol32 = vol.astype(np.float32, copy=False)
+            inten = vol32.mean(axis=-1) if vol.ndim == 4 else vol32
+            objects = loc_lib.localize_volume(
+                labels_np, t=int(job.params.get("t", 0)), intensity=inten,
+                min_area=int(job.params.get("min_area", 1)),
+                split_touching=bool(job.params.get("split_touching")),
+                min_distance=int(job.params.get("min_distance", 5)),
+            )
+            h5_path = os.path.join(job.output, "objects.h5")
+            # a volume is one timepoint (t param); map has that single row
+            loc_lib.export_btrack_h5(
+                h5_path, objects, n_frames=int(job.params.get("t", 0)) + 1
+            )
+        outputs["objects"] = h5_path
+        outputs["n_objects"] = str(len(objects))
+        if job.params.get("save_objects_csv"):
+            csv_path = os.path.join(job.output, "objects.csv")
+            loc_lib.export_objects_csv(csv_path, objects)
+            outputs["objects_csv"] = csv_path
+    total_s = time.time() - t0
+    mvox = float(np.prod(vol_spatial)) / 1e6
+    outputs["metrics"] = json.dumps(
+        dict(
+            timer.summary(), total_s=round(total_s, 4),
+            mvox_per_sec=round(mvox / max(total_s, 1e-9), 3),
+            volumes_per_sec=round(1.0 / max(total_s, 1e-9), 3),
+            device=str(device),
+        )
+    )
+    return outputs
+
+
+def _segment_volume_timelapse(
+    job: Job,
+    config: ServerConfiguration,
+    paths,
+    z: Optional[int],
+    device,
+) -> Dict[str, str]:
+    """Timelapse body of ``segmentation_unet3d``: stream a sequence of
+    (Z, H, W) volumes (one file per timepoint, or one T*Z-page file with
+    ``z``) through one cached inferrer, two ahead (reads on a reader thread,
+    host->card and card->host copies on side streams); per-timepoint labels
+    (+ probs/entropy) files and a single btrack objects.h5 spanning every
+    timepoint.
+    """
+    from sequitr_tpu_torch import localize as loc_lib
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.data.source import VolumeSequence
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+    from sequitr_tpu_torch.utils import PhaseTimer
+
+    try:
+        channels = [VolumeSequence(entry, z=z) for entry in paths]
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        shapes = {c.spatial for c in channels}
+        counts = {len(c) for c in channels}
+        if len(shapes) != 1 or len(counts) != 1:
+            raise jobs_lib.JobError(
+                f"job {job.id}: channel volume sequences disagree: shapes "
+                f"{sorted(shapes)}, timepoints {sorted(counts)}"
+            )
+        channels = [_apply_frame_range(job, c) for c in channels]
+        src = channels[0]
+        n_t = len(src)
+        zhw = tuple(src.spatial)
+
+        cfg, model = _require_model(job, config, "unet")
+        _require_3d(job, cfg, len(channels), "input sequence(s)")
+        if job.params.get("spatial_parallel"):
+            raise jobs_lib.JobError(
+                "spatial_parallel is single-volume only; serve a volume "
+                "timelapse per-timepoint (the per-volume graph is cached "
+                "across timepoints) or split the range across workers with "
+                "frame_range"
+            )
+        tc = _volume_tile_config(job, cfg, zhw)
+    except BaseException:
+        for ch in channels:
+            ch.close()
+        raise
+    timer = PhaseTimer()
+    t0 = time.time()
+    comp = _out_compression(job)
+    save_probs = bool(job.params.get("save_probs"))
+    save_entropy = bool(job.params.get("save_entropy"))
+    do_localize = bool(job.params.get("localize", True))
+    min_area = int(job.params.get("min_area", 1))
+    split_touching = bool(job.params.get("split_touching"))
+    min_distance = int(job.params.get("min_distance", 5))
+
+    # volumes read ahead keep their host copy here for the localization's
+    # intensities, in order (the reader thread appends, this loop pops)
+    read: deque = deque()
+
+    def host_volumes():
+        for t in range(n_t):
+            vols = [ch.volume(t) for ch in channels]
+            vol = np.stack(vols, axis=-1) if len(vols) > 1 else vols[0]
+            if do_localize:
+                read.append(vol)
+            yield vol
+
+    fn = infer_lib.cached_frame_inferrer(cfg, tc, zhw, device)
+    outputs: Dict[str, str] = {}
+    all_objects = []
+    results = infer_lib.infer_stack(
+        fn, model, _reads_fail_fast(job, host_volumes()),
+        fetch_probs=save_probs or save_entropy, device=device,
+    )
+    try:
+        for t in jobs_lib.track(job, range(n_t), total=n_t, phase="volumes"):
+            with timer.phase("infer"):
+                result = next(results)
+            with timer.phase("fetch"):
+                labels_np = np.asarray(result.labels)
+                if save_probs or save_entropy:
+                    probs_np = np.asarray(result.probs)  # one copy for both uses
+            t_abs = src.frame_offset + t
+            with timer.phase("write"):
+                lp = os.path.join(job.output, f"labels_t{t_abs:04d}.tif")
+                tiff.write_stack(lp, labels_np.astype(np.uint16), compression=comp)
+                if save_entropy:
+                    tiff.write_stack(
+                        os.path.join(job.output, f"entropy_t{t_abs:04d}.tif"),
+                        _normalized_entropy(probs_np, cfg.num_classes),
+                        compression=comp,
+                    )
+                if save_probs:
+                    tiff.write_stack(
+                        os.path.join(job.output, f"probs_t{t_abs:04d}.tif"),
+                        _probs_planes(probs_np), compression=comp,
+                    )
+            if do_localize:
+                with timer.phase("localize"):
+                    vol = read.popleft()
+                    inten = vol.mean(axis=-1) if vol.ndim == 4 else vol
+                    all_objects.extend(
+                        loc_lib.localize_volume(
+                            labels_np, t=t_abs, intensity=inten,
+                            min_area=min_area,
+                            split_touching=split_touching,
+                            min_distance=min_distance,
+                        )
+                    )
+    finally:
+        results.close()  # stops the reader thread
+        for ch in channels:
+            ch.close()
+    # per-timepoint file families: the output keys point at the directory
+    outputs["labels"] = job.output
+    if save_entropy:
+        outputs["entropy"] = job.output
+    if save_probs:
+        outputs["probs"] = job.output
+        outputs["probs_layout"] = (
+            f"per-timepoint probs_t*.tif: pages=(Z={zhw[0]})*"
+            f"(K={cfg.num_classes}), plane-major"
+        )
+    if do_localize:
+        h5_path = os.path.join(job.output, "objects.h5")
+        loc_lib.export_btrack_h5(
+            h5_path, all_objects, n_frames=src.frame_offset + n_t
+        )
+        outputs["objects"] = h5_path
+        outputs["n_objects"] = str(len(all_objects))
+        if job.params.get("save_objects_csv"):
+            csv_path = os.path.join(job.output, "objects.csv")
+            loc_lib.export_objects_csv(csv_path, all_objects)
+            outputs["objects_csv"] = csv_path
+    total_s = time.time() - t0
+    mvox = float(np.prod(zhw)) * n_t / 1e6
+    outputs["metrics"] = json.dumps(
+        dict(
+            timer.summary(), total_s=round(total_s, 4),
+            n_volumes=n_t,
+            mvox_per_sec=round(mvox / max(total_s, 1e-9), 3),
+            volumes_per_sec=round(n_t / max(total_s, 1e-9), 3),
+            device=str(device),
+        )
+    )
     return outputs

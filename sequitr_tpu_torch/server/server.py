@@ -1,10 +1,11 @@
 """The image server: watched-dir loop, pipeline registry, model store.
 
-Port of ``sequitr_tpu.server.server``, the part the 2D segmentation job
-needs. A single-process loop scans the jobs directory, atomically claims
-each job, dispatches to the registered pipeline and writes results plus a
-status marker into the job's output directory — the same filesystem
-contract, job JSON and outputs as the JAX server.
+Port of ``sequitr_tpu.server.server``, the part the segmentation (2D and
+3D), GAN enhancement and denoising jobs need. A single-process loop scans
+the jobs directory, atomically claims each job, dispatches to the
+registered pipeline and writes results plus a status marker into the job's
+output directory — the same filesystem contract, job JSON and outputs as
+the JAX server.
 
 Model store: ``models_dir/<name>/config.json`` (the architecture, with
 ``__kind__``, the same file the JAX server writes) plus ``weights.npz`` in
@@ -358,22 +359,20 @@ def save_model(models_dir: str, name: str, kind: str, cfg, model) -> str:
 def load_model(models_dir: str, name: str, device=None):
     """Load ``(kind, cfg, model)`` saved by ``save_model``.
 
-    ``cfg`` is the stored configuration; ``model`` has its batch norm folded
-    into the convs (once, here, in f32) and lives on ``device``.
+    ``cfg`` is the stored configuration (a ``GANConfig`` for kind ``gan``,
+    else a ``UNetConfig``); ``model`` has its batch norm folded into the
+    convs (once, here, in f32: ``unet.fold_batchnorm``,
+    ``gan.fold_generator``) and lives on ``device``.
     """
     from sequitr_tpu_torch.models import convert as convert_lib
-    from sequitr_tpu_torch.models import fixtures, unet
+    from sequitr_tpu_torch.models import fixtures, gan, unet
 
     model_dir = os.path.join(models_dir, name)
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg_dict = json.load(f)
     kind = cfg_dict.pop("__kind__")
-    if kind not in fixtures.UNET_KINDS:
-        raise NotImplementedError(
-            f"model {name!r} is a {kind!r} model: only U-Net kinds are "
-            "ported so far (the GAN is a later slice of the port)"
-        )
-    known = {f.name for f in dataclasses.fields(unet.UNetConfig)}
+    cfg_cls = fixtures.config_class(kind)
+    known = {f.name for f in dataclasses.fields(cfg_cls)}
     unknown = sorted(set(cfg_dict) - known)
     if unknown:
         log.warning(
@@ -381,11 +380,12 @@ def load_model(models_dir: str, name: str, device=None):
             "(saved by a newer version?)", name, unknown
         )
         cfg_dict = {k: v for k, v in cfg_dict.items() if k in known}
-    cfg = unet.UNetConfig(**cfg_dict)
+    cfg = cfg_cls(**cfg_dict)
     with np.load(os.path.join(model_dir, _WEIGHTS)) as npz:
         flat = {k: npz[k] for k in npz.files}
     model = convert_lib.load_flat(cfg, flat, device=device)
-    return kind, cfg, unet.fold_batchnorm(model)
+    fold = gan.fold_generator if kind == "gan" else unet.fold_batchnorm
+    return kind, cfg, fold(model)
 
 
 # (stamp, loaded) per (model dir, device): a warm server shares one loaded
@@ -446,6 +446,52 @@ def _require_model(job: Job, config: ServerConfiguration, expect_kind=None):
 # ---------------------------------------------------------------------------
 # shared pipeline helpers
 # ---------------------------------------------------------------------------
+
+
+def _expand_inputs_entry(path: str):
+    """Ordered file list for one input entry (dir/glob expansion) — [path]
+    for a plain file; never raises (callers decide what emptiness means)."""
+    from sequitr_tpu_torch.data.source import _expand_channel
+
+    try:
+        return _expand_channel(path)
+    except ValueError:
+        return [path]
+
+
+def _parse_z_pages(job: Job):
+    """The ``z`` (pages-per-volume) param as int or None; a bad value is a
+    deterministic JobError (shared by every volume-timelapse pipeline)."""
+    z_param = job.params.get("z")
+    try:
+        return None if z_param is None else int(z_param)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(
+            f"z={z_param!r} must be an integer (pages per volume)"
+        )
+
+
+def _read_stack_or_fail(job: Job, path: str) -> np.ndarray:
+    """Read a TIFF stack in its stored dtype; unreadable input is
+    deterministic — fail fast."""
+    from sequitr_tpu_torch.data import tiff
+
+    try:
+        return np.asarray(tiff.read_stack(path))
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read {path}: {e}")
+
+
+def _require_one_card(job: Job, device, key: str) -> None:
+    """``key`` across more than one CUDA card is a later slice of the port:
+    a JobError there; on one card it serves single-device, as the JAX
+    server does on one chip."""
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if job.params.get(key) and n_cards > 1:
+        raise jobs_lib.JobError(
+            f"{key} across {n_cards} CUDA devices is not ported yet "
+            "(a later slice of the port); omit it to serve on one device"
+        )
 
 
 def _resolve_inputs(job: Job):
@@ -603,13 +649,8 @@ def _run_frames(cfg, tc, model, source, job: Job, device):
     job_params = job.params
     spatial = tuple(source.spatial)
     n_frames = len(source)
-    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
     for key in ("spatial_parallel", "data_parallel"):
-        if job_params.get(key) and n_cards > 1:
-            raise jobs_lib.JobError(
-                f"{key} across {n_cards} CUDA devices is not ported yet "
-                "(a later slice of the port); omit it to serve on one device"
-            )
+        _require_one_card(job, device, key)
     fb = job_params.get("frame_batch")
     fb = int(fb) if fb else _auto_frame_batch(spatial)
     fb = max(1, min(fb, n_frames))  # never compute padded frames nobody asked for
@@ -716,6 +757,19 @@ def _reads_fail_fast(job: Job, it):
         yield item
 
 
+def config_from_arch(kind: str, p: dict):
+    """The configuration of a ``kind`` model from its architecture JSON: a
+    ``GANConfig`` from its fields for ``gan`` (unknown keys such as
+    ``__kind__`` ignored), else ``unet_config_from_params``."""
+    from sequitr_tpu_torch.models import fixtures
+
+    cls = fixtures.config_class(kind)
+    if kind != "gan":
+        return unet_config_from_params(p)
+    known = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in p.items() if k in known})
+
+
 def unet_config_from_params(p: dict):
     """A ``UNetConfig`` from architecture params (the JAX server's fields)."""
     from sequitr_tpu_torch.models import unet
@@ -744,5 +798,6 @@ def unet_config_from_params(p: dict):
 # ---------------------------------------------------------------------------
 
 from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
+    gan_denoise as _pipelines_gan_denoise,
     segmentation as _pipelines_segmentation,
 )

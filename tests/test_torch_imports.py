@@ -25,6 +25,7 @@ MODULES = [
     "sequitr_tpu_torch.models.unet",
     "sequitr_tpu_torch.models.convert",
     "sequitr_tpu_torch.models.fixtures",
+    "sequitr_tpu_torch.models.gan",
     "sequitr_tpu_torch.models.polyphase",
     "sequitr_tpu_torch.ops",
     "sequitr_tpu_torch.ops.normalize",
@@ -39,6 +40,7 @@ MODULES = [
     "sequitr_tpu_torch.server.jobs",
     "sequitr_tpu_torch.server.server",
     "sequitr_tpu_torch.server.pipelines",
+    "sequitr_tpu_torch.server.pipelines.gan_denoise",
     "sequitr_tpu_torch.server.pipelines.segmentation",
     "sequitr_tpu_torch.studies",
     "sequitr_tpu_torch.studies.conv2d",
@@ -65,7 +67,7 @@ import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
 from sequitr_tpu_torch import utils
 from sequitr_tpu_torch.config import ServerConfiguration
-from sequitr_tpu_torch.models import convert, unet
+from sequitr_tpu_torch.models import convert, gan, unet
 from sequitr_tpu_torch.pipeline import infer
 from sequitr_tpu_torch.studies import polyphase_conv
 from sequitr_tpu_torch.server import ImageServer
@@ -73,11 +75,19 @@ from sequitr_tpu_torch.server import ImageServer
 assert utils.DEFAULT_DEVICE == "cuda"
 assert ServerConfiguration().device == "cuda"
 cfg = unet.UNetConfig(depth=2, base_features=4)
+cfg3 = unet.UNetConfig(dims=3, depth=2, base_features=4)
+gcfg = gan.GANConfig(gen_depth=2, gen_base_features=4)
 tc = infer.TileConfig(patch=(16, 16), overlap=(0, 0))
+tc3 = infer.TileConfig(patch=(4, 16, 16), overlap=(0, 0, 0))
 calls = [
     lambda: utils.resolve_device(),
     lambda: unet.UNet(cfg),
+    lambda: unet.UNet(cfg3),
+    lambda: gan.GAN(gcfg),
     lambda: infer.make_frame_inferrer(cfg, tc, (16, 16)),
+    lambda: infer.make_frame_inferrer(cfg3, tc3, (4, 16, 16)),
+    lambda: infer.make_gan_enhancer(gcfg, tc, (16, 16)),
+    lambda: infer.make_denoiser(cfg3, tc3, (4, 16, 16)),
     lambda: convert.pack_conv3x3(torch.zeros(3, 3, 1, 1).numpy(), torch.zeros(1).numpy()),
     lambda: polyphase_conv.run(size=16, iters=1),
     lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
@@ -92,7 +102,9 @@ for call in calls:
         raise AssertionError("ran without a card and without device='cpu'")
 assert utils.resolve_device("cpu").type == "cpu"
 unet.UNet(cfg, device="cpu")
+gan.GAN(gcfg, device="cpu")
 infer.make_frame_inferrer(cfg, tc, (16, 16), device="cpu")
+infer.make_gan_enhancer(gcfg, tc, (16, 16), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
 print("ok")
 """

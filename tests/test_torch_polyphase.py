@@ -195,9 +195,12 @@ def test_rejects_unsupported_configs():
         torch_poly.apply(ok, torch.zeros(1, 31, 32, 1))
     assert torch_poly.serving(ok) is torch_poly.serving(ok)  # built once
     assert torch_poly.eligible(ok.cfg, (32, 32)) and not torch_poly.eligible(ok.cfg, (32, 31))
-    for name in ("apply_train", "apply3d", "apply3d_train"):
+    for name in ("apply_train", "apply3d_train"):
         with pytest.raises(NotImplementedError, match="slice"):
             getattr(torch_poly, name)(ok, x)
+    # apply3d is ported (tests/test_torch_polyphase3d.py) and takes 3D models only
+    with pytest.raises(ValueError, match="3D models"):
+        torch_poly.apply3d(ok, x)
 
 
 def test_frame_inferrer_polyphase_branch():
@@ -217,8 +220,11 @@ def test_frame_inferrer_polyphase_branch():
     tc = torch_infer.TileConfig(patch=(32, 32), overlap=(0, 0), polyphase=True)
     with pytest.raises(ValueError, match="polyphase serving requires"):
         torch_infer.make_frame_inferrer(s2d, tc, (32, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="3D"):
-        torch_infer._check_polyphase(tc, dataclasses.replace(cfg, dims=3))
+    # 3D models phase (H, W) of a 3-axis patch (tests/test_torch_infer3d.py)
+    cfg3 = dataclasses.replace(cfg, dims=3)
+    with pytest.raises(ValueError, match="polyphase serving requires"):
+        torch_infer._check_polyphase(tc, cfg3)
+    torch_infer._check_polyphase(dataclasses.replace(tc, patch=(5, 32, 32)), cfg3)
 
 
 @pytest.fixture(scope="module")

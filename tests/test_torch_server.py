@@ -9,6 +9,7 @@ The model is carried across the way a user moves one: the arrays behind
 
 import json
 import os
+import re
 
 import h5py
 import jax
@@ -183,3 +184,201 @@ def test_malformed_job_is_quarantined(env, tmp_path):
     server = TorchServer(TorchConfig(jobs_dir=jobs, models_dir=env["torch_models"], device="cpu"))
     assert server.poll_once() is False
     assert os.path.exists(path + ".rejected") and not os.path.exists(path)
+
+
+# ---------------------------------------------------------------------------
+# 3D segmentation, GAN enhancement and Noise2Void denoising jobs
+# ---------------------------------------------------------------------------
+
+
+def _perturbed(init, cfg, seed):
+    """``init``'s params with non-trivial biases and statistics (no ties)."""
+    params, state = init(jax.random.PRNGKey(seed), cfg)
+    rng = np.random.default_rng(seed + 1)
+    params = jax.tree.map(lambda a: a + 0.1 * rng.normal(size=a.shape).astype(np.float32), params)
+    state = jax.tree.map(lambda a: a + 0.1 * rng.random(a.shape).astype(np.float32), state)
+    return params, state
+
+
+@pytest.fixture(scope="module")
+def env_more(tmp_path_factory):
+    """Small f32 models of kinds unet (3D), gan and n2v (2D and 3D) in both
+    model stores (the port's through ``import-model``, its kind read from
+    the JAX model's config.json); a 2-timepoint uint16 volume sequence, as
+    a directory and as one T*Z-page file; a 3-frame 32x32 stack."""
+    from sequitr_tpu.models import gan as jax_gan
+
+    tmp = tmp_path_factory.mktemp("serve_more")
+    jax_models, torch_models = str(tmp / "jax_models"), str(tmp / "torch_models")
+    models = {
+        "seg3d": ("unet", jax_unet.UNetConfig(dims=3, depth=2, base_features=8, compute_dtype=jnp.float32), jax_unet.init),
+        "gan": ("gan", jax_gan.GANConfig(gen_depth=3, gen_base_features=4, disc_layers=2, disc_base_features=4, compute_dtype=jnp.float32), jax_gan.init),
+        "n2v": ("n2v", jax_unet.UNetConfig(depth=2, base_features=4, num_classes=1, compute_dtype=jnp.float32), jax_unet.init),
+        "n2v3d": ("n2v", jax_unet.UNetConfig(dims=3, depth=2, base_features=4, num_classes=1, compute_dtype=jnp.float32), jax_unet.init),
+    }
+    for i, (name, (kind, cfg, init)) in enumerate(models.items()):
+        params, state = _perturbed(init, cfg, 10 + i)
+        jax_save_model(jax_models, name, kind, cfg, params, state)
+        npz = str(tmp / f"{name}.npz")
+        np.savez(npz, **jax_convert.flatten_params(params),
+                 **{f"state/{k}": v for k, v in jax_convert.flatten_params(state).items()})
+        assert torch_main.main([
+            "import-model", "--models-dir", torch_models, "--npz", npz,
+            "--arch", os.path.join(jax_models, name, "config.json"), name,
+        ]) == 0
+    vols = np.stack([
+        synthetic.cells_volume(31_500 + t, (8, 16, 16))[0] for t in range(2)
+    ]).clip(0, 65535).astype(np.uint16)
+    seq_dir = tmp / "seq"
+    seq_dir.mkdir()
+    for t in range(2):
+        torch_tiff.write_stack(str(seq_dir / f"t{t}.tif"), vols[t])
+    paged = str(tmp / "paged.tif")
+    torch_tiff.write_stack(paged, vols.reshape(16, 16, 16))
+    frames = np.stack(
+        [synthetic.cells_frame(424_300 + i, (32, 32))[0] for i in range(3)]
+    ).clip(0, 65535).astype(np.uint16)
+    stack = str(tmp / "stack32.tif")
+    torch_tiff.write_stack(stack, frames)
+    return dict(
+        tmp=tmp, jax_models=jax_models, torch_models=torch_models, vols=vols,
+        seq_dir=str(seq_dir), paged=paged, volume=str(seq_dir / "t0.tif"),
+        stack=stack, frames=frames,
+    )
+
+
+def _serve_spec(env, which, name, spec):
+    tmp = env["tmp"]
+    out = str(tmp / f"{which}_{name}")
+    jobs = str(tmp / f"{which}_jobs")
+    spec = dict(spec, output=out)
+    if which == "jax":
+        cfg = JaxConfig(jobs_dir=jobs, models_dir=env["jax_models"], compilation_cache_dir=None)
+        jax_submit(jobs, spec)
+        assert JaxServer(cfg).poll_once()
+    else:
+        cfg = TorchConfig(jobs_dir=jobs, models_dir=env["torch_models"], device="cpu")
+        torch_submit(jobs, spec)
+        assert TorchServer(cfg).poll_once()
+    with open(os.path.join(out, "status.json")) as f:
+        return json.load(f)
+
+
+def _both(env, name, spec):
+    sj = _serve_spec(env, "jax", name, spec)
+    st = _serve_spec(env, "torch", name, spec)
+    assert sj["state"] == "complete", sj.get("error")
+    assert st["state"] == "complete", st.get("error")
+    assert set(st["outputs"]) == set(sj["outputs"])
+    return sj["outputs"], st["outputs"]
+
+
+def _same_objects(oj, ot):
+    hj, ht = _h5_arrays(oj["objects"]), _h5_arrays(ot["objects"])
+    assert set(ht) == set(hj) and hj
+    for k in hj:
+        np.testing.assert_allclose(ht[k], hj[k], atol=1e-9, err_msg=k)
+
+
+def test_segmentation_unet3d_volume(env_more):
+    """One volume: labels.tif (Z, H, W), plane-major probs.tif, entropy.tif,
+    objects.h5 and objects.csv equal to the JAX server's."""
+    spec = {
+        "module": "segmentation_unet3d", "input": [env_more["volume"]],
+        "params": {"model": "seg3d", "save_probs": True, "save_entropy": True,
+                   "save_objects_csv": True},
+    }
+    oj, ot = _both(env_more, "seg3d", spec)
+    lj, lt = jax_tiff.read_stack(oj["labels"]), torch_tiff.read_stack(ot["labels"])
+    assert lt.dtype == np.uint16 and lt.shape == lj.shape == (8, 16, 16)
+    assert len(np.unique(lj)) > 1
+    np.testing.assert_array_equal(lt, lj)
+    pj, pt = jax_tiff.read_stack(oj["probs"]), torch_tiff.read_stack(ot["probs"])
+    assert pt.shape == pj.shape == (24, 16, 16)
+    np.testing.assert_allclose(pt, pj, atol=1e-4)
+    np.testing.assert_allclose(
+        torch_tiff.read_stack(ot["entropy"]), jax_tiff.read_stack(oj["entropy"]), atol=1e-4
+    )
+    assert ot["probs_layout"] == oj["probs_layout"] and ot["n_objects"] == oj["n_objects"]
+    _same_objects(oj, ot)
+    metrics = json.loads(ot["metrics"])
+    assert metrics["mvox_per_sec"] > 0 and metrics["volumes_per_sec"] > 0
+
+
+@pytest.mark.parametrize("layout", ["z pages", "directory"])
+def test_segmentation_unet3d_timelapse(env_more, layout):
+    """A volume timelapse: labels_t{t:04d}.tif per timepoint and one
+    objects.h5 over both, equal to the JAX server's."""
+    if layout == "z pages":
+        spec = {"module": "segmentation_unet3d", "input": [env_more["paged"]],
+                "params": {"model": "seg3d", "z": 8, "save_probs": True}}
+    else:
+        spec = {"module": "segmentation_unet3d", "input": [env_more["seq_dir"]],
+                "params": {"model": "seg3d", "frame_range": [1, 2]}}
+    oj, ot = _both(env_more, f"seg3d_{layout.replace(' ', '_')}", spec)
+    times = (0, 1) if layout == "z pages" else (1,)
+    for t in times:
+        lj = jax_tiff.read_stack(os.path.join(oj["labels"], f"labels_t{t:04d}.tif"))
+        lt = torch_tiff.read_stack(os.path.join(ot["labels"], f"labels_t{t:04d}.tif"))
+        assert lt.shape == (8, 16, 16)
+        np.testing.assert_array_equal(lt, lj)
+        if layout == "z pages":
+            np.testing.assert_allclose(
+                torch_tiff.read_stack(os.path.join(ot["probs"], f"probs_t{t:04d}.tif")),
+                jax_tiff.read_stack(os.path.join(oj["probs"], f"probs_t{t:04d}.tif")),
+                atol=1e-4,
+            )
+    _same_objects(oj, ot)
+    metrics = json.loads(ot["metrics"])
+    assert metrics["n_volumes"] == len(times) and metrics["volumes_per_sec"] > 0
+
+
+def test_enhancement_gan_job(env_more):
+    spec = {"module": "enhancement_gan", "input": [env_more["stack"]],
+            "params": {"model": "gan", "frame_batch": 2, "tta": 2}}
+    oj, ot = _both(env_more, "gan", spec)
+    ej, et = jax_tiff.read_stack(oj["enhanced"]), torch_tiff.read_stack(ot["enhanced"])
+    assert et.dtype == np.float32 and et.shape == ej.shape == (3, 32, 32)
+    np.testing.assert_allclose(et, ej, atol=1e-4)
+    assert json.loads(ot["metrics"])["n_frames"] == 3
+
+
+@pytest.mark.parametrize("which", ["frames", "volumes"])
+def test_denoise_job(env_more, which):
+    """2D denoise over the frame stack (float16 output), and the volumetric
+    branch over a volume sequence, equal to the JAX server's."""
+    if which == "frames":
+        spec = {"module": "denoise", "input": [env_more["stack"]],
+                "params": {"model": "n2v", "out_dtype": "float16"}}
+        shape, dtype = (3, 32, 32), np.float16
+    else:
+        spec = {"module": "denoise", "input": [env_more["seq_dir"]],
+                "params": {"model": "n2v3d", "tta": 8}}
+        shape, dtype = (16, 16, 16), np.float32
+    oj, ot = _both(env_more, f"denoise_{which}", spec)
+    dj, dt = jax_tiff.read_stack(oj["denoised"]), torch_tiff.read_stack(ot["denoised"])
+    assert dt.dtype == dtype and dt.shape == dj.shape == shape
+    np.testing.assert_allclose(dt.astype(np.float32), dj.astype(np.float32), atol=1e-3 if dtype == np.float16 else 1e-4)
+    if which == "volumes":
+        assert ot["denoised_layout"] == oj["denoised_layout"]
+
+
+@pytest.mark.parametrize(
+    "name,spec",
+    [
+        ("roi3d", {"module": "segmentation_unet3d", "params": {"model": "seg3d", "roi": [0, 0, 8, 8]}}),
+        ("kind", {"module": "segmentation_unet3d", "params": {"model": "gan"}}),
+        ("fb3d", {"module": "denoise", "params": {"model": "n2v3d", "frame_batch": 2}, "seq": True}),
+        ("spatial", {"module": "denoise", "params": {"model": "n2v", "spatial_parallel": True}}),
+    ],
+)
+def test_new_job_errors_match_jax(env_more, name, spec):
+    spec = dict(spec)
+    spec["input"] = [env_more["seq_dir"] if spec.pop("seq", False) else env_more["volume"]]
+    sj = _serve_spec(env_more, "jax", f"err_{name}", spec)
+    st = _serve_spec(env_more, "torch", f"err_{name}", spec)
+    assert sj["state"] == st["state"] == "failed"
+    # the message after the job's own id
+    message = sj["error"].strip().splitlines()[-1].split("JobError: ", 1)[-1]
+    message = re.sub(r"^job \w+: ", "", message)
+    assert "JobError" in st["error"] and message in st["error"]

@@ -197,8 +197,14 @@ def test_spatial_multiple_enforced():
 
 
 def test_dims3_names_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        torch_unet.UNet(torch_unet.UNetConfig(dims=3), device="cpu")
+    """3D is ported (tests/test_torch_unet3d.py); space-to-depth stays
+    2D-only, as ``unet.init`` says."""
+    model = torch_unet.UNet(torch_unet.UNetConfig(dims=3, depth=2, base_features=4), device="cpu")
+    assert model.enc[0].conv1.w.shape == (4, 1, 3, 3, 3)
+    with pytest.raises(ValueError, match="2D-only"):
+        jax_unet.init(jax.random.PRNGKey(0), jax_unet.UNetConfig(dims=3, space_to_depth=2))
+    with pytest.raises(ValueError, match="2D-only"):
+        torch_unet.UNet(torch_unet.UNetConfig(dims=3, space_to_depth=2), device="cpu")
 
 
 @pytest.mark.parametrize("bias,want", [((1.0, 1.0, 0.0), 0), ((0.0, 2.0, 2.0), 1), ((3.0, 3.0, 3.0), 0)])
