@@ -59,6 +59,17 @@ on failure:
    held against the port's f32 path by PSNR (>= 40 dB), and (i) ``denoise``
    with the kernel normalize, held against the same bf16 path called
    directly.
+11. train phase (U-Net training), with PyTorch's own TF32 defaults restored
+   first: an f32 ``unet2d_cells`` job served on the card and on the CPU
+   (probabilities within 1e-4); three f32 train steps at ``unet2d_cells``'
+   width on 8x256x256 batches, card against CPU (loss, grad_norm, weights);
+   the tied max-pool gradient; the augmentation's apply at the same draws;
+   a fold that follows an in-place update; the bf16 step's time split,
+   device ops, peak memory and largest kernels in 2D (8x256x256) and 3D
+   (2x16x64x64); then ``build_records`` -> ``train_unet2d`` ->
+   ``segmentation_unet2d`` in one server process (the served labels equal
+   the registered weights served directly) and ``build_records`` ->
+   ``train_unet3d``, each job's launch counts read on its own.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -67,7 +78,8 @@ outside a checkout of the repository.
     python3 chip_smoke.py --phases conv,studies
 
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
-``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``, ``serve``)
+``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``, ``serve``,
+``train``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -92,6 +104,14 @@ MIOU3D_BAR = 0.99  # served volume labels against the f32 exact-normalize path
 PSNR_BAR_DB = 40.0  # GAN / N2V served output against the f32 path
 PSNR_DIRECT_BAR_DB = 80.0  # a served output against the same path called directly
 VOLUME = (32, 512, 512)  # the JAX bench's z-stack (bench.py::bench_unet3d)
+TRAIN_LR = 1e-4  # TrainConfig's default learning rate
+TRAIN_STEPS_EXACT = 3
+TRAIN_LOSS_RTOL = 1e-4  # a mean of 524,288 per-pixel CEs; cuDNN and the CPU sum the convs in other orders
+TRAIN_GRAD_NORM_RTOL = 2e-3  # grows with the steps: the weights part a little each step (PERF.md)
+TRAIN_UPDATE_BAR = 0.2  # relative L2 difference of the 3 steps' updates, card vs CPU (PERF.md)
+TRAIN_STATS_BAR = 1e-3  # BN running statistics, relative to each tensor's largest value, beyond
+# the TRAIN_STEPS_EXACT * TRAIN_LR a running mean takes from its conv's BN-nulled bias
+AUG_BAR = 1e-5  # augmented image and weights, card against CPU at the same draws
 
 
 def _fail(msg: str) -> int:
@@ -1230,12 +1250,440 @@ def serve_phase(torch, hist, conv, smi_line):
         return counts
 
 
+def _unet2d_cells_arch(dtype):
+    """``unet2d_cells``' architecture (depth 4, base 32, 3 classes, BN)."""
+    from sequitr_tpu_torch.models import unet
+
+    return unet.UNetConfig(
+        in_channels=1, num_classes=3, depth=4, base_features=32, norm="batch", compute_dtype=dtype
+    )
+
+
+def _cells_batch(np, n, size, seed):
+    """``n`` normalized ``size``x``size`` cells frames, their labels and U-Net
+    weight maps (as build_records writes them)."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.ops import weightmaps
+
+    imgs, labs, ws = [], [], []
+    for i in range(n):
+        img, lab = synthetic.cells_frame(seed + i, (size, size))
+        lo, hi = np.percentile(img, [5.0, 99.5])
+        imgs.append(np.clip((img - lo) / max(hi - lo, 1e-8), 0, 1).astype(np.float32))
+        labs.append(lab.astype(np.int32))
+        ws.append(weightmaps.unet_weight_map(lab, num_classes=3))
+    return np.stack(imgs)[..., None], np.stack(labs), np.stack(ws)
+
+
+def _bn_nulled(key: str) -> bool:
+    """A conv bias a batch norm follows: the norm subtracts it again, so its
+    gradient is round-off, which Adam turns into a step of up to the
+    learning rate either way."""
+    return key.endswith(("conv1/b", "conv2/b"))
+
+
+def _weights_vs(np, convert, a, b, start):
+    """Two trained models against each other: the relative L2 difference of
+    their updates from ``start`` (the flat weights they both began from)
+    over the parameters a batch norm does not null, the share of those
+    parameters whose updates differ by more than a tenth of an Adam step
+    (TRAIN_LR / 10), the largest difference of a BN-nulled bias, and the
+    largest difference of a running statistic relative to that tensor's
+    largest value (a mean's beyond what its bias can move)."""
+    fa, fb = convert.to_flat(a), convert.to_flat(b)
+    num = den = 0.0
+    over = total = 0
+    nulled = stats = 0.0
+    for k in fa:
+        d = np.abs(fa[k].astype(np.float64) - fb[k])
+        if k.startswith("state/"):
+            # a running mean carries its conv's bias, which Adam moves on noise
+            slack = TRAIN_STEPS_EXACT * TRAIN_LR if k.endswith("/mean") else 0.0
+            stats = max(stats, float(np.maximum(d - slack, 0).max() / max(np.abs(fb[k]).max(), 1e-12)))
+        elif _bn_nulled(k):
+            nulled = max(nulled, float(d.max()))
+        else:
+            num += float((d**2).sum())
+            den += float(((fb[k].astype(np.float64) - start[k]) ** 2).sum())
+            over += int((d > TRAIN_LR / 10).sum())
+            total += d.size
+    return (num / den) ** 0.5, over / total, nulled, stats
+
+
+def train_phase(torch, hist, conv, smi_line):
+    """U-Net training on the card. PyTorch's own TF32
+    defaults are restored first (earlier phases turn TF32 off globally), so
+    every f32 check here rests on the port's own ``utils.ieee_f32``. Returns
+    {job: (histogram_2d launches, quantile passes)} of the training jobs and
+    the serve that follows them."""
+    import numpy as np
+
+    from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import convert, fixtures, unet
+    from sequitr_tpu_torch.ops import augment as aug
+    from sequitr_tpu_torch.ops import losses
+    from sequitr_tpu_torch.pipeline import infer, train
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    print(
+        f"train: TF32 switches at PyTorch's defaults (matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cuDNN {torch.backends.cudnn.allow_tf32}); torch {torch.__version__}"
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+
+        def serve(server, module, params, inputs, name):
+            submit_job(jobs if server is card_server else cpu_jobs, {
+                "module": module, "params": params, "input": inputs,
+                "output": os.path.join(tmp, f"out_{name}"),
+            })
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not server.poll_once():
+                raise AssertionError(f"job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
+                raise AssertionError(f"job {name}: launched a conv study kernel")
+            with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"job {name}: {status.get('error')}")
+            return status["outputs"], counts, wall
+
+        # (1) an f32 model served with PyTorch's defaults: the card against
+        # the CPU through ImageServer, probabilities within 1e-4
+        meta = fixtures.manifest()["unet2d_cells"]
+        arch = os.path.join(tmp, "unet2d_cells_f32.json")
+        with open(arch, "w") as f:
+            json.dump(dict(meta["config"], __kind__=meta["kind"], compute_dtype="float32"), f)
+        npz = os.path.join(fixtures.fixture_dir(), "unet2d_cells.npz")
+        cpu_models = os.path.join(tmp, "cpu_models")
+        cpu_jobs = os.path.join(tmp, "cpu_jobs")
+        for where in (models, cpu_models):
+            if cli.main(["import-model", "--models-dir", where, "--npz", npz, "--arch", arch, "seg_f32"]):
+                raise AssertionError("import-model seg_f32 failed")
+        frame = synthetic.cells_frame(427_000, (1024, 1024))[0].clip(0, 65535).astype(np.uint16)
+        one = os.path.join(tmp, "one.tif")
+        tiff.write_stack(one, frame[None])
+        card_server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+        cpu_server = ImageServer(ServerConfiguration(jobs_dir=cpu_jobs, models_dir=cpu_models, device="cpu"))
+        f32_params = {"model": "seg_f32", "localize": False, "save_probs": True, "normalize": "exact"}
+        card_out, _, _ = serve(card_server, "segmentation_unet2d", dict(f32_params), [one], "f32_card")
+        cpu_out, _, _ = serve(cpu_server, "segmentation_unet2d", dict(f32_params), [one], "f32_cpu")
+        p_card = tiff.read_stack(card_out["probs"])
+        p_cpu = tiff.read_stack(cpu_out["probs"])
+        f32_err = float(np.abs(p_card - p_cpu).max())
+        same = float(np.mean(tiff.read_stack(card_out["labels"]) == tiff.read_stack(cpu_out["labels"])))
+        # the same forward outside the port's f32 entry point, TF32 on: the
+        # fault the entry point repairs
+        _, _, f32_model, _ = fixtures.load("unet2d_cells", compute_dtype="float32", device="cuda")
+        _, _, cpu_model, _ = fixtures.load("unet2d_cells", compute_dtype="float32", device="cpu")
+        x = torch.rand((1, 256, 256, 1), generator=torch.Generator().manual_seed(7))
+        with torch.inference_mode():
+            want = cpu_model(x)
+            ieee = float((f32_model(x.cuda()).cpu() - want).abs().max())
+            tf32 = float((f32_model._forward(x.cuda(), None).cpu() - want).abs().max())
+        print(
+            f"train f32 serve with PyTorch's TF32 defaults: unet2d_cells f32 1024x1024 job, card vs CPU "
+            f"max |prob diff| {f32_err:.3g} (bar 1e-4), labels equal on {same:.6f}; forward logits at "
+            f"256x256 vs CPU: {ieee:.3g} through UNet.forward (IEEE f32), {tf32:.3g} with TF32 "
+            f"(the same forward outside the entry point)"
+        )
+        if not f32_err <= 1e-4:
+            raise AssertionError(f"f32 served probabilities differ from the CPU's by {f32_err}")
+
+        # (2) three f32 train steps, augmentation off, at unet2d_cells' width:
+        # the card against the CPU from the same weights and batches
+        cfg32 = _unet2d_cells_arch("float32")
+        tc = train.TrainConfig(augment=False)
+        init = unet.init(cfg32, torch.Generator().manual_seed(0), device="cpu")
+        flat = convert.to_flat(init)
+        batches = [_cells_batch(np, 8, 256, 710_000 + 8 * s) for s in range(TRAIN_STEPS_EXACT)]
+        runs = {}
+        for name, dev in (("cpu", "cpu"), ("card", "cuda"), ("card again", "cuda")):
+            state = train.create_unet_state(cfg32, tc, model=convert.load_flat(cfg32, flat, device=dev))
+            step = train.make_unet_train_step(cfg32, tc)
+            got = []
+            for img, lab, w in batches:
+                batch = {
+                    "image": torch.from_numpy(img).to(dev), "labels": torch.from_numpy(lab).to(dev),
+                    "weights": torch.from_numpy(w).to(dev),
+                }
+                state, m = step(state, batch)
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[name] = (got, state.model.to("cpu"))
+        (cpu_m, cpu_model), (card_m, card_model), (again_m, again_model) = (
+            runs["cpu"], runs["card"], runs["card again"]
+        )
+        for s, ((lc, gc), (lg, gg)) in enumerate(zip(cpu_m, card_m)):
+            print(
+                f"train f32 step {s + 1} (8x256x256, unet2d_cells arch): loss card {lg:.7f} CPU {lc:.7f} "
+                f"(rel {abs(lg - lc) / lc:.3g}, bar {TRAIN_LOSS_RTOL}), grad_norm card {gg:.6f} CPU "
+                f"{gc:.6f} (rel {abs(gg - gc) / gc:.3g}, bar {TRAIN_GRAD_NORM_RTOL})"
+            )
+            if abs(lg - lc) > TRAIN_LOSS_RTOL * lc or abs(gg - gc) > TRAIN_GRAD_NORM_RTOL * gc:
+                raise AssertionError(f"train step {s + 1}: card and CPU disagree")
+        rel, share, nulled, stats = _weights_vs(np, convert, card_model, cpu_model, flat)
+        rel2, share2, nulled2, stats2 = _weights_vs(np, convert, card_model, again_model, flat)
+        loss_runs = max(abs(a[0] - b[0]) / b[0] for a, b in zip(card_m, again_m))
+        print(
+            f"train f32 weights after {TRAIN_STEPS_EXACT} steps, card vs CPU: updates differ by {rel:.3g} "
+            f"of their L2 norm (bar {TRAIN_UPDATE_BAR}), {share:.3g} of the weights by more than a tenth "
+            f"of an Adam step (lr {TRAIN_LR}), BN-nulled biases by up to {nulled:.3g}, running statistics "
+            f"by {stats:.3g} of their largest value (bar {TRAIN_STATS_BAR}); two card runs: {rel2:.3g}, "
+            f"{share2:.3g}, {nulled2:.3g}, {stats2:.3g}, losses {loss_runs:.3g} apart (relative)"
+        )
+        if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+            raise AssertionError("train weights: card and CPU disagree")
+
+        # (3) the max-pool gradient with tied windows: the first maximal
+        # element takes it, on the card as on the CPU (XLA's select-and-scatter)
+        tied = torch.randint(0, 3, (8, 32, 256, 256), generator=torch.Generator().manual_seed(3)).float()
+        cot = torch.rand((8, 32, 128, 128), generator=torch.Generator().manual_seed(4))
+        grads = []
+        for dev in ("cpu", "cuda"):
+            t = unet.channels_last(tied.to(dev)).requires_grad_(True)
+            (torch.nn.functional.max_pool2d(t, 2) * cot.to(dev)).sum().backward()
+            grads.append(t.grad.cpu())
+        first = tied.unfold(2, 2, 2).unfold(3, 2, 2).reshape(8, 32, 128, 128, 4).argmax(-1)
+        want = torch.zeros(8, 32, 128, 128, 4)
+        want.scatter_(-1, first[..., None], cot[..., None])
+        want = want.reshape(8, 32, 128, 128, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(8, 32, 256, 256)
+        print(
+            f"train max-pool gradient, tied 2x2 windows (8x32x256x256, channels_last): card equal to CPU "
+            f"{torch.equal(grads[0], grads[1])}, card equal to first-max routing {torch.equal(grads[1], want)}"
+        )
+        if not (torch.equal(grads[0], grads[1]) and torch.equal(grads[1], want)):
+            raise AssertionError("max-pool gradient: ties not routed to the first maximum")
+
+        # (4) the augmentation's apply, card against CPU at the same draws
+        img, lab, w = _cells_batch(np, 8, 256, 720_000)
+        knobs = dict(p_elastic=1.0, gain_jitter=0.1, offset_jitter=0.05, noise_std=0.02)
+        outs = []
+        for dev in ("cpu", "cuda"):
+            got = aug.augment_batch(
+                torch.Generator().manual_seed(11), torch.from_numpy(img).to(dev),
+                torch.from_numpy(lab).to(dev), torch.from_numpy(w).to(dev), **knobs,
+            )
+            outs.append([t.cpu() for t in got])
+        (ci, cl, cw), (gi, gl, gw) = outs
+        img_err = float((ci - gi).abs().max())
+        w_err = float((cw - gw).abs().max())
+        lab_eq = torch.equal(cl, gl)
+        lat = torch.randn((8, 2, 4, 4), generator=torch.Generator().manual_seed(12)) * 20
+        f_cpu, f_card = aug.elastic_fields(lat, (256, 256)), aug.elastic_fields(lat.cuda(), (256, 256))
+        f_eq = all(torch.equal(a, b.cpu()) for a, b in zip(f_cpu, f_card))
+        print(
+            f"train augment apply 8x256x256 (flips, rot90, elastic p=1, photometric), card vs CPU at the same "
+            f"draws: labels equal {lab_eq}, image max |diff| {img_err:.3g}, weights {w_err:.3g} (bar "
+            f"{AUG_BAR}); elastic fields bit-equal {f_eq}"
+        )
+        if not (lab_eq and img_err <= AUG_BAR and w_err <= AUG_BAR and f_eq):
+            raise AssertionError("augmentation: card and CPU disagree")
+
+        # (5) a fold follows an in-place update on the card (stale-fold repair)
+        small = unet.init(
+            unet.UNetConfig(depth=2, base_features=8, num_classes=1, compute_dtype="float32"),
+            torch.Generator().manual_seed(5), device="cuda",
+        )
+        dtc = infer.TileConfig(patch=(256, 256), overlap=(0, 0), normalize="exact")
+        den = infer.make_denoiser(small.cfg, dtc, (256, 256), device="cuda")
+        noisy = torch.rand((256, 256), device="cuda") * 1000
+        before = den(small, noisy).clone()
+        with torch.no_grad():
+            for p in small.parameters():
+                p.mul_(2.0)
+        fresh = convert.load_flat(small.cfg, convert.to_flat(small), device="cuda")
+        after, want_after = den(small, noisy), den(fresh, noisy)
+        print(
+            f"train fold after an in-place update (denoiser, card): output follows the update "
+            f"{torch.equal(after, want_after)} (moved {float((after - before).abs().max()):.3g})"
+        )
+        if not torch.equal(after, want_after) or torch.equal(after, before):
+            raise AssertionError("denoiser served stale folded weights after an in-place update")
+
+        # (6) bf16 at full width: the step's time split, device ops, peak, kernels
+        def timed_step(cfg, tc, b_img, b_lab, b_w, label, unit, units):
+            state = train.create_unet_state(cfg, tc, torch.Generator().manual_seed(0), device="cuda")
+            opt = tc.make_optimizer()
+            batch = {
+                "image": torch.from_numpy(b_img).cuda(), "labels": torch.from_numpy(b_lab).cuda(),
+                "weights": torch.from_numpy(b_w).cuda(),
+            }
+            step = train.make_unet_train_step(cfg, tc)
+            gen = torch.Generator().manual_seed(1)
+
+            def parts():
+                t = [time.perf_counter()]
+                images, labels, weights = train._prepare(batch, gen, tc, cfg.dims)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                logits, stats = state.model.forward_train(images)
+                loss = losses.weighted_softmax_cross_entropy(logits, labels, weights)
+                grads = torch.autograd.grad(loss, state.params)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                opt.update(state.params, grads, state.opt_state)
+                state.model.set_bn_stats(stats)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                return [b - a for a, b in zip(t, t[1:])]
+
+            for _ in range(3):
+                parts()
+            split = np.median(np.array([parts() for _ in range(10)]), axis=0) * 1e3
+
+            def whole():
+                step(state, batch, gen)
+
+            whole()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                whole()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            step_ms = float(np.median(walls)) * 1e3
+            _, peak = _peak_gb(torch, whole)
+            ops = _device_events(torch, whole, 2)
+            by_name = {}
+            for e in ops:
+                by_name.setdefault(e.name, []).append(e)
+            top = sorted(by_name.items(), key=lambda kv: -_ms(kv[1], 2))[:8]
+            print(
+                f"train {label} bf16 step: {step_ms:.4f} ms ({units / step_ms * 1e3:.3f} {unit}/s) on "
+                f"{smi_line}; split (synchronized, median of 10): augment {split[0]:.4f} ms, forward+"
+                f"backward {split[1]:.4f} ms, optimizer+BN statistics {split[2]:.4f} ms; "
+                f"{len(ops) / 2:.0f} device ops a step, {_ms(ops, 2):.4f} device ms, peak {peak:.3f} GB"
+            )
+            for name, es in top:
+                print(f"train {label} kernel {_ms(es, 2):.4f} ms/step x{len(es) / 2:.0f} {name[:100]}")
+
+        img, lab, w = _cells_batch(np, 8, 256, 730_000)
+        timed_step(
+            _unet2d_cells_arch("bfloat16"), train.TrainConfig(), img, lab, w,
+            "2D 8x256x256 (unet2d_cells arch, augment on)", "patches", 8,
+        )
+        vol, vlab = synthetic.cells_volume(740_000, (16, 64, 64))
+        v = np.clip(vol / max(float(np.percentile(vol, 99.5)), 1e-8), 0, 1).astype(np.float32)
+        vols = np.stack([v, v[:, ::-1]])[..., None].copy()
+        vlabs = np.stack([vlab, vlab[:, ::-1]]).astype(np.int32)
+        timed_step(
+            unet.UNetConfig(dims=3, depth=3, base_features=32, features_cap=256),
+            train.TrainConfig(), vols, vlabs, np.ones(vlabs.shape, np.float32),
+            "3D 2x16x64x64 (depth 3, cap 256, augment on)", "Mvox", 2 * 16 * 64 * 64 / 1e6,
+        )
+
+        # (7) train, then serve, in one server process: build_records on a
+        # 4-frame 1024x1024 stack, train_unet2d (unet2d_cells' architecture),
+        # segmentation_unet2d on the registered model
+        scenes = [synthetic.cells_frame(750_000 + i, (1024, 1024)) for i in range(4)]
+        frames = np.stack([s[0] for s in scenes]).clip(0, 65535).astype(np.uint16)
+        stack, labels = os.path.join(tmp, "train_stack.tif"), os.path.join(tmp, "train_labels.tif")
+        tiff.write_stack(stack, frames)
+        tiff.write_stack(labels, np.stack([s[1] for s in scenes]).astype(np.uint16))
+        counts = {}
+        out, counts["build_records"], wall = serve(
+            card_server, "build_records",
+            {"patch": [256, 256], "patches_per_example": 4, "num_classes": 3, "seed": 1},
+            [stack, labels], "records",
+        )
+        print(f"train job build_records: {out['n_examples']} examples in {out['n_shards']} shard(s), {wall:.3f} s")
+        params = {
+            "model": "seg_trained", "depth": 4, "base_features": 32, "num_classes": 3,
+            "steps": 30, "batch_size": 8, "holdout_every": 4, "eval_every": 10,
+            "checkpoint_every": 10, "log_every": 5, "ema_decay": 0.9, "learning_rate": 1e-3,
+        }
+        out, counts["train_unet2d"], wall = serve(
+            card_server, "train_unet2d", params, [os.path.join(tmp, "out_records")], "train2d"
+        )
+        with open(out["metrics_file"]) as f:
+            rows = [json.loads(line) for line in f]
+        tr = [r for r in rows if r["kind"] == "train"]
+        ev = [r for r in rows if r["kind"] == "eval"]
+        print(
+            f"train job train_unet2d: 30 steps of 8x256x256 in {wall:.3f} s; loss "
+            f"{tr[0]['loss']:.4f} -> {tr[-1]['loss']:.4f}, {tr[-1]['steps_per_sec']:.3f} steps/s "
+            f"({8 * tr[-1]['steps_per_sec']:.3f} patches/s over the job, first steps included); evals "
+            + ", ".join(f"step {r['step']} miou {r['eval_miou']:.4f}" for r in ev)
+        )
+        if not all(np.isfinite(r["loss"]) for r in tr) or not ev:
+            raise AssertionError("train_unet2d: non-finite loss or no eval")
+        out, counts["serve_trained"], wall = serve(
+            card_server, "segmentation_unet2d", {"model": "seg_trained", "localize": False}, [stack],
+            "serve_trained",
+        )
+        served = tiff.read_stack(out["labels"])
+        # the registered files, loaded anew (folded at load) and served directly
+        _, cfg_t, model_t = load_model(models, "seg_trained", device="cuda")
+        tc_serve = infer.TileConfig(patch=(1024, 1024), overlap=(0, 0), emit_probs=False)
+        fn = infer.make_frame_inferrer(cfg_t, tc_serve, (1024, 1024), device="cuda")
+        direct = np.stack([fn(model_t, torch.from_numpy(f).cuda())[1].cpu().numpy() for f in frames])
+        equal = float(np.mean(direct == served))
+        miou = float(np.mean([_miou(a, s[1], 3) for a, s in zip(served, scenes)]))
+        print(
+            f"train job segmentation_unet2d on the trained model, same server process: labels equal to the "
+            f"registered weights served directly on {equal:.6f} of pixels; miou_truth {miou:.4f}"
+        )
+        if equal != 1.0:
+            raise AssertionError("the trained model's served labels differ from its weights served directly")
+
+        vol, vlab = synthetic.cells_volume(760_000, (16, 128, 128))
+        vpath, lpath = os.path.join(tmp, "train_vol.tif"), os.path.join(tmp, "train_vlab.tif")
+        tiff.write_stack(vpath, vol.clip(0, 65535).astype(np.uint16))
+        tiff.write_stack(lpath, vlab.astype(np.uint16))
+        out, counts["build_records_3d"], _ = serve(
+            card_server, "build_records",
+            {"dims": 3, "patch": [16, 64, 64], "patches_per_example": 4, "num_classes": 3},
+            [vpath, lpath], "records3d",
+        )
+        params3 = {
+            "model": "seg3d_trained", "depth": 3, "base_features": 32, "features_cap": 256,
+            "num_classes": 3, "steps": 6, "batch_size": 2, "log_every": 3,
+        }
+        out, counts["train_unet3d"], wall = serve(
+            card_server, "train_unet3d", params3, [os.path.join(tmp, "out_records3d")], "train3d"
+        )
+        with open(out["metrics_file"]) as f:
+            tr3 = [r for r in map(json.loads, f) if r["kind"] == "train"]
+        print(
+            f"train job train_unet3d: 6 steps of 2x16x64x64 (depth 3, cap 256) in {wall:.3f} s; loss "
+            f"{tr3[0]['loss']:.4f} -> {tr3[-1]['loss']:.4f}"
+        )
+        if not all(np.isfinite(r["loss"]) for r in tr3):
+            raise AssertionError("train_unet3d: non-finite loss")
+        want = {"build_records": 0, "train_unet2d": 0, "serve_trained": 4, "build_records_3d": 0, "train_unet3d": 0}
+        print(
+            "train jobs quantile passes (histogram_2d launches): "
+            + ", ".join(f"{k} {counts[k][1]} ({counts[k][0]})" for k in want)
+            + " (expected 0 for the record and train jobs, which normalize on the host; 1 a frame for the serve)"
+        )
+        for k, n in want.items():
+            if counts[k] != (n, n):
+                raise AssertionError(f"job {k}: {counts[k]} launches/passes, expected {n}")
+        return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "serve",
+    "train",
 )
 
 
@@ -1296,6 +1744,7 @@ def main(argv=None) -> int:
             "enhance": lambda: enhance_phase(torch, fixtures, unet),
             "profile": lambda: profile_phase(torch, fixtures, unet),
             "serve": lambda: serve_phase(torch, hist, conv, smi_line),
+            "train": lambda: train_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -1311,6 +1760,7 @@ def main(argv=None) -> int:
     enhance_phase(torch, fixtures, unet)
     profile_phase(torch, fixtures, unet)
     counts = serve_phase(torch, hist, conv, smi_line)
+    counts.update(train_phase(torch, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -1321,8 +1771,10 @@ def main(argv=None) -> int:
     print(
         "kernels: histogram_2d launches are those of served job a (launches_by_job: every "
         "served job's, each counted on its own; job h normalizes with 'none' and runs no "
-        "pass); the conv3x3 entries' launches are those of the studies path (enc0 chained "
-        "through each entry point); the served jobs launch the conv3x3 kernels 0 times"
+        "pass; the training jobs build_records, train_unet2d and train_unet3d normalize on the "
+        "host and run none; serve_trained is the trained model's 4-frame job); the conv3x3 "
+        "entries' launches are those of the studies path (enc0 chained through each entry "
+        "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )
     print(json.dumps({"kernels": [entry] + conv_entries}))
     print(json.dumps({

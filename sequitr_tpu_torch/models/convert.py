@@ -29,7 +29,10 @@ from sequitr_tpu_torch.models.gan import GAN, GANConfig
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
 
-__all__ = ["build", "load_flat", "to_flat", "conv_to_torch", "conv_from_torch", "pack_conv3x3"]
+__all__ = [
+    "build", "load_flat", "to_flat", "load_train_state", "conv_to_torch",
+    "conv_from_torch", "pack_conv3x3",
+]
 
 _STATE = "state/"
 _BUFFERS = ("mean", "var")
@@ -140,3 +143,49 @@ def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
             arr = np.transpose(arr, _inverse(axes))
         flat[_flat_key(key)] = np.ascontiguousarray(arr)
     return flat
+
+
+_OPT = "opt/"
+
+
+def load_train_state(cfg: UNetConfig, tc, flat: Mapping[str, np.ndarray], device=None):
+    """A ``pipeline.train.TrainState`` from a JAX ``TrainState`` carried
+    across in the flat layout: the parameters and ``state/`` statistics as
+    ``load_flat`` takes them, Adam's moments under ``opt/mu/<path>`` and
+    ``opt/nu/<path>`` (the parameter's path and layout) and the update count
+    as ``opt/count``; the step as ``opt/step`` (default ``opt/count``).
+    Without ``opt/`` keys the optimizer starts fresh, as ``create_unet_state``
+    does; a ``MultiSteps`` window always starts empty. ``tc``: the
+    ``TrainConfig`` whose optimizer resumes."""
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    device = resolve_device(device)
+    model = load_flat(cfg, flat, device=device)
+    state = train_lib.create_unet_state(cfg, tc, model=model)
+    if _OPT + "count" not in flat:
+        return state
+    from sequitr_tpu_torch.pipeline import optim
+
+    names = [k for k, _ in model.named_parameters()]
+    params = list(model.parameters())
+    problems = []
+    for which, flat_moment in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+        for key, dst in zip(names, optim.unflatten(flat_moment, params)):
+            name = f"{_OPT}{which}/{_flat_key(key)}"
+            if name not in flat:
+                problems.append(f"missing: {name}")
+                continue
+            arr = np.asarray(flat[name], dtype=np.float32)
+            axes = _axes(model, key, arr.ndim)
+            if axes is not None:
+                arr = np.transpose(arr, axes)
+            if tuple(arr.shape) != tuple(dst.shape):
+                problems.append(f"shape mismatch at {name}: got {np.asarray(flat[name]).shape}")
+                continue
+            with torch.no_grad():
+                dst.copy_(torch.tensor(arr))
+    if problems:
+        raise ValueError("optimizer state conversion failed:\n  " + "\n  ".join(problems))
+    state.opt_state.count = int(np.asarray(flat[_OPT + "count"]))
+    state.step = int(np.asarray(flat.get(_OPT + "step", flat[_OPT + "count"])))
+    return state

@@ -40,7 +40,6 @@ dtype where the JAX package's einsums keep f32. ``apply_train`` and
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -49,6 +48,7 @@ import torch.nn.functional as F
 
 from sequitr_tpu_torch.models import unet as unet_lib
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
+from sequitr_tpu_torch.utils import derived, f32_entry
 
 __all__ = [
     "eligible", "eligible3d", "phase_kernel", "phase_up_kernel",
@@ -191,6 +191,11 @@ class Polyphase(nn.Module):
         y = F.conv2d(x.to(dt), w.to(dt), padding=w.shape[-1] // 2, groups=groups)
         return y.to(torch.float32) + b.view(1, -1, 1, 1)
 
+    @property
+    def cfg(self) -> UNetConfig:
+        return self.net.cfg
+
+    @f32_entry
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         net, cfg = self.net, self.net.cfg
         for d in x.shape[1:-1]:
@@ -297,6 +302,11 @@ class Polyphase3d(nn.Module):
         y = F.conv3d(x.to(dt), w.to(dt), padding=w.shape[-1] // 2, groups=groups)
         return y.to(torch.float32) + b.view(1, -1, 1, 1, 1)
 
+    @property
+    def cfg(self) -> UNetConfig:
+        return self.net.cfg
+
+    @f32_entry
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         net, cfg = self.net, self.net.cfg
         for i, d in enumerate(x.shape[1:-1]):
@@ -346,14 +356,13 @@ class Polyphase3d(nn.Module):
         return logits.permute(0, 2, 3, 4, 1).to(torch.float32)
 
 
-@functools.lru_cache(maxsize=8)
 def serving(model: UNet) -> nn.Module:
     """The ``Polyphase`` (``Polyphase3d`` for a 3D model) module of a
-    folded ``model``, built at first use and kept for the eight models used
-    last (a server holds as many loaded). The phase kernels are a snapshot:
-    a model whose weights change afterwards needs the module anew.
+    folded ``model``, built at first use and held on ``model`` itself: it
+    is built anew when the model's weights change in place and freed with
+    the model (``utils.derived``).
     """
-    return Polyphase3d(model) if model.cfg.dims == 3 else Polyphase(model)
+    return derived(model, "polyphase", lambda m: Polyphase3d(m) if m.cfg.dims == 3 else Polyphase(m))
 
 
 def apply(model: UNet, x: torch.Tensor) -> torch.Tensor:
@@ -386,5 +395,5 @@ def _later(name: str, slice_name: str):
     return fn
 
 
-apply_train = _later("apply_train", "training")
-apply3d_train = _later("apply3d_train", "training")
+apply_train = _later("apply_train", "polyphase training")
+apply3d_train = _later("apply3d_train", "polyphase training")

@@ -10,6 +10,14 @@ to ``cfg.compute_dtype``, the conv emits that dtype (cuDNN accumulates in
 f32), and the bias is added after the upcast to f32; batch norm, ReLU,
 max-pool and the concat run in f32.
 
+Training: ``UNet.forward_train`` is ``unet.apply(train=True)``: batch norm
+normalizes with the batch's biased variance and returns each layer's new
+running statistics (``m * old + (1 - m) * batch``, the same biased
+variance) instead of writing them, so a recomputed forward
+(``torch.utils.checkpoint``) cannot update them twice; ``set_bn_stats``
+commits them. Parameters are built with ``requires_grad=False`` (serving);
+a trainer turns them on. ``init`` is the JAX package's He init.
+
 Layout: ``UNet.forward`` takes and returns NHWC (NDHWC for ``dims=3``) like
 ``unet.apply``; inside, the channels-last tensor is viewed as NCHW (NCDHW)
 with channels_last (channels_last_3d) strides, no copy, the layout cuDNN
@@ -21,15 +29,18 @@ transposed with no spatial flip (``models.convert``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+import math
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sequitr_tpu_torch.utils import resolve_device
+from sequitr_tpu_torch.utils import f32_entry, resolve_device
 
-__all__ = ["UNetConfig", "UNet", "fold_batchnorm"]
+__all__ = ["UNetConfig", "UNet", "fold_batchnorm", "init"]
+
+BNStats = Tuple[torch.Tensor, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -122,6 +133,24 @@ class _BatchNorm(nn.Module):
         inv = torch.rsqrt(self.var + eps)
         return (x.to(torch.float32) - ch(self.mean)) * ch(inv) * ch(self.scale) + ch(self.bias)
 
+    def forward_train(self, x: torch.Tensor, eps: float, momentum: float):
+        """Batch statistics over all but the channel axis (biased variance,
+        as ``jnp.var``); returns ``(y, (new_mean, new_var))`` with the
+        running statistics moved ``momentum`` of the way to the old ones."""
+
+        def ch(t):
+            return t.view((1, -1) + (1,) * (x.ndim - 2))
+
+        x32 = x.to(torch.float32)
+        var, mean = torch.var_mean(x32, dim=[0] + list(range(2, x.ndim)), correction=0)
+        with torch.no_grad():
+            stats = (
+                momentum * self.mean + (1 - momentum) * mean,
+                momentum * self.var + (1 - momentum) * var,
+            )
+        inv = torch.rsqrt(var + eps)
+        return (x32 - ch(mean)) * ch(inv) * ch(self.scale) + ch(self.bias), stats
+
 
 class _Block(nn.Module):
     """conv -> norm -> relu, twice."""
@@ -199,11 +228,20 @@ class UNet(nn.Module):
             y = conv(x.to(dt), w, padding=w.shape[-1] // 2)
         return y.to(torch.float32) + p.b.view((1, -1) + (1,) * self.cfg.dims)
 
-    def _block(self, x: torch.Tensor, blk: _Block) -> torch.Tensor:
+    def _block(
+        self, x: torch.Tensor, blk: _Block, stats: Optional[List[BNStats]] = None
+    ) -> torch.Tensor:
+        """conv -> norm -> relu, twice; with ``stats`` (a list) the norms
+        run in train mode and append their new running statistics."""
         for i in (1, 2):
             x = self._conv(x, getattr(blk, f"conv{i}"))
             if self.cfg.norm == "batch":
-                x = getattr(blk, f"bn{i}")(x, self.cfg.bn_eps)
+                bn = getattr(blk, f"bn{i}")
+                if stats is None:
+                    x = bn(x, self.cfg.bn_eps)
+                else:
+                    x, new = bn.forward_train(x, self.cfg.bn_eps, self.cfg.bn_momentum)
+                    stats.append(new)
             x = torch.relu(x)
         return x
 
@@ -216,7 +254,32 @@ class UNet(nn.Module):
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool3d(x, 2) if self.cfg.dims == 3 else F.max_pool2d(x, 2)
 
+    @f32_entry
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x, None)
+
+    @f32_entry
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStats]]:
+        """``unet.apply(train=True)``: ``(logits, new running statistics)``,
+        one ``(mean, var)`` pair per batch norm in ``bn_layers`` order; the
+        module's own statistics are left as they are (``set_bn_stats``)."""
+        stats: List[BNStats] = []
+        return self._forward(x, stats), stats
+
+    def bn_layers(self) -> List[_BatchNorm]:
+        """The batch norms in the order ``forward_train`` visits them."""
+        return [m for m in self.modules() if isinstance(m, _BatchNorm)]
+
+    @torch.no_grad()
+    def set_bn_stats(self, stats: List[BNStats]) -> None:
+        layers = self.bn_layers()
+        if len(layers) != len(stats):
+            raise ValueError(f"{len(stats)} statistics for {len(layers)} batch norms")
+        torch._foreach_copy_(
+            [t for bn in layers for t in (bn.mean, bn.var)], [t for pair in stats for t in pair]
+        )
+
+    def _forward(self, x: torch.Tensor, stats: Optional[List[BNStats]]) -> torch.Tensor:
         cfg = self.cfg
         for d in x.shape[1:-1]:
             if d % cfg.min_input_multiple:
@@ -232,14 +295,14 @@ class UNet(nn.Module):
         for lvl in range(cfg.depth):
             if lvl > 0:
                 x = self._pool(x)
-            x = self._block(x, self.enc[lvl])
+            x = self._block(x, self.enc[lvl], stats)
             if lvl < cfg.depth - 1:
                 skips.append(x)
         for i, lvl in enumerate(reversed(range(cfg.depth - 1))):
             skip = skips[lvl]
             x = self._upsample(x, self.up[i])
             x = torch.cat([skip, x.to(skip.dtype)], dim=1)
-            x = self._block(x, self.dec[i])
+            x = self._block(x, self.dec[i], stats)
         logits = self._conv(x, self.head)
         if s2d > 1:
             logits = _depth_to_space(logits, s2d)
@@ -273,3 +336,25 @@ def fold_batchnorm(model: UNet) -> UNet:
         folded.head.load_state_dict(model.head.state_dict())
     return folded
 
+
+def init(
+    cfg: UNetConfig,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device, None] = None,
+) -> UNet:
+    """A ``UNet`` of ``cfg`` with the JAX package's initialisation
+    (``unet.init``): every kernel He-normal, ``N(0, 1) * sqrt(2 / fan_in)``
+    with ``fan_in = k**dims * c_in``, biases zero, batch norm scale 1,
+    bias 0, running mean 0 and variance 1. Draws come from ``generator``
+    on the CPU, kernel by kernel in module order; the same seed gives the
+    same weights on every device (the values differ from ``jax.random``'s)."""
+    device = resolve_device(device)
+    model = UNet(cfg, device="cpu")
+    with torch.no_grad():
+        for conv in model.modules():
+            if isinstance(conv, _Conv):
+                shape = conv.w.shape
+                fan_in = math.prod(shape[2:]) * (shape[0] if conv.transpose else shape[1])
+                draw = torch.randn(shape, generator=generator, dtype=torch.float32)
+                conv.w.copy_(draw * math.sqrt(2.0 / fan_in))
+    return model.to(device)

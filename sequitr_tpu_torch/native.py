@@ -3,10 +3,10 @@
 Builds on demand with g++ (cached as ``csrc/libseqnative.so``); every entry
 point has a pure-Python/scipy fallback, so the framework works without a
 toolchain — the native path is a host-side throughput optimization for
-connected-component labelling, TIFF LZW decoding and watershed splitting.
-The device-side kernels live in ``sequitr_tpu_torch.ops.kernels``; this
-covers the host hot loops. A copy of ``sequitr_tpu.native`` without the
-TFRecord crc32c entry point (records are not served by this package).
+connected-component labelling, TIFF LZW decoding, watershed splitting and
+the TFRecord crc32c. The device-side kernels live in
+``sequitr_tpu_torch.ops.kernels``; this covers the host hot loops. A copy
+of ``sequitr_tpu.native``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ _build_failed = False
 __all__ = [
     "available",
     "build",
+    "crc32c",
     "label_components",
     "label_full_stats",
     "label_full_stats_3d",
@@ -462,3 +463,14 @@ def watershed(
                     heapq.heappush(heap, (-float(pflat[j]), order, int(j)))
                     order += 1
     return out
+
+
+def crc32c(data: bytes) -> int:
+    """Castagnoli CRC of ``data`` (native slice-by-8; Python fallback)."""
+    lib = _load()
+    if lib is None:
+        from sequitr_tpu_torch.data.records import crc32c as py_crc
+
+        return py_crc(data)
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    return int(lib.seq_crc32c(buf, len(data)))

@@ -45,7 +45,7 @@ from sequitr_tpu_torch.models import unet as unet_lib
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.ops import normalize as norm_ops
 from sequitr_tpu_torch.ops import tiling
-from sequitr_tpu_torch.utils import resolve_device
+from sequitr_tpu_torch.utils import derived, resolve_device
 
 __all__ = [
     "TileConfig",
@@ -411,10 +411,16 @@ def cached_batch_inferrer(
     return infer
 
 
-# fold once per model, as the server does at load: the enhancer and the
-# denoiser take models folded or not, as the JAX package's fold in-graph
-_folded_unet = functools.lru_cache(maxsize=8)(unet_lib.fold_batchnorm)
-_folded_gan = functools.lru_cache(maxsize=8)(gan_lib.fold_generator)
+# fold once per model state, as the server does at load: the enhancer and
+# the denoiser take models folded or not, as the JAX package's fold in-graph;
+# a model updated in place (a train step, keep_best, an EMA swap) is folded
+# anew, and a retired model takes its folded copy with it
+def _folded_unet(model: UNet) -> UNet:
+    return derived(model, "fold_batchnorm", unet_lib.fold_batchnorm)
+
+
+def _folded_gan(model: gan_lib.GAN) -> gan_lib.GAN:
+    return derived(model, "fold_generator", gan_lib.fold_generator)
 
 
 def _make_batch_map(

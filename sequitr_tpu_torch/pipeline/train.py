@@ -1,0 +1,285 @@
+"""U-Net training step (port of the U-Net part of ``sequitr_tpu.pipeline.train``).
+
+records in -> augmentation on the device -> forward -> weighted CE ->
+optax's Adam (``pipeline.optim``) -> batch-norm statistics, as the JAX
+package's jitted step does, here as eager PyTorch on the card. Mixed
+precision is the model's own: each conv casts its input and weights to
+``cfg.compute_dtype`` as ``UNet._conv`` does, master weights, the loss and
+the optimizer stay f32; no autocast, no loss scaling. A float32 model runs
+its step inside ``utils.ieee_f32`` (no TF32).
+
+The JAX package's GAN, N2V, flows and stars steps are later slices of the
+port; so is the polyphase training forward (``TrainConfig.polyphase``).
+Checkpoints are PyTorch files in the directory layout of ``pipeline.fit``
+in place of orbax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from sequitr_tpu_torch.models import unet
+from sequitr_tpu_torch.ops import augment as aug
+from sequitr_tpu_torch.ops import losses
+from sequitr_tpu_torch.pipeline import optim
+from sequitr_tpu_torch.utils import ieee_f32
+
+__all__ = [
+    "TrainConfig",
+    "TrainState",
+    "create_unet_state",
+    "make_unet_train_step",
+    "make_unet_distill_step",
+    "save_checkpoint",
+    "restore_checkpoint",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The JAX package's ``TrainConfig``: the same fields and defaults."""
+
+    learning_rate: float = 1e-4
+    beta1: float = 0.9
+    weight_decay: float = 0.0
+    grad_clip: Optional[float] = 1.0
+    augment: bool = True
+    elastic_alpha: float = 20.0
+    elastic_grid: int = 4
+    p_elastic: float = 0.5
+    gain_jitter: float = 0.0
+    offset_jitter: float = 0.0
+    noise_std: float = 0.0
+    grad_accum: int = 1
+    # recompute the forward in the backward pass (torch.utils.checkpoint)
+    remat: bool = False
+    lr_schedule: str = "constant"  # "constant" | "cosine" | "exponential"
+    lr_warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    lr_end_factor: float = 0.01
+    polyphase: bool = False
+
+    def __post_init__(self):
+        if self.polyphase:
+            raise NotImplementedError(
+                "polyphase training (polyphase.apply_train) is not ported yet: "
+                "it is the next slice of the port"
+            )
+
+    def learning_rate_schedule(self) -> Union[float, optim.Schedule]:
+        """The peak rate, or a schedule of the applied-update count."""
+        peak = self.learning_rate
+        if self.lr_schedule == "constant":
+            if not self.lr_warmup_steps:
+                return peak
+            sched = optim.constant_schedule(peak)
+        elif self.lr_schedule == "cosine":
+            sched = optim.cosine_decay_schedule(peak, max(1, self.lr_decay_steps), self.lr_end_factor)
+        elif self.lr_schedule == "exponential":
+            sched = optim.exponential_decay(peak, max(1, self.lr_decay_steps), self.lr_end_factor)
+        else:
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+        if self.lr_warmup_steps:
+            warmup = optim.linear_schedule(0.0, peak, self.lr_warmup_steps)
+            sched = optim.join_schedules([warmup, sched], [self.lr_warmup_steps])
+        return sched
+
+    def make_optimizer(self) -> optim.Optimizer:
+        sched_cfg = self
+        if self.grad_accum > 1 and self.lr_schedule != "constant":
+            # the schedule counts applied updates; its horizons arrive in
+            # micro-steps (the job's `steps`)
+            ga = self.grad_accum
+            sched_cfg = dataclasses.replace(
+                self,
+                lr_warmup_steps=-(-self.lr_warmup_steps // ga),
+                lr_decay_steps=max(1, -(-self.lr_decay_steps // ga)),
+            )
+        return optim.Optimizer(
+            sched_cfg.learning_rate_schedule(),
+            b1=self.beta1,
+            weight_decay=self.weight_decay,
+            grad_clip=self.grad_clip,
+            grad_accum=self.grad_accum,
+        )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module (parameters and batch-norm statistics), the optimizer's
+    state and the step count; updated in place by the train step."""
+
+    model: unet.UNet
+    opt_state: optim.OptState
+    step: int = 0
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+
+def create_unet_state(
+    cfg: unet.UNetConfig,
+    tc: TrainConfig,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device, None] = None,
+    model: Optional[unet.UNet] = None,
+) -> TrainState:
+    """A fresh train state: ``unet.init`` from ``generator`` (or ``model``,
+    e.g. weights carried across from the JAX package), parameters taking
+    gradients, zero optimizer moments."""
+    if model is None:
+        model = unet.init(cfg, generator, device)
+    model.requires_grad_(True)
+    return TrainState(model, tc.make_optimizer().init(list(model.parameters())), 0)
+
+
+def _augment_batch(generator, images, labels, weights, tc: TrainConfig, dims: int = 2):
+    return aug.augment_batch(
+        generator, images, labels, weights, dims=dims,
+        elastic_alpha=tc.elastic_alpha, elastic_grid=tc.elastic_grid,
+        p_elastic=tc.p_elastic, gain_jitter=tc.gain_jitter,
+        offset_jitter=tc.offset_jitter, noise_std=tc.noise_std,
+    )
+
+
+def _prepare(batch: Dict[str, torch.Tensor], generator, tc: TrainConfig, dims: int):
+    images, labels = batch["image"], batch["labels"]
+    weights = batch.get("weights")
+    if tc.augment:
+        w_in = weights if weights is not None else torch.ones(labels.shape, device=labels.device)
+        images, labels, w_out = _augment_batch(generator, images, labels, w_in, tc, dims)
+        weights = w_out if weights is not None else None
+    return images, labels, weights
+
+
+def _forward(model: unet.UNet, images: torch.Tensor, tc: TrainConfig):
+    if tc.remat:
+        # the backward recomputes the forward; the running statistics of
+        # the recomputation are dropped (forward_train writes none)
+        return checkpoint(model.forward_train, images, use_reentrant=False)
+    return model.forward_train(images)
+
+
+def _finish(state: TrainState, optimizer, loss, logits, labels, stats, extra=None):
+    params = state.params
+    grads = torch.autograd.grad(loss, params)
+    grad_norm = optim.global_norm(grads)  # of the raw gradients, as optax.global_norm
+    optimizer.update(params, grads, state.opt_state, grad_norm=grad_norm)
+    state.model.set_bn_stats(stats)
+    state.step += 1
+    with torch.no_grad():
+        preds = torch.argmax(logits, dim=-1)
+        metrics = {
+            "loss": loss.detach(),
+            "accuracy": (preds == labels).to(torch.float32).mean(),
+            "grad_norm": grad_norm,
+        }
+    metrics.update(extra or {})
+    return state, metrics
+
+
+def make_unet_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+    """``step(state, batch, generator) -> (state, metrics)``.
+
+    ``batch``: ``image`` (N, *s, C) f32, ``labels`` (N, *s) integer,
+    optional ``weights`` (N, *s), on the state's device; ``generator``
+    draws the augmentation (unused with ``augment=False``). Metrics
+    ``loss``, ``accuracy``, ``grad_norm``: 0-d tensors on the device.
+    """
+    optimizer = tc.make_optimizer()
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            images, labels, weights = _prepare(batch, generator, tc, cfg.dims)
+            logits, stats = _forward(state.model, images, tc)
+            loss = losses.weighted_softmax_cross_entropy(logits, labels, weights)
+            return _finish(state, optimizer, loss, logits, labels, stats)
+
+    return step
+
+
+def make_unet_distill_step(
+    cfg: unet.UNetConfig,
+    teacher: unet.UNet,
+    tc: TrainConfig,
+    alpha: float = 0.5,
+    temperature: float = 2.0,
+) -> Callable:
+    """Distillation step: ``alpha * weighted_CE(student, labels) + (1 -
+    alpha) * T^2 * KL(softmax(teacher / T) || softmax(student / T))`` (the
+    teacher's entropy dropped). The teacher (an inference-mode ``UNet``, BN
+    folded or not) sees the augmented pixels. Metrics add ``ce`` and ``kd``.
+    """
+    optimizer = tc.make_optimizer()
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            images, labels, weights = _prepare(batch, generator, tc, cfg.dims)
+            with torch.no_grad():
+                t_soft = torch.softmax(teacher(images).to(torch.float32) / temperature, dim=-1)
+            logits, stats = _forward(state.model, images, tc)
+            ce = losses.weighted_softmax_cross_entropy(logits, labels, weights)
+            log_s = F.log_softmax(logits.to(torch.float32) / temperature, dim=-1)
+            kd = -(temperature**2) * torch.mean(torch.sum(t_soft * log_s, dim=-1))
+            loss = alpha * ce + (1.0 - alpha) * kd
+            return _finish(
+                state, optimizer, loss, logits, labels, stats,
+                {"ce": ce.detach(), "kd": kd.detach()},
+            )
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: one PyTorch file a directory (pipeline.fit's layout)
+# ---------------------------------------------------------------------------
+
+_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, state: Union[TrainState, Sequence[torch.Tensor]]) -> None:
+    """Save a ``TrainState`` (module state dict, optimizer state, step) or a
+    list of tensors (an EMA of the parameters) as ``path/state.pt``,
+    replacing ``path`` whole: written under a temporary name, then renamed."""
+    if isinstance(state, TrainState):
+        obj = {
+            "model": state.model.state_dict(),
+            "opt": state.opt_state.state_dict(),
+            "step": int(state.step),
+        }
+    else:
+        obj = {"tensors": [t.detach() for t in state]}
+    tmp = f"{path}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(obj, os.path.join(tmp, _FILE))
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def restore_checkpoint(path: str, target):
+    """Load ``path`` into ``target`` in place (a ``TrainState``, or a list
+    of tensors for an EMA) and return it."""
+    if isinstance(target, TrainState):
+        device = next(target.model.parameters()).device
+    else:
+        device = target[0].device
+    obj = torch.load(os.path.join(path, _FILE), map_location=device, weights_only=True)
+    with torch.no_grad():
+        if isinstance(target, TrainState):
+            target.model.load_state_dict(obj["model"])
+            target.opt_state.load_state_dict(obj["opt"])
+            target.step = int(obj["step"])
+        else:
+            for dst, src in zip(target, obj["tensors"]):
+                dst.copy_(src)
+    return target
+

@@ -1,0 +1,375 @@
+"""Training pipelines: record building and the U-Net train jobs (port of
+the U-Net part of ``sequitr_tpu.server.pipelines.training``).
+
+``build_records`` is the JAX package's, copied (host numpy: the same job
+JSON writes the same shards, normalized by ``np.percentile`` on the host,
+no quantile pass on the card). ``train_unet2d`` / ``train_unet3d`` train
+on ``config.device`` (the card unless the server runs on the CPU) through
+``pipeline.fit.fit_unet`` and register the model in the port's store.
+``build_gan_pairs``, ``train_gan``, ``train_n2v`` and ``finetune_spatial``
+are later slices of the port; so is polyphase training (a JobError) and
+``data_parallel`` across more than one card (a JobError).
+"""
+
+from __future__ import annotations
+
+import glob as glob_lib
+import os
+from typing import Dict
+
+import numpy as np
+
+from sequitr_tpu_torch.config import ServerConfiguration
+from sequitr_tpu_torch.server import jobs as jobs_lib
+from sequitr_tpu_torch.server.jobs import Job
+from sequitr_tpu_torch.server.server import (
+    _check_ignore_collision,
+    _ema_or_raw_params,
+    _parse_ema_decay,
+    _parse_ignore_label,
+    _parse_patience,
+    _require_one_card,
+    _require_param,
+    _resolve_globs,
+    _resolve_inputs,
+    load_model_cached,
+    register,
+    save_model,
+    unet_config_from_params,
+)
+from sequitr_tpu_torch.utils import resolve_device
+
+
+@register("build_records")
+def build_records(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Build training record shards from image + label TIFF stacks.
+
+    The reference computes U-Net weight maps at record-creation time
+    (SURVEY.md §3.2); this pipeline mirrors that: input = [images.tif,
+    labels.tif], params: weight_maps (bool, default True), w0, sigma,
+    shard_size, num_classes, dims (2: each frame of a (T, H, W) stack is
+    one example; 3: the whole (Z, H, W) stack is one volumetric example),
+    patch + patches_per_example (random-crop sub-examples, e.g. 256x256
+    patches from 1024x1024 frames or sub-volumes from a z-stack), seed.
+
+    ``ignore_label`` (sparse/partial annotations — the realistic hand-
+    labelling regime): pixels carrying this label value are UNANNOTATED.
+    They get loss weight 0 (the weighted CE's sum(w)-normalization makes
+    that a true ignore) and are remapped to class 0 in the stored labels
+    so downstream one-hots stay in range; class-balance statistics count
+    only annotated pixels. Works with or without ``weight_maps`` (without,
+    the stored weights are the pure annotation mask) and must not collide
+    with a real class id (use e.g. 255).
+
+    Output: ``train-*.tfrecord`` shards.
+    """
+    from sequitr_tpu_torch.data import records, tiff
+    from sequitr_tpu_torch.data.source import FrameSource
+    from sequitr_tpu_torch.ops import weightmaps
+
+    paths = _resolve_inputs(job)
+    if len(paths) < 2:
+        raise jobs_lib.JobError("build_records needs [*image stacks, labels]")
+    *img_paths, lab_path = paths
+    p = job.params
+    dims = int(p.get("dims", 2))
+    # parse ONCE, before the default-class scan touches it: a malformed
+    # value must be a deterministic JobError, not a retried ValueError
+    ignore_label = _parse_ignore_label(job)
+    closers: list = []  # lazy readers to close once the shards are written
+
+    if dims == 3:
+        # the whole (Z, H, W) stack is ONE volume example — eager read
+        chans = [
+            np.asarray(tiff.read_stack(ip), dtype=np.float32)
+            for ip in img_paths
+        ]
+        labels3 = np.asarray(tiff.read_stack(lab_path)).astype(np.int32)
+        if labels3.ndim != 3:
+            raise jobs_lib.JobError(
+                f"dims=3 expects one (Z, H, W) stack, got {labels3.shape}"
+            )
+        for c in chans:
+            if c.shape != labels3.shape:
+                raise jobs_lib.JobError(
+                    f"image/label shape mismatch: {c.shape} vs {labels3.shape}"
+                )
+        images3 = np.stack(chans, axis=-1) if len(chans) > 1 else chans[0]
+        multi_channel = len(chans) > 1
+        n_frames = 1
+
+        def pair_iter():
+            yield images3, labels3
+
+        default_classes = 0
+        if "num_classes" not in p:
+            vals = labels3
+            if ignore_label is not None:
+                vals = vals[vals != ignore_label]
+            default_classes = int(vals.max()) + 1 if vals.size else 1
+    else:
+        # dims=2: stream frame pairs lazily — a timelapse larger than host
+        # RAM builds records with O(frame) memory (round-3 streaming)
+        try:
+            source = FrameSource(paths=img_paths)
+        except ValueError as e:
+            raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+        closers.append(source.close)
+        try:
+            l_reader = tiff.TiffReader(lab_path)
+            closers.append(l_reader.close)
+            l_shape = l_reader.shape
+            read_lab = lambda i: np.asarray(
+                l_reader.read_frame(i)
+            ).astype(np.int32)
+        except ValueError:
+            arr = np.asarray(tiff.read_stack(lab_path)).astype(np.int32)
+            if arr.ndim == 2:
+                arr = arr[None]
+            l_shape = arr.shape
+            read_lab = lambda i: arr[i]
+        if (len(source),) + source.spatial != tuple(l_shape):
+            raise jobs_lib.JobError(
+                f"image/label shape mismatch: "
+                f"{(len(source),) + source.spatial} vs {tuple(l_shape)}"
+            )
+        multi_channel = source.n_channels > 1
+        n_frames = len(source)
+
+        def pair_iter():
+            for t in range(n_frames):
+                yield source.frame(t), read_lab(t)
+
+        default_classes = 0
+        if "num_classes" not in p:
+            # one bounded pass over the (small) label stack for the
+            # default; an ignore_label must not inflate the class count
+            def _frame_max(t):
+                lab_t = read_lab(t)
+                if ignore_label is not None:
+                    lab_t = lab_t[lab_t != ignore_label]
+                return int(lab_t.max()) if lab_t.size else 0
+
+            default_classes = 1 + max(
+                _frame_max(t) for t in range(n_frames)
+            )
+
+    patch = tuple(int(v) for v in p["patch"]) if "patch" in p else None
+    if patch is not None and len(patch) != dims:
+        raise jobs_lib.JobError(f"patch {patch} must have {dims} axes")
+    n_crops = int(p.get("patches_per_example", 4))
+    rng = np.random.default_rng(int(p.get("seed", 0)))
+
+    num_classes = int(p.get("num_classes", default_classes))
+    _check_ignore_collision(ignore_label, num_classes)
+    p_lo, p_hi = float(p.get("p_lo", 5.0)), float(p.get("p_hi", 99.5))
+    counter = {"n": 0}
+
+    def gen_examples():
+        for img, lab in jobs_lib.track(
+            job, pair_iter(), total=n_frames, phase="frames"
+        ):
+            # frames arrive in storage dtype; records store float32
+            img = np.asarray(img, dtype=np.float32)
+            if p.get("normalize", True):
+                # records store normalized intensities so training sees the
+                # same distribution tiled inference feeds the net (SURVEY.md
+                # §3.2/3.3); multi-channel normalizes per channel
+                axes = tuple(range(lab.ndim))  # spatial axes only
+                lo = np.percentile(img, p_lo, axis=axes, keepdims=True)
+                hi = np.percentile(img, p_hi, axis=axes, keepdims=True)
+                img = np.clip(
+                    (img - lo) / np.maximum(hi - lo, 1e-8), 0.0, 1.0
+                ).astype(np.float32)
+            if patch is not None:
+                if any(ps > s for s, ps in zip(lab.shape, patch)):
+                    raise jobs_lib.JobError(
+                        f"patch {patch} larger than example {lab.shape}"
+                    )
+                crops = []
+                for _ in range(n_crops):
+                    starts = [
+                        int(rng.integers(0, s - ps + 1))
+                        for s, ps in zip(lab.shape, patch)
+                    ]
+                    sl = tuple(
+                        slice(st, st + ps) for st, ps in zip(starts, patch)
+                    )
+                    img_sl = sl + (slice(None),) if multi_channel else sl
+                    crops.append((img[img_sl], lab[sl]))
+            else:
+                crops = [(img, lab)]
+            for ci, cl in crops:
+                valid = None
+                if ignore_label is not None:
+                    valid = cl != ignore_label
+                    cl = np.where(valid, cl, 0).astype(cl.dtype)
+                w = None
+                if p.get("weight_maps", True):
+                    w = weightmaps.unet_weight_map(
+                        cl, num_classes=num_classes,
+                        w0=float(p.get("w0", 10.0)),
+                        sigma=float(p.get("sigma", 5.0)),
+                        valid=valid,
+                    )
+                elif valid is not None:
+                    # no Ronneberger map requested: the stored weights
+                    # are the pure annotation mask (still a true ignore)
+                    w = valid.astype(np.float32)
+                counter["n"] += 1
+                yield records.SegExample(ci, cl, w)
+
+    try:
+        shard_paths = records.write_segmentation_shards(
+            os.path.join(job.output, "train"), gen_examples(),
+            shard_size=int(p.get("shard_size", 128)),
+            compression="gzip" if p.get("compress_records") else None,
+        )
+    finally:
+        for close in closers:
+            close()
+    return {"shards": os.path.join(job.output, "train-*.tfrecord"),
+            "n_examples": str(counter["n"]), "n_shards": str(len(shard_paths))}
+
+
+def _polyphase_train_param(p, cfg) -> bool:
+    """The ``polyphase`` training param: a model outside the polyphase
+    cover is refused as the JAX package refuses it; polyphase training
+    itself is the next slice of the port, so a covered model is refused
+    too, deterministically."""
+    poly = bool(p.get("polyphase", False))
+    if poly and (
+        cfg.dims not in (2, 3) or cfg.space_to_depth != 1
+        or cfg.upsample != "transpose" or cfg.depth < 2
+    ):
+        raise jobs_lib.JobError(
+            "polyphase training requires a space_to_depth=1 "
+            f"transpose-upsample model of depth >= 2; got dims={cfg.dims}, "
+            f"s2d={cfg.space_to_depth}, upsample={cfg.upsample!r}, "
+            f"depth={cfg.depth}"
+        )
+    if poly:
+        raise jobs_lib.JobError(
+            "polyphase training is not ported yet (the next slice of the "
+            "port); omit polyphase to train the standard forward"
+        )
+    return poly
+
+
+@register("train_unet2d")
+def train_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train a 2D U-Net from record shards and register it as a model.
+
+    input: record shard paths (globs or a build_records output directory).
+    params: model (output name), architecture (num_classes, depth,
+    base_features, norm, ...), training (steps, batch_size, learning_rate,
+    augmentation knobs, ``grad_accum``, ``remat``, the lr schedule),
+    observability (holdout_every, eval_every, dump_eval_images), keep_best,
+    early_stop_patience, ema_decay, resume, distill_from.
+    """
+    return _train_unet(job, config)
+
+
+@register("train_unet3d")
+def train_unet3d(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train a volumetric 3D U-Net from record shards: ``train_unet2d``'s
+    parameters with ``dims`` defaulting to 3 (records of (Z, H, W) volumes,
+    e.g. ``build_records`` with ``dims: 3``)."""
+    job.params.setdefault("dims", 3)
+    return _train_unet(job, config)
+
+
+def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    shard_paths: list = []
+    for pattern in _resolve_globs(job):
+        shard_paths.extend(sorted(glob_lib.glob(pattern)))
+    if not shard_paths:
+        raise jobs_lib.JobError(f"job {job.id}: no record shards found")
+    p = job.params
+    cfg = unet_config_from_params(p)
+    steps = int(p.get("steps", 1000))
+    _polyphase_train_param(p, cfg)
+    tc = train_lib.TrainConfig(
+        learning_rate=float(p.get("learning_rate", 1e-4)),
+        augment=bool(p.get("augment", True)),
+        elastic_alpha=float(p.get("elastic_alpha", 20.0)),
+        elastic_grid=int(p.get("elastic_grid", 4)),
+        p_elastic=float(p.get("p_elastic", 0.5)),
+        gain_jitter=float(p.get("gain_jitter", 0.0)),
+        offset_jitter=float(p.get("offset_jitter", 0.0)),
+        noise_std=float(p.get("noise_std", 0.0)),
+        grad_accum=int(p.get("grad_accum", 1)),
+        remat=bool(p.get("remat", False)),
+        lr_schedule=str(p.get("lr_schedule", "constant")),
+        lr_warmup_steps=int(p.get("lr_warmup_steps", 0)),
+        # the decay runs over the steps after the warmup by default
+        lr_decay_steps=int(
+            p.get("lr_decay_steps", max(1, steps - int(p.get("lr_warmup_steps", 0))))
+        ),
+        lr_end_factor=float(p.get("lr_end_factor", 0.01)),
+    )
+    fc = fit_lib.FitConfig(
+        steps=steps,
+        batch_size=int(p.get("batch_size", 8)),
+        checkpoint_every=int(p.get("checkpoint_every", 500)),
+        log_every=int(p.get("log_every", 50)),
+        holdout_every=int(p.get("holdout_every", 0)),
+        eval_every=int(p.get("eval_every", 0)),
+        metrics_path=os.path.join(job.output, "metrics.jsonl"),
+        dump_eval_images=bool(p.get("dump_eval_images", False)),
+        seed=int(p.get("seed", 0)),
+        keep_checkpoints=int(p.get("keep_checkpoints", 3)),
+        keep_best_metric=(
+            str(p.get("keep_best_metric", "eval_miou"))
+            if p.get("keep_best") or _parse_patience(p)
+            else ""
+        ),
+        early_stop_patience=_parse_patience(p),
+        ema_decay=_parse_ema_decay(p),
+    )
+    if fc.keep_best_metric and not fc.holdout_every:
+        raise jobs_lib.JobError(
+            "keep_best/early_stop_patience requires holdout_every > 0 "
+            "(no eval metric to track)"
+        )
+    ckpt_dir = os.path.join(job.output, "ckpts")
+    init_state = None
+    ckpt = fit_lib.latest_checkpoint(ckpt_dir) if p.get("resume", True) else None
+    if ckpt:
+        # resume from the newest checkpoint; the loop runs the rest
+        template = train_lib.create_unet_state(cfg, tc, device=device)
+        init_state = train_lib.restore_checkpoint(ckpt, template)
+    distill = None
+    if p.get("distill_from"):
+        t_kind, _, teacher = load_model_cached(config.models_dir, p["distill_from"], device=device)
+        if t_kind != "unet":
+            raise jobs_lib.JobError(f"distill_from={p['distill_from']!r} is not a unet model")
+        distill = fit_lib.Distill(
+            teacher,
+            alpha=float(p.get("distill_alpha", 0.5)),
+            temperature=float(p.get("distill_temperature", 2.0)),
+        )
+    # the fit loop owns the cancel poll (it checkpoints before raising)
+    rep = jobs_lib.ProgressReporter(job, steps, phase="steps", raise_on_cancel=False)
+    try:
+        state = fit_lib.fit_unet(
+            cfg, tc, fc, shard_paths, ckpt_dir=ckpt_dir, init_state=init_state,
+            distill=distill, should_stop=lambda: jobs_lib.cancel_requested(job),
+            progress=lambda s, _t: rep.step(s), device=device,
+        )
+    except fit_lib.TrainingCancelled as e:
+        raise jobs_lib.JobCancelled(str(e))
+    rep.finish()
+    best_path = os.path.join(ckpt_dir, "best")
+    used_best = bool(fc.keep_best_metric) and os.path.isdir(best_path)
+    if used_best:
+        # register the checkpoint with the best holdout metric, not the last
+        state = train_lib.restore_checkpoint(best_path, state)
+    model = _ema_or_raw_params(ckpt_dir, fc, state, used_best)
+    model_dir = save_model(config.models_dir, _require_param(job, "model"), "unet", cfg, model)
+    return {"model": model_dir, "metrics_file": fc.metrics_path}

@@ -13,8 +13,8 @@ the flat interchange layout (``models.convert``) in place of the JAX
 server's orbax checkpoint. ``python -m sequitr_tpu export-model`` output
 imports with ``python -m sequitr_tpu_torch import-model``.
 
-Jobs run on ``config.device`` (default the CUDA card). Multi-card data or
-spatial parallelism is a later slice of the port.
+Jobs run on ``config.device`` (default the CUDA card), training jobs too.
+Multi-card data or spatial parallelism is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -494,6 +494,93 @@ def _require_one_card(job: Job, device, key: str) -> None:
         )
 
 
+def _require_param(job: Job, key: str):
+    val = job.params.get(key)
+    if not val:
+        raise jobs_lib.JobError(f"job {job.id}: missing required param {key!r}")
+    return val
+
+
+def _parse_ignore_label(job: Job):
+    """``ignore_label`` as int or None; malformed is a deterministic JobError."""
+    ig = job.params.get("ignore_label")
+    if ig is None:
+        return None
+    try:
+        return int(ig)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(f"ignore_label={ig!r} must be an int")
+
+
+def _check_ignore_collision(ignore_label, num_classes: int) -> None:
+    if ignore_label is not None and 0 <= ignore_label < num_classes:
+        raise jobs_lib.JobError(
+            f"ignore_label={ignore_label} collides with the class range "
+            f"[0, {num_classes}) — use a value outside it (e.g. 255)"
+        )
+
+
+def _parse_patience(p: dict) -> int:
+    """Validated ``early_stop_patience`` (a JobError, never a retried
+    ValueError)."""
+    raw = p.get("early_stop_patience", 0)
+    try:
+        v = int(raw or 0)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(f"early_stop_patience={raw!r} must be an integer >= 0")
+    if v < 0:
+        raise jobs_lib.JobError(f"early_stop_patience={v} must be >= 0 (0 = off)")
+    return v
+
+
+def _parse_ema_decay(p: dict) -> float:
+    raw = p.get("ema_decay", 0.0)
+    try:
+        v = float(raw or 0.0)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(f"ema_decay={raw!r} must be a number in [0, 1)")
+    if not 0.0 <= v < 1.0:
+        raise jobs_lib.JobError(f"ema_decay={v} must be in [0, 1)")
+    return v
+
+
+def _ema_or_raw_params(ckpt_dir: str, fc, state, used_best: bool):
+    """The module a finished train job registers: with ``ema_decay``, the
+    EMA twin of the checkpoint being registered (``ema_best`` when
+    keep_best chose it, else ``ema_final``) as parameters beside the
+    state's batch-norm statistics; else the state's own module."""
+    from sequitr_tpu_torch.models import convert as convert_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    if not fc.ema_decay:
+        return state.model
+    # pair like with like: keep_best's state takes only its own ema_best
+    name = "ema_best" if used_best else "ema_final"
+    path = os.path.join(ckpt_dir, name)
+    if not os.path.isdir(path):
+        log.warning(
+            "ema_decay set but %s missing (checkpoint predates EMA?); "
+            "registering raw weights", path,
+        )
+        return state.model
+    device = next(state.model.parameters()).device
+    model = convert_lib.build(state.model.cfg, device=device)
+    model.load_state_dict(state.model.state_dict())
+    train_lib.restore_checkpoint(path, list(model.parameters()))
+    return model
+
+
+def _resolve_globs(job: Job):
+    """Record-shard input entries: globs pass through, a directory means
+    its ``*.tfrecord`` members (a build_records output directory)."""
+    if not job.input:
+        raise jobs_lib.JobError(f"job {job.id}: no input paths")
+    return [
+        os.path.join(p, "*.tfrecord") if os.path.isdir(p) else p
+        for p in job.input
+    ]
+
+
 def _resolve_inputs(job: Job):
     import glob as glob_lib
 
@@ -800,4 +887,5 @@ def unet_config_from_params(p: dict):
 from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
     gan_denoise as _pipelines_gan_denoise,
     segmentation as _pipelines_segmentation,
+    training as _pipelines_training,
 )

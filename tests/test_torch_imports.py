@@ -21,6 +21,8 @@ MODULES = [
     "sequitr_tpu_torch.data.tiff",
     "sequitr_tpu_torch.data.source",
     "sequitr_tpu_torch.data.synthetic",
+    "sequitr_tpu_torch.data.records",
+    "sequitr_tpu_torch.data.prefetch",
     "sequitr_tpu_torch.models",
     "sequitr_tpu_torch.models.unet",
     "sequitr_tpu_torch.models.convert",
@@ -30,18 +32,25 @@ MODULES = [
     "sequitr_tpu_torch.ops",
     "sequitr_tpu_torch.ops.normalize",
     "sequitr_tpu_torch.ops.tiling",
+    "sequitr_tpu_torch.ops.losses",
+    "sequitr_tpu_torch.ops.augment",
+    "sequitr_tpu_torch.ops.weightmaps",
     "sequitr_tpu_torch.ops.kernels",
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
     "sequitr_tpu_torch.ops.kernels.conv3x3",
     "sequitr_tpu_torch.pipeline",
     "sequitr_tpu_torch.pipeline.infer",
+    "sequitr_tpu_torch.pipeline.optim",
+    "sequitr_tpu_torch.pipeline.train",
+    "sequitr_tpu_torch.pipeline.fit",
     "sequitr_tpu_torch.server",
     "sequitr_tpu_torch.server.jobs",
     "sequitr_tpu_torch.server.server",
     "sequitr_tpu_torch.server.pipelines",
     "sequitr_tpu_torch.server.pipelines.gan_denoise",
     "sequitr_tpu_torch.server.pipelines.segmentation",
+    "sequitr_tpu_torch.server.pipelines.training",
     "sequitr_tpu_torch.studies",
     "sequitr_tpu_torch.studies.conv2d",
     "sequitr_tpu_torch.studies.conv2d_gemm",
@@ -68,7 +77,7 @@ torch.cuda.is_available = lambda: False  # the check holds with or without a car
 from sequitr_tpu_torch import utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet
-from sequitr_tpu_torch.pipeline import infer
+from sequitr_tpu_torch.pipeline import fit, infer, train
 from sequitr_tpu_torch.studies import polyphase_conv
 from sequitr_tpu_torch.server import ImageServer
 
@@ -92,6 +101,9 @@ calls = [
     lambda: polyphase_conv.run(size=16, iters=1),
     lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
     lambda: ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r})),
+    lambda: unet.init(cfg),
+    lambda: train.create_unet_state(cfg, train.TrainConfig()),
+    lambda: fit.fit_unet(cfg, train.TrainConfig(), fit.FitConfig(), []),
 ]
 for call in calls:
     try:
@@ -105,6 +117,7 @@ unet.UNet(cfg, device="cpu")
 gan.GAN(gcfg, device="cpu")
 infer.make_frame_inferrer(cfg, tc, (16, 16), device="cpu")
 infer.make_gan_enhancer(gcfg, tc, (16, 16), device="cpu")
+train.create_unet_state(cfg, train.TrainConfig(), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
 print("ok")
 """
