@@ -42,7 +42,16 @@ on failure:
    frames, volumes (the default tiling and the whole-volume polyphase
    path) and GAN frames, streamed: wall, busy share, device ops, peak
    memory, kernels;
-10. serve phase: jobs served by ``ImageServer`` on the card one at a time,
+10. instances phase (TF32 off): ``flows_cells`` and ``stars_cells`` at f32 on
+   a 1024x1024 ``synthetic.instances_frame``, card against CPU (prob within
+   1e-4, stars distances within 1e-3, flow positions within 1 px on >=
+   99.9% of foreground pixels, instances at ap50 1.0); the doubling
+   integrator's indices card against CPU; fidelity (``fidelity.py``'s flows
+   and stars meters): the bf16 kernel-normalize path against the f32 exact
+   path on 2 frames, ap50_vs_ref >= 0.99; then the forward, the Euler and
+   doubling integrators (device ms, device ops, wall ms) and the host
+   grouping and NMS timed at 1024x1024;
+11. serve phase: jobs served by ``ImageServer`` on the card one at a time,
    every kernel's launch count reset just before each job and read just
    after: (a)-(c) ``segmentation_unet2d`` over a 4-frame 1024x1024 uint16
    stack (job (a), the default job, is the served main path: its histogram
@@ -58,18 +67,26 @@ on failure:
    "none"``, as ``fidelity.py::n2v_fidelity``) on 4-frame 1024x1024 stacks,
    held against the port's f32 path by PSNR (>= 40 dB), and (i) ``denoise``
    with the kernel normalize, held against the same bf16 path called
-   directly.
-11. train phase (U-Net training), with PyTorch's own TF32 defaults restored
+   directly; (j)-(m) the instance jobs on 1024x1024 ``instances_frame``
+   stacks: ``segment_flows`` with the Euler and the doubling integrator,
+   ``segment_stars`` with ``polyphase: true`` (held to the f32 path by
+   ap50_vs_ref >= 0.99), and ``segment_flows`` on a 2-timepoint
+   32x256x256 volume file (``z: 32``) with a ``unet.init`` model of
+   ``unet3d_cells``' architecture and a flows head (held to its pass called
+   directly; its f32 positions card against CPU on a crop).
+12. train phase (U-Net training), with PyTorch's own TF32 defaults restored
    first: an f32 ``unet2d_cells`` job served on the card and on the CPU
    (probabilities within 1e-4); three f32 train steps at ``unet2d_cells``'
-   width on 8x256x256 batches, card against CPU (loss, grad_norm, weights);
-   the tied max-pool gradient; the augmentation's apply at the same draws;
+   width on 8x256x256 batches, card against CPU (loss, grad_norm, weights),
+   with the standard and the polyphase forward; the tied max-pool gradient,
+   and the polyphase pool's; the augmentation's apply at the same draws;
    a fold that follows an in-place update; the bf16 step's time split,
    device ops, peak memory and largest kernels in 2D (8x256x256) and 3D
-   (2x16x64x64); then ``build_records`` -> ``train_unet2d`` ->
-   ``segmentation_unet2d`` in one server process (the served labels equal
-   the registered weights served directly) and ``build_records`` ->
-   ``train_unet3d``, each job's launch counts read on its own.
+   (2x16x64x64), standard and polyphase; then ``build_records`` ->
+   ``train_unet2d`` -> ``segmentation_unet2d`` in one server process (the
+   served labels equal the registered weights served directly), the same
+   with ``polyphase: true``, and ``build_records`` -> ``train_unet3d``,
+   each job's launch counts read on its own.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -78,8 +95,8 @@ outside a checkout of the repository.
     python3 chip_smoke.py --phases conv,studies
 
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
-``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``, ``serve``,
-``train``)
+``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
+``instances``, ``serve``, ``train``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -112,6 +129,14 @@ TRAIN_UPDATE_BAR = 0.2  # relative L2 difference of the 3 steps' updates, card v
 TRAIN_STATS_BAR = 1e-3  # BN running statistics, relative to each tensor's largest value, beyond
 # the TRAIN_STEPS_EXACT * TRAIN_LR a running mean takes from its conv's BN-nulled bias
 AUG_BAR = 1e-5  # augmented image and weights, card against CPU at the same draws
+INSTANCE_FRAME = (1024, 1024)
+INSTANCE_SEED = 717_000  # fidelity.py::flows_fidelity / stars_fidelity's frames
+AP50_BAR = 0.99  # instances, bf16 kernel-normalize path against the f32 exact path; first card run 0.999-1.0 (PERF.md)
+INST_PROB_BAR = 1e-4  # f32 card against CPU: flows and stars probabilities
+INST_DIST_BAR = 1e-3  # f32 card against CPU: stars ray distances (up to ~60 px)
+INST_FINAL_PX = 1.0  # f32 card against CPU: converged flow positions, on
+INST_FINAL_SHARE = 0.999  # at least this share of foreground pixels
+INST_VOLUME = (32, 256, 256)  # job (m)'s volumes
 
 
 def _fail(msg: str) -> int:
@@ -984,6 +1009,208 @@ def profile_phase(torch, fixtures, unet):
     )
 
 
+def _instance_pass(name, dtype, normalize, device, polyphase=False, spatial=INSTANCE_FRAME, model=None):
+    """``frame -> (a, b)`` numpy: the serving pass of a committed instance
+    fixture (``flows_cells``: final positions and prob; ``stars_cells``: prob
+    and ray distances) or of ``model``, at ``dtype``, on ``device``."""
+    from sequitr_tpu_torch.models import fixtures
+    from sequitr_tpu_torch.pipeline import infer
+
+    if model is None:
+        _, cfg, model, _ = fixtures.load(name, compute_dtype=dtype, device=device)
+    else:
+        cfg = model.cfg
+    tc = infer.TileConfig(patch=spatial, overlap=(0,) * len(spatial), normalize=normalize, polyphase=polyphase)
+    if name == "stars_cells":
+        fn = infer.make_stars_predictor(cfg, tc, spatial, device=device)
+    else:
+        fn = infer.make_flows_segmenter(cfg, tc, spatial, device=device)
+    return lambda frame: tuple(t.cpu().numpy() for t in fn(model, frame))
+
+
+def _instances_of(name, a, b):
+    """The host half: sink grouping (flows) or polygon NMS (stars)."""
+    from sequitr_tpu_torch.ops import flows, stardist
+
+    if name == "stars_cells":
+        return stardist.instances_from_rays(a, b)
+    return flows.group_sinks(a, b > 0.5)
+
+
+def _ap50(want, got) -> float:
+    from sequitr_tpu_torch.ops import flows
+
+    return flows.average_precision(want, got, thresholds=(0.5,))["ap50"]
+
+
+def instances_phase(torch, smi_line):
+    """The instance families on the card (TF32 off): f32 against the CPU,
+    fidelity of the bf16 device path (fidelity.py's flows and stars meters),
+    then where the time goes at 1024x1024 under torch.profiler: the forward,
+    the Euler integrator, the doubling integrator and the host grouping."""
+    import numpy as np
+
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.models import fixtures, unet
+    from sequitr_tpu_torch.ops import flows, stardist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, truth = synthetic.instances_frame(INSTANCE_SEED, INSTANCE_FRAME)
+    frame = img.clip(0, 65535).astype(np.uint16)
+
+    # (1) f32, the card against the CPU on one 1024x1024 frame
+    for name in ("flows_cells", "stars_cells"):
+        t0 = time.perf_counter()
+        a_card, b_card = _instance_pass(name, "float32", "exact", "cuda")(frame)
+        a_cpu, b_cpu = _instance_pass(name, "float32", "exact", "cpu")(frame)
+        cpu_s = time.perf_counter() - t0
+        ap = _ap50(_instances_of(name, a_cpu, b_cpu), _instances_of(name, a_card, b_card))
+        if name == "flows_cells":
+            prob_err = float(np.abs(b_card - b_cpu).max())
+            fg = b_cpu > 0.5
+            near = float(np.mean(np.abs(a_card - a_cpu).max(-1)[fg] <= INST_FINAL_PX))
+            print(
+                f"instances f32 flows_cells 1024x1024 card vs CPU: max |prob diff| {prob_err:.3g} (bar "
+                f"{INST_PROB_BAR}), final positions within {INST_FINAL_PX} px on {near:.6f} of foreground "
+                f"pixels (bar {INST_FINAL_SHARE}), group_sinks ap50 {ap} (both passes {cpu_s:.1f} s)"
+            )
+            ok = prob_err <= INST_PROB_BAR and near >= INST_FINAL_SHARE
+        else:
+            prob_err = float(np.abs(a_card - a_cpu).max())
+            dist_err = float(np.abs(b_card - b_cpu).max())
+            print(
+                f"instances f32 stars_cells 1024x1024 card vs CPU: max |prob diff| {prob_err:.3g} (bar "
+                f"{INST_PROB_BAR}), max |dist diff| {dist_err:.3g} (bar {INST_DIST_BAR}), "
+                f"instances_from_rays ap50 {ap} (both passes {cpu_s:.1f} s)"
+            )
+            ok = prob_err <= INST_PROB_BAR and dist_err <= INST_DIST_BAR
+        if not (ok and ap == 1.0):
+            raise AssertionError(f"instances: {name} f32 card and CPU disagree")
+    # the doubling integrator's indices on one field, card against CPU
+    field, fprob = flows.flow_targets(truth)
+    field = field + np.random.default_rng(7).normal(size=field.shape).astype(np.float32) * 0.2
+    mask = fprob > 0.5
+    d_card = flows.follow_flows_doubling(field, mask, n_iter=200, device="cuda").cpu().numpy()
+    d_cpu = flows.follow_flows_doubling(field, mask, n_iter=200, device="cpu").numpy()
+    print(f"instances follow_flows_doubling 1024x1024 (200 -> 256 steps): card equal to CPU {np.array_equal(d_card, d_cpu)}")
+    if not np.array_equal(d_card, d_cpu):
+        raise AssertionError("follow_flows_doubling: card and CPU indices differ")
+
+    # (2) fidelity: the bf16 device path with the kernel normalize against
+    # the f32 exact-normalize path on the card, and against the truth;
+    # stars serve through polyphase, as fidelity.py's meter and bench_stars do
+    fidelity = {}
+    for name in ("flows_cells", "stars_cells"):
+        dev = _instance_pass(name, "bfloat16", "auto", "cuda", polyphase=name == "stars_cells")
+        ref = _instance_pass(name, "float32", "exact", "cuda")
+        vs_ref, vs_truth = [], []
+        for i in range(2):
+            im, lab = synthetic.instances_frame(INSTANCE_SEED + i, INSTANCE_FRAME)
+            f = im.clip(0, 65535).astype(np.uint16)
+            got = _instances_of(name, *dev(f))
+            vs_ref.append(_ap50(_instances_of(name, *ref(f)), got))
+            vs_truth.append(_ap50(lab, got))
+        fidelity[name] = float(np.mean(vs_ref))
+        print(
+            f"instances fidelity {name} 2 frames 1024x1024 (seeds {INSTANCE_SEED}+i): ap50_vs_ref "
+            f"{np.mean(vs_ref):.6f} (bar {AP50_BAR}; ref: f32, exact normalize, on the card), ap50_truth "
+            f"{np.mean(vs_truth):.6f}"
+        )
+    if min(fidelity.values()) < AP50_BAR:
+        raise AssertionError(f"instances fidelity {fidelity} < {AP50_BAR}")
+
+    # (3) where the time goes, bf16 at 1024x1024
+    _, cfg, model, _ = fixtures.load("flows_cells", device="cuda")
+    model = unet.fold_batchnorm(model)
+    x = torch.rand((1, 1024, 1024, 1), device="cuda")
+    dev_field = torch.from_numpy(field).cuda()
+    dev_mask = torch.from_numpy(mask).cuda()
+
+    # no host sync: the integrators alone must not make one (an error), and
+    # the serving pass of a frame already on the card is watched for any
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flows.follow_flows(dev_field, dev_mask, n_iter=200)
+        flows.follow_flows_doubling(dev_field, dev_mask, n_iter=200)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    from sequitr_tpu_torch.pipeline import infer
+
+    _, fcfg, fmodel, _ = fixtures.load("flows_cells", device="cuda")
+    fn = infer.make_flows_segmenter(
+        fcfg, infer.TileConfig(patch=INSTANCE_FRAME, overlap=(0, 0)), INSTANCE_FRAME, device="cuda"
+    )
+    dev_frame = torch.from_numpy(frame).cuda()
+    fn(fmodel, dev_frame)  # built, folded and warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(fmodel, dev_frame)
+            fn(fmodel, dev_frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message)[:80] for w in caught if "synchroniz" in str(w.message)]
+    print(
+        f"instances no-sync: follow_flows and follow_flows_doubling ran under set_sync_debug_mode('error'); "
+        f"the flows serving pass of a frame on the card made {len(syncs)} synchronizing calls in two frames "
+        f"(after its first){': ' + '; '.join(sorted(set(syncs))) if syncs else ''}"
+    )
+
+    def timed(label, fn, reps):
+        with torch.inference_mode():
+            n_ops, dev_ms, _, top = _profiled(torch, fn, reps=reps)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps * 1e3
+        print(
+            f"instances time {label}: {wall:.4f} ms wall, {dev_ms:.4f} device ms, {n_ops:.0f} device ops "
+            f"a call on {smi_line}; largest: " + "; ".join(f"{n} {ms:.4f}" for n, ms in top[:3])
+        )
+        return wall, dev_ms, n_ops
+
+    times = {
+        "forward": timed("flows_cells bf16 forward 1x1024x1024", lambda: model(x), 5),
+        "euler": timed(
+            "follow_flows euler 200 steps 1024x1024",
+            lambda: flows.follow_flows(dev_field, dev_mask, n_iter=200), 2,
+        ),
+        "doubling": timed(
+            "follow_flows_doubling 200 (256) steps 1024x1024",
+            lambda: flows.follow_flows_doubling(dev_field, dev_mask, n_iter=200), 5,
+        ),
+    }
+    a, b = _instance_pass("flows_cells", "bfloat16", "auto", "cuda")(frame)
+    p, d = _instance_pass("stars_cells", "bfloat16", "auto", "cuda", polyphase=True)(frame)
+    host = {}
+    for label, fn in (("group_sinks", lambda: flows.group_sinks(a, b > 0.5)),
+                      ("instances_from_rays", lambda: stardist.instances_from_rays(p, d))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        host[label] = (time.perf_counter() - t0) / 3 * 1e3
+    print(
+        f"instances host per 1024x1024 frame: group_sinks {host['group_sinks']:.4f} ms, "
+        f"instances_from_rays {host['instances_from_rays']:.4f} ms (host CPU of the card's machine)"
+    )
+    euler, fwd = times["euler"], times["forward"]
+    print(
+        f"instances: Euler integration {euler[1]:.4f} device ms / {euler[0]:.4f} ms wall against the "
+        f"forward's {fwd[1]:.4f} device ms / {fwd[0]:.4f} ms wall ({euler[0] / fwd[0]:.2f}x by wall)"
+    )
+    return fidelity
+
+
 def _psnr_db(a, b) -> float:
     import numpy as np
 
@@ -1003,6 +1230,7 @@ def serve_phase(torch, hist, conv, smi_line):
     from sequitr_tpu_torch.models import fixtures, unet
     from sequitr_tpu_torch.pipeline import infer
     from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import load_model, save_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1015,7 +1243,7 @@ def serve_phase(torch, hist, conv, smi_line):
 
     with tempfile.TemporaryDirectory() as tmp:
         jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
-        for name in ("unet2d_cells", "unet3d_cells", "gan_denoise", "n2v_cells"):
+        for name in ("unet2d_cells", "unet3d_cells", "gan_denoise", "n2v_cells", "flows_cells", "stars_cells"):
             meta = fixtures.manifest()[name]
             arch = os.path.join(tmp, f"{name}.json")
             with open(arch, "w") as f:
@@ -1045,6 +1273,18 @@ def serve_phase(torch, hist, conv, smi_line):
         noisy = np.stack([n for _, n in pairs]).astype(np.float32)
         clean = np.stack([c for c, _ in pairs])
         noisy_stack = write("noisy.tif", noisy)
+        inst_scenes = [synthetic.instances_frame(INSTANCE_SEED + i, INSTANCE_FRAME) for i in range(4)]
+        inst_frames = np.stack([img for img, _ in inst_scenes]).clip(0, 65535).astype(np.uint16)
+        inst_stack = write("instances.tif", inst_frames)
+        inst_vols = np.stack(
+            [synthetic.cells_volume(31_700 + t, INST_VOLUME)[0] for t in range(2)]
+        ).clip(0, 65535).astype(np.uint16)
+        inst_paged = write("instances_paged.tif", inst_vols.reshape((-1,) + INST_VOLUME[1:]))
+        # job (m)'s model: unet3d_cells' architecture with a flows head, from unet.init
+        cfg_m = unet.UNetConfig(
+            dims=3, depth=3, base_features=32, features_cap=256, num_classes=4, norm="batch"
+        )
+        save_model(models, "flows3d", "flows", cfg_m, unet.init(cfg_m, torch.Generator().manual_seed(17), device="cpu"))
 
         specs = {
             "a": ("segmentation_unet2d", "unet2d_cells", stack, {"localize": False}),
@@ -1058,8 +1298,15 @@ def serve_phase(torch, hist, conv, smi_line):
             "g": ("enhancement_gan", "gan_denoise", gan_stack, {}),
             "h": ("denoise", "n2v_cells", noisy_stack, {"normalize": "none"}),
             "i": ("denoise", "n2v_cells", noisy_stack, {}),
+            "j": ("segment_flows", "flows_cells", inst_stack, {"localize": False}),
+            "k": ("segment_flows", "flows_cells", inst_stack, {"localize": False, "integrator": "doubling"}),
+            "l": ("segment_stars", "stars_cells", inst_stack, {"localize": False, "polyphase": True}),
+            "m": ("segment_flows", "flows3d", inst_paged, {"localize": False, "z": INST_VOLUME[0]}),
         }
-        units = {"a": 4, "b": 4, "c": 4, "d": 1, "e": 1, "f": 2, "g": 4, "h": 4, "i": 4}
+        units = {
+            "a": 4, "b": 4, "c": 4, "d": 1, "e": 1, "f": 2, "g": 4, "h": 4, "i": 4,
+            "j": 4, "k": 4, "l": 4, "m": 2,
+        }
         server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
         counts, outputs, peaks = {}, {}, {}
         for name, (module, model, path, params) in specs.items():
@@ -1247,7 +1494,83 @@ def serve_phase(torch, hist, conv, smi_line):
         ):
             if not value >= bar:
                 raise AssertionError(f"job {what}: psnr {value} dB < {bar}")
+
+        # instances (fidelity.py's flows and stars meters): each job's labels
+        # against the port's f32 exact-normalize path on the card
+        refs = {
+            name: [_instances_of(name, *ref(f)) for f in inst_frames]
+            for name, ref in (
+                ("flows_cells", _instance_pass("flows_cells", "float32", "exact", "cuda")),
+                ("stars_cells", _instance_pass("stars_cells", "float32", "exact", "cuda")),
+            )
+        }
+        for name, fixture in (("j", "flows_cells"), ("k", "flows_cells"), ("l", "stars_cells")):
+            labels = read(name)
+            if labels.shape != (4,) + INSTANCE_FRAME or labels.dtype != np.uint16:
+                raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
+            ap_ref = float(np.mean([_ap50(r, g) for r, g in zip(refs[fixture], labels)]))
+            ap_truth = float(np.mean([_ap50(t, g) for (_, t), g in zip(inst_scenes, labels)]))
+            fps = json.loads(outputs[name]["metrics"])["frames_per_sec"]
+            print(
+                f"serve job {name} {specs[name][0]} {json.dumps(params_summary(specs[name][3]))}: ap50_vs_ref "
+                f"{ap_ref:.6f} (bar {AP50_BAR}; ref: f32, exact normalize, on the card), ap50_truth "
+                f"{ap_truth:.6f}, {fps} frames/s on {smi_line}"
+            )
+            if ap_ref < AP50_BAR:
+                raise AssertionError(f"job {name}: ap50_vs_ref {ap_ref} < {AP50_BAR}")
+        ap_kj = float(np.mean([_ap50(a, b) for a, b in zip(read("j"), read("k"))]))
+        print(f"serve job k (doubling) against job j (Euler): ap50 {ap_kj:.6f}")
+
+        # (m): the volumes' labels against the same bf16 pass called directly,
+        # and the model at f32, card against CPU, on positions (a 16x128x128
+        # crop: the CPU's Euler steps over 2 M voxels take minutes)
+        _, _, model_m = load_model(models, "flows3d", device="cuda")
+        direct = _instance_pass("flows3d", None, "auto", "cuda", spatial=INST_VOLUME, model=model_m)
+        ref_m = _instance_pass(
+            "flows3d", None, "exact", "cuda", spatial=INST_VOLUME,
+            model=_with_dtype(unet, model_m, "float32"),
+        )
+        for t in range(2):
+            lt = tiff.read_stack(os.path.join(os.path.dirname(outputs["m"]["labels"]), f"labels_t{t:04d}.tif"))
+            if lt.shape != INST_VOLUME or lt.dtype != np.uint16:
+                raise AssertionError(f"job m: timepoint {t} labels {lt.shape} {lt.dtype}")
+            want = _instances_of("flows3d", *direct(inst_vols[t]))
+            same = float(np.mean(lt == want))
+            vs_f32 = _ap50(_instances_of("flows3d", *ref_m(inst_vols[t])), lt)
+            print(
+                f"serve job m timepoint {t}: {int(lt.max())} instances, labels equal to the bf16 pass "
+                f"called directly on {same:.6f}; ap50 against the f32 path {vs_f32:.6f} (random weights: "
+                f"no bar)"
+            )
+            if same < 0.9999:
+                raise AssertionError(f"job m: timepoint {t} agrees with its pass called directly on {same}")
+        crop = inst_vols[0][:16, :128, :128]
+        finals = []
+        for dev in ("cuda", "cpu"):
+            m32 = _with_dtype(unet, model_m, "float32").to(dev)
+            finals.append(_instance_pass("flows3d", None, "exact", dev, spatial=crop.shape, model=m32)(crop))
+        (fa, pa), (fb, pb) = finals
+        fg = pb > 0.5
+        near = float(np.mean(np.abs(fa - fb).max(-1)[fg] <= INST_FINAL_PX))
+        print(
+            f"serve job m model at f32, 16x128x128 crop, card vs CPU: max |prob diff| "
+            f"{float(np.abs(pa - pb).max()):.3g}, positions within {INST_FINAL_PX} px on {near:.6f} of "
+            f"foreground voxels (bar {INST_FINAL_SHARE})"
+        )
+        if near < INST_FINAL_SHARE or not float(np.abs(pa - pb).max()) <= INST_PROB_BAR:
+            raise AssertionError("job m's model: f32 card and CPU disagree")
         return counts
+
+
+def _with_dtype(unet, model, dtype):
+    """A copy of the folded ``model`` computing in ``dtype``."""
+    import dataclasses
+
+    from sequitr_tpu_torch.models import convert
+
+    cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+    device = next(model.parameters()).device
+    return convert.load_flat(cfg, convert.to_flat(model), device=device)
 
 
 def _unet2d_cells_arch(dtype):
@@ -1321,7 +1644,7 @@ def train_phase(torch, hist, conv, smi_line):
     from sequitr_tpu_torch import __main__ as cli
     from sequitr_tpu_torch.config import ServerConfiguration
     from sequitr_tpu_torch.data import synthetic, tiff
-    from sequitr_tpu_torch.models import convert, fixtures, unet
+    from sequitr_tpu_torch.models import convert, fixtures, polyphase, unet
     from sequitr_tpu_torch.ops import augment as aug
     from sequitr_tpu_torch.ops import losses
     from sequitr_tpu_torch.pipeline import infer, train
@@ -1405,48 +1728,49 @@ def train_phase(torch, hist, conv, smi_line):
             raise AssertionError(f"f32 served probabilities differ from the CPU's by {f32_err}")
 
         # (2) three f32 train steps, augmentation off, at unet2d_cells' width:
-        # the card against the CPU from the same weights and batches
+        # the card against the CPU from the same weights and batches, for the
+        # standard forward and the polyphase one
         cfg32 = _unet2d_cells_arch("float32")
-        tc = train.TrainConfig(augment=False)
         init = unet.init(cfg32, torch.Generator().manual_seed(0), device="cpu")
         flat = convert.to_flat(init)
         batches = [_cells_batch(np, 8, 256, 710_000 + 8 * s) for s in range(TRAIN_STEPS_EXACT)]
-        runs = {}
-        for name, dev in (("cpu", "cpu"), ("card", "cuda"), ("card again", "cuda")):
-            state = train.create_unet_state(cfg32, tc, model=convert.load_flat(cfg32, flat, device=dev))
-            step = train.make_unet_train_step(cfg32, tc)
-            got = []
-            for img, lab, w in batches:
-                batch = {
-                    "image": torch.from_numpy(img).to(dev), "labels": torch.from_numpy(lab).to(dev),
-                    "weights": torch.from_numpy(w).to(dev),
-                }
-                state, m = step(state, batch)
-                got.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[name] = (got, state.model.to("cpu"))
-        (cpu_m, cpu_model), (card_m, card_model), (again_m, again_model) = (
-            runs["cpu"], runs["card"], runs["card again"]
-        )
-        for s, ((lc, gc), (lg, gg)) in enumerate(zip(cpu_m, card_m)):
-            print(
-                f"train f32 step {s + 1} (8x256x256, unet2d_cells arch): loss card {lg:.7f} CPU {lc:.7f} "
-                f"(rel {abs(lg - lc) / lc:.3g}, bar {TRAIN_LOSS_RTOL}), grad_norm card {gg:.6f} CPU "
-                f"{gc:.6f} (rel {abs(gg - gc) / gc:.3g}, bar {TRAIN_GRAD_NORM_RTOL})"
+        for kind, tc in (("", train.TrainConfig(augment=False)), ("polyphase ", train.TrainConfig(augment=False, polyphase=True))):
+            runs = {}
+            for name, dev in (("cpu", "cpu"), ("card", "cuda"), ("card again", "cuda")):
+                state = train.create_unet_state(cfg32, tc, model=convert.load_flat(cfg32, flat, device=dev))
+                step = train.make_unet_train_step(cfg32, tc)
+                got = []
+                for img, lab, w in batches:
+                    batch = {
+                        "image": torch.from_numpy(img).to(dev), "labels": torch.from_numpy(lab).to(dev),
+                        "weights": torch.from_numpy(w).to(dev),
+                    }
+                    state, m = step(state, batch)
+                    got.append((float(m["loss"]), float(m["grad_norm"])))
+                runs[name] = (got, state.model.to("cpu"))
+            (cpu_m, cpu_model), (card_m, card_model), (again_m, again_model) = (
+                runs["cpu"], runs["card"], runs["card again"]
             )
-            if abs(lg - lc) > TRAIN_LOSS_RTOL * lc or abs(gg - gc) > TRAIN_GRAD_NORM_RTOL * gc:
-                raise AssertionError(f"train step {s + 1}: card and CPU disagree")
-        rel, share, nulled, stats = _weights_vs(np, convert, card_model, cpu_model, flat)
-        rel2, share2, nulled2, stats2 = _weights_vs(np, convert, card_model, again_model, flat)
-        loss_runs = max(abs(a[0] - b[0]) / b[0] for a, b in zip(card_m, again_m))
-        print(
-            f"train f32 weights after {TRAIN_STEPS_EXACT} steps, card vs CPU: updates differ by {rel:.3g} "
-            f"of their L2 norm (bar {TRAIN_UPDATE_BAR}), {share:.3g} of the weights by more than a tenth "
-            f"of an Adam step (lr {TRAIN_LR}), BN-nulled biases by up to {nulled:.3g}, running statistics "
-            f"by {stats:.3g} of their largest value (bar {TRAIN_STATS_BAR}); two card runs: {rel2:.3g}, "
-            f"{share2:.3g}, {nulled2:.3g}, {stats2:.3g}, losses {loss_runs:.3g} apart (relative)"
-        )
-        if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
-            raise AssertionError("train weights: card and CPU disagree")
+            for s, ((lc, gc), (lg, gg)) in enumerate(zip(cpu_m, card_m)):
+                print(
+                    f"train f32 {kind}step {s + 1} (8x256x256, unet2d_cells arch): loss card {lg:.7f} CPU "
+                    f"{lc:.7f} (rel {abs(lg - lc) / lc:.3g}, bar {TRAIN_LOSS_RTOL}), grad_norm card {gg:.6f} "
+                    f"CPU {gc:.6f} (rel {abs(gg - gc) / gc:.3g}, bar {TRAIN_GRAD_NORM_RTOL})"
+                )
+                if abs(lg - lc) > TRAIN_LOSS_RTOL * lc or abs(gg - gc) > TRAIN_GRAD_NORM_RTOL * gc:
+                    raise AssertionError(f"train {kind}step {s + 1}: card and CPU disagree")
+            rel, share, nulled, stats = _weights_vs(np, convert, card_model, cpu_model, flat)
+            rel2, share2, nulled2, stats2 = _weights_vs(np, convert, card_model, again_model, flat)
+            loss_runs = max(abs(a[0] - b[0]) / b[0] for a, b in zip(card_m, again_m))
+            print(
+                f"train f32 {kind}weights after {TRAIN_STEPS_EXACT} steps, card vs CPU: updates differ by "
+                f"{rel:.3g} of their L2 norm (bar {TRAIN_UPDATE_BAR}), {share:.3g} of the weights by more than "
+                f"a tenth of an Adam step (lr {TRAIN_LR}), BN-nulled biases by up to {nulled:.3g}, running "
+                f"statistics by {stats:.3g} of their largest value (bar {TRAIN_STATS_BAR}); two card runs: "
+                f"{rel2:.3g}, {share2:.3g}, {nulled2:.3g}, {stats2:.3g}, losses {loss_runs:.3g} apart (relative)"
+            )
+            if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+                raise AssertionError(f"train {kind}weights: card and CPU disagree")
 
         # (3) the max-pool gradient with tied windows: the first maximal
         # element takes it, on the card as on the CPU (XLA's select-and-scatter)
@@ -1467,6 +1791,13 @@ def train_phase(torch, hist, conv, smi_line):
         )
         if not (torch.equal(grads[0], grads[1]) and torch.equal(grads[1], want)):
             raise AssertionError("max-pool gradient: ties not routed to the first maximum")
+        # the polyphase forward's pool: the max over the four phase groups
+        t = tied.cuda().requires_grad_(True)
+        phases = unet._space_to_depth(t, 2).reshape(8, 4, 32, 128, 128).movedim(1, -1)
+        (polyphase._first_max(phases, -1) * cot.cuda()).sum().backward()
+        print(f"train polyphase pool gradient, same tied windows, card: equal to first-max routing {torch.equal(t.grad.cpu(), want)}")
+        if not torch.equal(t.grad.cpu(), want):
+            raise AssertionError("polyphase pool gradient: ties not routed to the first maximum")
 
         # (4) the augmentation's apply, card against CPU at the same draws
         img, lab, w = _cells_batch(np, 8, 256, 720_000)
@@ -1525,12 +1856,14 @@ def train_phase(torch, hist, conv, smi_line):
             step = train.make_unet_train_step(cfg, tc)
             gen = torch.Generator().manual_seed(1)
 
+            forward = train._train_forward(cfg, tc)
+
             def parts():
                 t = [time.perf_counter()]
                 images, labels, weights = train._prepare(batch, gen, tc, cfg.dims)
                 torch.cuda.synchronize()
                 t.append(time.perf_counter())
-                logits, stats = state.model.forward_train(images)
+                logits, stats = forward(state.model, images)
                 loss = losses.weighted_softmax_cross_entropy(logits, labels, weights)
                 grads = torch.autograd.grad(loss, state.params)
                 torch.cuda.synchronize()
@@ -1571,20 +1904,29 @@ def train_phase(torch, hist, conv, smi_line):
             )
             for name, es in top:
                 print(f"train {label} kernel {_ms(es, 2):.4f} ms/step x{len(es) / 2:.0f} {name[:100]}")
+            return step_ms
 
         img, lab, w = _cells_batch(np, 8, 256, 730_000)
-        timed_step(
-            _unet2d_cells_arch("bfloat16"), train.TrainConfig(), img, lab, w,
-            "2D 8x256x256 (unet2d_cells arch, augment on)", "patches", 8,
-        )
         vol, vlab = synthetic.cells_volume(740_000, (16, 64, 64))
         v = np.clip(vol / max(float(np.percentile(vol, 99.5)), 1e-8), 0, 1).astype(np.float32)
         vols = np.stack([v, v[:, ::-1]])[..., None].copy()
         vlabs = np.stack([vlab, vlab[:, ::-1]]).astype(np.int32)
-        timed_step(
-            unet.UNetConfig(dims=3, depth=3, base_features=32, features_cap=256),
-            train.TrainConfig(), vols, vlabs, np.ones(vlabs.shape, np.float32),
-            "3D 2x16x64x64 (depth 3, cap 256, augment on)", "Mvox", 2 * 16 * 64 * 64 / 1e6,
+        step_ms = {}
+        for kind, poly in (("", False), ("polyphase ", True)):
+            tc_kind = train.TrainConfig(polyphase=poly)
+            step_ms[kind, 2] = timed_step(
+                _unet2d_cells_arch("bfloat16"), tc_kind, img, lab, w,
+                f"2D {kind}8x256x256 (unet2d_cells arch, augment on)", "patches", 8,
+            )
+            step_ms[kind, 3] = timed_step(
+                unet.UNetConfig(dims=3, depth=3, base_features=32, features_cap=256),
+                tc_kind, vols, vlabs, np.ones(vlabs.shape, np.float32),
+                f"3D {kind}2x16x64x64 (depth 3, cap 256, augment on)", "Mvox", 2 * 16 * 64 * 64 / 1e6,
+            )
+        print(
+            f"train bf16 step, polyphase over standard (same process, same batches): 2D "
+            f"{step_ms['polyphase ', 2] / step_ms['', 2]:.3f}x, 3D {step_ms['polyphase ', 3] / step_ms['', 3]:.3f}x "
+            f"on {smi_line}"
         )
 
         # (7) train, then serve, in one server process: build_records on a
@@ -1641,6 +1983,30 @@ def train_phase(torch, hist, conv, smi_line):
         if equal != 1.0:
             raise AssertionError("the trained model's served labels differ from its weights served directly")
 
+        # the same training with polyphase: true, then its model served
+        out, counts["train_unet2d_polyphase"], wall = serve(
+            card_server, "train_unet2d", dict(params, model="seg_trained_poly", polyphase=True),
+            [os.path.join(tmp, "out_records")], "train2d_poly",
+        )
+        with open(out["metrics_file"]) as f:
+            rows = [json.loads(line) for line in f]
+        trp = [r for r in rows if r["kind"] == "train"]
+        evp = [r for r in rows if r["kind"] == "eval"]
+        out, counts["serve_trained_polyphase"], _ = serve(
+            card_server, "segmentation_unet2d", {"model": "seg_trained_poly", "localize": False}, [stack],
+            "serve_trained_poly",
+        )
+        served_p = tiff.read_stack(out["labels"])
+        miou_p = float(np.mean([_miou(a, s[1], 3) for a, s in zip(served_p, scenes)]))
+        print(
+            f"train job train_unet2d polyphase: 30 steps of 8x256x256 in {wall:.3f} s; loss "
+            f"{trp[0]['loss']:.4f} -> {trp[-1]['loss']:.4f}, {trp[-1]['steps_per_sec']:.3f} steps/s; evals "
+            + ", ".join(f"step {r['step']} miou {r['eval_miou']:.4f}" for r in evp)
+            + f"; its model served: miou_truth {miou_p:.4f} (the standard run's {miou:.4f})"
+        )
+        if not all(np.isfinite(r["loss"]) for r in trp) or not evp:
+            raise AssertionError("train_unet2d polyphase: non-finite loss or no eval")
+
         vol, vlab = synthetic.cells_volume(760_000, (16, 128, 128))
         vpath, lpath = os.path.join(tmp, "train_vol.tif"), os.path.join(tmp, "train_vlab.tif")
         tiff.write_stack(vpath, vol.clip(0, 65535).astype(np.uint16))
@@ -1665,7 +2031,10 @@ def train_phase(torch, hist, conv, smi_line):
         )
         if not all(np.isfinite(r["loss"]) for r in tr3):
             raise AssertionError("train_unet3d: non-finite loss")
-        want = {"build_records": 0, "train_unet2d": 0, "serve_trained": 4, "build_records_3d": 0, "train_unet3d": 0}
+        want = {
+            "build_records": 0, "train_unet2d": 0, "serve_trained": 4, "train_unet2d_polyphase": 0,
+            "serve_trained_polyphase": 4, "build_records_3d": 0, "train_unet3d": 0,
+        }
         print(
             "train jobs quantile passes (histogram_2d launches): "
             + ", ".join(f"{k} {counts[k][1]} ({counts[k][0]})" for k in want)
@@ -1682,8 +2051,8 @@ def params_summary(params):
 
 
 PHASES = (
-    "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "serve",
-    "train",
+    "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
+    "serve", "train",
 )
 
 
@@ -1743,6 +2112,7 @@ def main(argv=None) -> int:
             "volume": lambda: volume_phase(torch, fixtures, unet),
             "enhance": lambda: enhance_phase(torch, fixtures, unet),
             "profile": lambda: profile_phase(torch, fixtures, unet),
+            "instances": lambda: instances_phase(torch, smi_line),
             "serve": lambda: serve_phase(torch, hist, conv, smi_line),
             "train": lambda: train_phase(torch, hist, conv, smi_line),
         }
@@ -1759,6 +2129,7 @@ def main(argv=None) -> int:
     volume_phase(torch, fixtures, unet)
     enhance_phase(torch, fixtures, unet)
     profile_phase(torch, fixtures, unet)
+    instances_phase(torch, smi_line)
     counts = serve_phase(torch, hist, conv, smi_line)
     counts.update(train_phase(torch, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
@@ -1771,8 +2142,10 @@ def main(argv=None) -> int:
     print(
         "kernels: histogram_2d launches are those of served job a (launches_by_job: every "
         "served job's, each counted on its own; job h normalizes with 'none' and runs no "
-        "pass; the training jobs build_records, train_unet2d and train_unet3d normalize on the "
-        "host and run none; serve_trained is the trained model's 4-frame job); the conv3x3 "
+        "pass; jobs j-m are segment_flows (Euler, doubling), segment_stars (polyphase) and the "
+        "3D segment_flows; the training jobs build_records, train_unet2d (standard and polyphase) "
+        "and train_unet3d normalize on the host and run none; serve_trained and "
+        "serve_trained_polyphase are the trained models' 4-frame jobs); the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

@@ -12,8 +12,11 @@ a CUDA device they raise instead of quietly running on the CPU.
 
 Ported so far: the ``segmentation_unet2d`` serving path (percentile
 normalize on the histogram kernel, U-Net2D, standard or polyphase forward,
-tiling/stitch, labels.tif and objects.h5) and the conv studies
-(``studies``: the fused 3x3 conv kernels, Winograd, the polyphase A/B).
+tiling/stitch, labels.tif and objects.h5), 3D segmentation, GAN and N2V
+serving, the instance families' serving (``segment_flows``,
+``segment_stars``), U-Net training (standard or polyphase forward) and the
+conv studies (``studies``: the fused 3x3 conv kernels, Winograd, the
+polyphase A/B).
 Subpackages import lazily so ``import sequitr_tpu_torch`` stays
 light.
 """

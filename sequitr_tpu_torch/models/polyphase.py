@@ -34,21 +34,26 @@ built for ``model``. Inside, tensors are NCHW (NCDHW) with channels-last
 strides and phase-channel order ``(p*2 + q)*C + c``
 (``unet._space_to_depth``); casts and roundings sit where ``UNet._conv``
 has them, so the up-conv and the head round their output to the compute
-dtype where the JAX package's einsums keep f32. ``apply_train`` and
-``apply3d_train`` belong to the training slice of the port and raise.
+dtype where the JAX package's einsums keep f32.
+
+Training (``apply_train``, ``apply3d_train``) takes an unfolded model with
+batch norm and builds the phase kernels from its live parameters on each
+call, inside autograd; it returns ``(logits, statistics)`` as
+``UNet.forward_train`` does, and its up-conv and head keep their f32
+products unrounded, as the JAX package's training einsums do.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from sequitr_tpu_torch.models import unet as unet_lib
-from sequitr_tpu_torch.models.unet import UNet, UNetConfig
-from sequitr_tpu_torch.utils import derived, f32_entry
+from sequitr_tpu_torch.models.unet import BNStats, UNet, UNetConfig
+from sequitr_tpu_torch.utils import derived, f32_entry, ieee_f32
 
 __all__ = [
     "eligible", "eligible3d", "phase_kernel", "phase_up_kernel",
@@ -86,12 +91,12 @@ def eligible3d(cfg: UNetConfig, spatial: Tuple[int, ...]) -> bool:
     )
 
 
-def _phase_taps(w: torch.Tensor, c_out: int, c_in: int) -> torch.Tensor:
-    """The (H, W) phase rearrangement of a kernel whose last two axes are
-    the 3x3 (H, W) taps: (C_out, C_in, *lead, 3, 3) -> (4C_out, 4C_in,
-    *lead, 3, 3), leading tap axes (z) passed through."""
-    lead = tuple(w.shape[2:-2])
-    pw = w.new_zeros((4, c_out, 4, c_in) + lead + (3, 3))
+def _phase_tap_index() -> torch.Tensor:
+    """(4, 4, 3, 3) source tap of each slot of the phase kernel: slot
+    (a*2 + b, p*2 + q, sy + 1, sx + 1) takes tap (dy + 1)*3 + (dx + 1) with
+    dy = 2*sy + p - a, dx = 2*sx + q - b, or 9 (a zero) when the tap falls
+    outside the 3x3 kernel."""
+    idx = torch.full((4, 4, 3, 3), 9, dtype=torch.long)
     for sy in (-1, 0, 1):
         for sx in (-1, 0, 1):
             for p in (0, 1):
@@ -101,10 +106,43 @@ def _phase_taps(w: torch.Tensor, c_out: int, c_in: int) -> torch.Tensor:
                             dy = 2 * sy + p - a
                             dx = 2 * sx + q - b
                             if dy in (-1, 0, 1) and dx in (-1, 0, 1):
-                                pw[a * 2 + b, :, p * 2 + q, ..., sy + 1, sx + 1] = (
-                                    w[..., dy + 1, dx + 1]
-                                )
-    return pw.reshape((4 * c_out, 4 * c_in) + lead + (3, 3))
+                                idx[a * 2 + b, p * 2 + q, sy + 1, sx + 1] = (dy + 1) * 3 + dx + 1
+    return idx
+
+
+_TAP_INDEX = {}
+
+
+def _tap_index(device: torch.device) -> torch.Tensor:
+    """``_phase_tap_index`` flattened, on ``device``, made there once: a
+    copy from pageable host memory on every call would wait for the card's
+    queue. Made outside inference mode whoever asks first, so the training
+    forward can save it for its backward."""
+    idx = _TAP_INDEX.get(device)
+    if idx is None:
+        with torch.inference_mode(False):
+            idx = _TAP_INDEX.setdefault(device, _phase_tap_index().reshape(-1).to(device))
+    return idx
+
+
+def _phase_taps(w: torch.Tensor, c_out: int, c_in: int) -> torch.Tensor:
+    """The (H, W) phase rearrangement of a kernel whose last two axes are
+    the 3x3 (H, W) taps: (C_out, C_in, *lead, 3, 3) -> (4C_out, 4C_in,
+    *lead, 3, 3), leading tap axes (z) passed through.
+
+    One gather of the taps (and a zero) into the 144 nonzero slots, so it is
+    differentiable: the training forward builds its phase kernels from the
+    live weights with it, and gradients flow back to them.
+    """
+    lead = tuple(w.shape[2:-2])
+    taps = w.reshape((c_out, c_in) + lead + (9,))
+    taps = torch.cat([taps, taps.new_zeros(taps.shape[:-1] + (1,))], dim=-1)
+    g = taps[..., _tap_index(w.device)]
+    g = g.reshape((c_out, c_in) + lead + (4, 4, 3, 3))
+    k = len(lead)
+    # (C_out, C_in, *lead, ab, pq, 3, 3) -> (ab, C_out, pq, C_in, *lead, 3, 3)
+    g = g.permute((2 + k, 0, 3 + k, 1) + tuple(range(2, 2 + k)) + (4 + k, 5 + k))
+    return g.reshape((4 * c_out, 4 * c_in) + lead + (3, 3))
 
 
 def phase_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -383,17 +421,205 @@ def apply3d(model: UNet, x: torch.Tensor) -> torch.Tensor:
     return serving(model)(x)
 
 
-def _later(name: str, slice_name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"polyphase.{name} is not ported yet: it belongs to the "
-            f"{slice_name} slice of the port"
-        )
-
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported yet ({slice_name} slice); raises NotImplementedError."
-    return fn
+# ---------------------------------------------------------------------------
+# training forward: the same reformulation under autograd
+# ---------------------------------------------------------------------------
 
 
-apply_train = _later("apply_train", "polyphase training")
-apply3d_train = _later("apply3d_train", "polyphase training")
+class _FirstMax(torch.autograd.Function):
+    """``x.amax(dim)`` whose gradient goes to the FIRST maximal element along
+    ``dim`` (XLA's select-and-scatter, the JAX package's ``_phase_max``);
+    ``amax``'s own gradient splits ties evenly, and ReLU outputs tie at zero
+    all the time."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        m = x.amax(dim)
+        ctx.save_for_backward(x, m)
+        ctx.dim = dim
+        return m
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, m = ctx.saved_tensors
+        dim = ctx.dim
+        is_max = x == m.unsqueeze(dim)
+        first = is_max & (torch.cumsum(is_max, dim) == 1)
+        return torch.where(first, g.unsqueeze(dim), g.new_zeros(())), None
+
+
+def _first_max(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _FirstMax.apply(x, dim)
+
+
+def _check_train(model: UNet, x: torch.Tensor, dims: int) -> None:
+    cfg = model.cfg
+    if dims == 2:
+        if cfg.dims != 2 or cfg.space_to_depth != 1 or cfg.depth < 2:
+            raise ValueError(
+                "polyphase.apply_train covers 2D space_to_depth=1 models of "
+                f"depth >= 2; got dims={cfg.dims} s2d={cfg.space_to_depth} "
+                f"depth={cfg.depth}"
+            )
+        if cfg.upsample != "transpose":
+            raise ValueError("polyphase.apply_train requires upsample='transpose'")
+        if any(d % 2 for d in x.shape[1:-1]):
+            raise ValueError(f"even spatial dims required, got {tuple(x.shape)}")
+    else:
+        if cfg.dims != 3 or cfg.depth < 2 or cfg.upsample != "transpose":
+            raise ValueError(
+                "polyphase.apply3d_train covers 3D transpose-upsample models "
+                f"of depth >= 2; got dims={cfg.dims} depth={cfg.depth} "
+                f"upsample={cfg.upsample!r}"
+            )
+        if any(d % 2 for d in x.shape[2:-1]):
+            raise ValueError(f"even H/W required, got {tuple(x.shape)}")
+    for d in x.shape[1:-1]:
+        if d % cfg.min_input_multiple:
+            raise ValueError(f"spatial dim {d} not divisible by {cfg.min_input_multiple}")
+
+
+class _PhaseTrain:
+    """The training forward of one model, 2D or 3D: level 0 in the phase
+    domain, its phase kernels built from the model's live parameters on each
+    call (a linear rearrangement, so gradients reach the original weights).
+    Activations are NC[D]HW views with channels-last strides, phase channel
+    ``(a*2 + b)*C + c``."""
+
+    def __init__(self, model: UNet, stats: List[BNStats]):
+        self.net, self.cfg, self.stats = model, model.cfg, stats
+        self.three = model.cfg.dims == 3
+        self.sp = (1,) * model.cfg.dims  # trailing singleton axes of a channel vector
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """3x3 phase conv + bias with the casts of ``UNet._conv``."""
+        dt = self.cfg.torch_dtype
+        kernel = phase_kernel3d(w) if self.three else phase_kernel(w)
+        conv = F.conv3d if self.three else F.conv2d
+        y = conv(x.to(dt), _channels_last(kernel).to(dt), padding=1)
+        return y.to(torch.float32) + b.repeat(4).view((1, -1) + self.sp)
+
+    def _matmul(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """A 1x1 conv on compute-dtype inputs with an f32 result, unrounded:
+        the JAX package's ``einsum(..., preferred_element_type=f32)``. Run on
+        the inputs rounded to the compute dtype and widened to f32 (the
+        products of two bf16 values are exact in f32)."""
+        dt = self.cfg.torch_dtype
+        conv = F.conv3d if self.three else F.conv2d
+        y = conv(x.to(dt).to(torch.float32), w.to(dt).to(torch.float32), groups=groups)
+        return y + b.view((1, -1) + self.sp)
+
+    def _bn(self, y: torch.Tensor, bn) -> torch.Tensor:
+        """Train-mode batch norm with full-resolution statistics: per channel
+        over (N, phase, *spatial), the same pixels as the full-resolution
+        tensor's (N, *spatial); biased variance, momentum ``bn_momentum``."""
+        n, c4 = y.shape[:2]
+        c = c4 // 4
+        y5 = y.reshape((n, 4, c) + tuple(y.shape[2:]))
+        var, mean = torch.var_mean(y5, dim=[0, 1] + list(range(3, y5.ndim)), correction=0)
+        m = self.cfg.bn_momentum
+        with torch.no_grad():
+            self.stats.append((m * bn.mean + (1 - m) * mean, m * bn.var + (1 - m) * var))
+
+        def ch(t):
+            return t.view((1, 1, -1) + self.sp)
+
+        inv = torch.rsqrt(var + self.cfg.bn_eps)
+        out = (y5 - ch(mean)) * ch(inv) * ch(bn.scale) + ch(bn.bias)
+        return out.reshape(y.shape)
+
+    def _block(self, x: torch.Tensor, blk) -> torch.Tensor:
+        """conv -> norm -> relu, twice, in the phase domain."""
+        for i in (1, 2):
+            conv = getattr(blk, f"conv{i}")
+            x = self._conv(x, conv.w, conv.b)
+            if self.cfg.norm == "batch":
+                x = self._bn(x, getattr(blk, f"bn{i}"))
+            x = torch.relu(x)
+        return x
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        net, cfg = self.net, self.cfg
+        # NHWC (NDHWC) -> the phase tensor, NC[D]HW with channels-last strides
+        x = torch.movedim(x.to(torch.float32), -1, 1)
+        xp = _space_to_depth_hw(x) if self.three else unet_lib._space_to_depth(x, 2)
+        e0 = self._block(_channels_last(xp), net.enc[0])
+        n, c4 = e0.shape[:2]
+        sp = tuple(e0.shape[2:])  # (h, w) or (Z, h, w)
+        f0 = c4 // 4
+        # phase groups as an axis of their own on the channels-last view
+        e0_p = torch.movedim(e0, 1, -1).reshape((n,) + sp + (4, f0))
+        xmid = _first_max(e0_p, -2)  # the 2x2 pool: max over the phase groups
+        if self.three:
+            # the z half of the 2x2x2 pool: first tie over z pairs; composed
+            # with the phase max it routes to the window's row-major first tie
+            xmid = _first_max(xmid.reshape((n, sp[0] // 2, 2) + sp[1:] + (f0,)), 2)
+        xmid = torch.movedim(xmid, -1, 1)
+
+        # middle levels: the model's own train-mode path
+        skips = []
+        for lvl in range(1, cfg.depth):
+            if lvl > 1:
+                xmid = net._pool(xmid)
+            xmid = net._block(xmid, net.enc[lvl], self.stats)
+            if lvl < cfg.depth - 1:
+                skips.append(xmid)
+        for i, lvl in enumerate(reversed(range(1, cfg.depth - 1))):
+            skip = skips[lvl - 1]
+            xmid = net._upsample(xmid, net.up[i])
+            xmid = torch.cat([skip, xmid.to(skip.dtype)], dim=1)
+            xmid = net._block(xmid, net.dec[i], self.stats)
+
+        # up-conv into the phase domain: one 1x1 map making every phase
+        up0 = net.up[-1]
+        if self.three:
+            up = self._matmul(xmid, phase_up_kernel3d(up0.w), up0.b.repeat(8))
+            up_p = torch.movedim(up, 1, -1).reshape((n, sp[0] // 2) + sp[1:] + (2, 4, f0))
+            up_p = torch.movedim(up_p, -3, 2).reshape((n,) + sp + (4, f0))
+        else:
+            up = self._matmul(xmid, phase_up_kernel(up0.w), up0.b.repeat(4))
+            up_p = torch.movedim(up, 1, -1).reshape((n,) + sp + (4, f0))
+        # phase-aware concat: [skip, up] within each phase group
+        cat = torch.cat([e0_p, up_p], dim=-1).reshape((n,) + sp + (8 * f0,))
+        d0 = self._block(torch.movedim(cat, -1, 1), net.dec[-1])
+
+        # head: the model's 1x1 conv on each phase group, then depth-to-space
+        head = net.head
+        reps = (4,) + (1,) * (head.w.ndim - 1)
+        logits_p = self._matmul(d0, head.w.repeat(reps), head.b.repeat(4), groups=4)
+        if self.three:
+            logits = _depth_to_space_hw(logits_p)
+        else:
+            logits = unet_lib._depth_to_space(logits_p, 2)
+        return torch.movedim(logits, 1, -1).to(torch.float32)
+
+
+def apply_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStats]]:
+    """Training forward equal to ``model.forward_train(x)`` — ``(f32
+    logits, new running statistics)`` in ``bn_layers`` order — with level 0
+    in the phase domain. ``x``: (N, H, W, C_in), H and W even.
+
+    Unlike the serving ``Polyphase`` it takes batch norm (the phase-group
+    reduction reproduces full-resolution statistics) and builds its phase
+    kernels from the live parameters on every call, so autograd through it
+    trains the same model. The pool's gradient goes to the first maximal
+    phase (the standard pool's tie rule); the up-conv and the head return
+    their compute-dtype products in f32 without rounding, as the JAX
+    package's einsums do. Raises ValueError for models outside its cover.
+    """
+    _check_train(model, x, 2)
+    stats: List[BNStats] = []
+    with ieee_f32(model.cfg.compute_dtype == "float32"):
+        return _PhaseTrain(model, stats)(x), stats
+
+
+def apply3d_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStats]]:
+    """Volumetric training forward equal to ``model.forward_train(x)`` with
+    level 0 in the (1, 2, 2) phase domain. ``x``: (N, Z, H, W, C_in), H and
+    W even. The pool is the first-tie (H, W) phase max then a first-tie max
+    over z pairs: together they route the gradient to the 2x2x2 window's
+    first maximum in row-major order, as the standard pool does."""
+    _check_train(model, x, 3)
+    stats: List[BNStats] = []
+    with ieee_f32(model.cfg.compute_dtype == "float32"):
+        return _PhaseTrain(model, stats)(x), stats

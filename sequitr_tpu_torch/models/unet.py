@@ -275,6 +275,8 @@ class UNet(nn.Module):
         layers = self.bn_layers()
         if len(layers) != len(stats):
             raise ValueError(f"{len(stats)} statistics for {len(layers)} batch norms")
+        if not layers:  # norm "none": nothing to commit
+            return
         torch._foreach_copy_(
             [t for bn in layers for t in (bn.mean, bn.var)], [t for pair in stats for t in pair]
         )

@@ -26,7 +26,14 @@ The GAN enhancer (``make_gan_enhancer``) and the Noise2Void denoiser
 chain with TTA, but no softmax and no edge padding: their output is the
 network's (activated) regression map in ``tc.probs_dtype``.
 
-Not ported yet (a later slice): the flows and stars inferrers.
+The instance families run the same chain on their regression heads and
+finish on the device: ``make_flows_segmenter`` divides the flow channels by
+``FLOW_SCALE``, takes the sigmoid of the cell-probability channel and
+integrates the flow under ``prob > cellprob_threshold``
+(``ops.flows.follow_flows``, or ``follow_flows_doubling``);
+``make_stars_predictor`` takes the sigmoid of the object channel and clamps
+the ray distances at 0. Both refuse TTA (vector and per-ray channels would
+need component-aware flips), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import polyphase
 from sequitr_tpu_torch.models import unet as unet_lib
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
+from sequitr_tpu_torch.ops import flows as flows_ops
 from sequitr_tpu_torch.ops import normalize as norm_ops
 from sequitr_tpu_torch.ops import tiling
 from sequitr_tpu_torch.utils import derived, resolve_device
@@ -59,6 +67,10 @@ __all__ = [
     "cached_gan_enhancer",
     "make_denoiser",
     "cached_denoiser",
+    "make_flows_segmenter",
+    "cached_flows_segmenter",
+    "make_stars_predictor",
+    "cached_stars_predictor",
     "stream_frames",
     "infer_stack",
 ]
@@ -517,7 +529,9 @@ def cached_gan_enhancer(
     return _single_or_batch(_gan_batch_map(cfg, tc, frame_spatial, device), batch)
 
 
-def _denoise_batch_map(cfg: UNetConfig, tc: TileConfig, frame_spatial, device) -> Callable:
+def _unet_batch_map(cfg: UNetConfig, tc: TileConfig, frame_spatial, device) -> Callable:
+    """``_make_batch_map`` over a regression U-Net's raw head (the
+    denoiser's, the flows' and the stars'), BN folded once per model."""
     def forward_of(model):
         model = _folded_unet(model)
         return polyphase.serving(model) if tc.polyphase else model
@@ -541,7 +555,7 @@ def make_denoiser(
     predicted clean intensity in normalized space, in ``tc.probs_dtype``.
     Batch norm is folded once per model, as the JAX package folds it.
     """
-    return _single_or_batch(_denoise_batch_map(cfg, tc, frame_spatial, device), None)
+    return _single_or_batch(_unet_batch_map(cfg, tc, frame_spatial, device), None)
 
 
 @functools.lru_cache(maxsize=32)
@@ -553,7 +567,144 @@ def cached_denoiser(
     device: Union[str, torch.device, None] = None,
 ) -> Callable:
     """Process-wide cache of denoisers (``cached_gan_enhancer``'s forms)."""
-    return _single_or_batch(_denoise_batch_map(cfg, tc, frame_spatial, device), batch)
+    return _single_or_batch(_unet_batch_map(cfg, tc, frame_spatial, device), batch)
+
+
+def make_flows_segmenter(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    n_iter: int = 200,
+    step_size: float = 1.0,
+    cellprob_threshold: float = 0.5,
+    integrator: str = "euler",
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """``segment(model, frame) -> (final, prob)``: the flow-field serving
+    pass of a ``flows`` model (``cfg.num_classes == dims + 1``).
+
+    Normalize -> tiled forward (raw head: ``FLOW_SCALE`` x unit flows and a
+    cell-probability logit) -> stitch -> ``flow / FLOW_SCALE`` (f32),
+    ``prob = sigmoid(logit)`` -> the integrator under ``prob >
+    cellprob_threshold``, all on ``device``. Returns the converged positions
+    (*spatial, dims) and the probability (*spatial), f32 on the device; the
+    host groups them (``ops.flows.group_sinks``). 2D frames or, for a
+    ``dims == 3`` model, whole (Z, H, W) volumes. ``integrator``: ``euler``
+    (``n_iter`` steps) or ``doubling`` (``n_iter`` rounded up to a power of
+    two).
+    """
+    if cfg.num_classes != cfg.dims + 1:
+        raise ValueError(
+            f"flows serving needs num_classes == dims + 1 "
+            f"({cfg.dims + 1}), got {cfg.num_classes}"
+        )
+    if tc.tta != 1:
+        raise ValueError(
+            "tta is unsupported for flow-field serving (vector outputs); "
+            "use tta=1"
+        )
+    if integrator not in ("euler", "doubling"):
+        raise ValueError(
+            f"integrator must be 'euler' or 'doubling', got {integrator!r}"
+        )
+    device = resolve_device(device)
+    nd = len(frame_spatial)
+    run = _unet_batch_map(cfg, dataclasses.replace(tc, probs_dtype="float32"), frame_spatial, device)
+    integrate = (
+        flows_ops.follow_flows_doubling if integrator == "doubling" else flows_ops.follow_flows
+    )
+    # a tensor divisor: a Python number would be multiplied in as its
+    # reciprocal on the card (two roundings)
+    scale = torch.full((1,), flows_ops.FLOW_SCALE, device=device)
+
+    def segment(model: UNet, frame):
+        out = run(model, torch.as_tensor(frame)[None])[0]
+        with torch.inference_mode():
+            flow = out[..., :nd] / scale
+            prob = torch.sigmoid(out[..., nd])
+            final = integrate(flow, prob > cellprob_threshold, n_iter=n_iter, step=step_size)
+        return final, prob
+
+    return segment
+
+
+@functools.lru_cache(maxsize=32)
+def cached_flows_segmenter(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    n_iter: int = 200,
+    step_size: float = 1.0,
+    cellprob_threshold: float = 0.5,
+    integrator: str = "euler",
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """Process-wide cache of flows segmenters, keyed on the frozen configs,
+    the frame shape, the integration params and the device; the model is a
+    per-call argument."""
+    return make_flows_segmenter(
+        cfg, tc, frame_spatial, n_iter=n_iter, step_size=step_size,
+        cellprob_threshold=cellprob_threshold, integrator=integrator, device=device,
+    )
+
+
+def make_stars_predictor(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """``predict(model, frame) -> (prob, dist)``: the star-convex serving
+    pass of a ``stars`` model (``cfg.num_classes == 1 + n_rays``, ``n_rays``
+    a positive multiple of 4; 2D only).
+
+    Normalize -> tiled forward (raw head: object logit and per-ray
+    distances) -> stitch -> ``sigmoid`` and ``max(dist, 0)`` on ``device``.
+    Returns the object probability (H, W) and the distances (H, W, n_rays),
+    f32 on the device; the host runs the polygon NMS
+    (``ops.stardist.instances_from_rays``).
+    """
+    if cfg.dims != 2:
+        raise ValueError(
+            f"star-convex serving is 2D only (got dims={cfg.dims}); "
+            f"volumetric instances are served by the flows family"
+        )
+    n_rays = cfg.num_classes - 1
+    if n_rays < 4 or n_rays % 4:
+        raise ValueError(
+            f"stars serving needs num_classes == 1 + n_rays with n_rays a "
+            f"positive multiple of 4, got num_classes={cfg.num_classes}"
+        )
+    if tc.tta != 1:
+        raise ValueError(
+            "tta is unsupported for star-convex serving (per-ray outputs); "
+            "use tta=1"
+        )
+    spatial = tuple(frame_spatial)
+    if len(spatial) != 2:
+        raise ValueError(f"stars serving takes 2D frames, got {spatial}")
+    run = _unet_batch_map(
+        cfg, dataclasses.replace(tc, probs_dtype="float32"), spatial, resolve_device(device)
+    )
+
+    def predict(model: UNet, frame):
+        out = run(model, torch.as_tensor(frame)[None])[0]
+        with torch.inference_mode():
+            return torch.sigmoid(out[..., 0]), out[..., 1:].clamp_min(0.0)
+
+    return predict
+
+
+@functools.lru_cache(maxsize=32)
+def cached_stars_predictor(
+    cfg: UNetConfig,
+    tc: TileConfig,
+    frame_spatial: Tuple[int, ...],
+    device: Union[str, torch.device, None] = None,
+) -> Callable:
+    """Process-wide cache of stars predictors (``cached_flows_segmenter``'s
+    keys, without the integration params)."""
+    return make_stars_predictor(cfg, tc, frame_spatial, device)
 
 
 class _ReadError:

@@ -8,8 +8,10 @@ precision is the model's own: each conv casts its input and weights to
 the optimizer stay f32; no autocast, no loss scaling. A float32 model runs
 its step inside ``utils.ieee_f32`` (no TF32).
 
-The JAX package's GAN, N2V, flows and stars steps are later slices of the
-port; so is the polyphase training forward (``TrainConfig.polyphase``).
+``TrainConfig.polyphase`` trains through ``models.polyphase.apply_train``
+(``apply3d_train`` for volumes): the same model, level 0 in the phase
+domain. The JAX package's GAN, N2V, flows and stars steps are later slices
+of the port.
 Checkpoints are PyTorch files in the directory layout of ``pipeline.fit``
 in place of orbax.
 """
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from sequitr_tpu_torch.models import unet
+from sequitr_tpu_torch.models import polyphase, unet
 from sequitr_tpu_torch.ops import augment as aug
 from sequitr_tpu_torch.ops import losses
 from sequitr_tpu_torch.pipeline import optim
@@ -65,13 +67,6 @@ class TrainConfig:
     lr_decay_steps: int = 0
     lr_end_factor: float = 0.01
     polyphase: bool = False
-
-    def __post_init__(self):
-        if self.polyphase:
-            raise NotImplementedError(
-                "polyphase training (polyphase.apply_train) is not ported yet: "
-                "it is the next slice of the port"
-            )
 
     def learning_rate_schedule(self) -> Union[float, optim.Schedule]:
         """The peak rate, or a schedule of the applied-update count."""
@@ -160,12 +155,29 @@ def _prepare(batch: Dict[str, torch.Tensor], generator, tc: TrainConfig, dims: i
     return images, labels, weights
 
 
-def _forward(model: unet.UNet, images: torch.Tensor, tc: TrainConfig):
+def _train_forward(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+    """``forward(model, images) -> (logits, statistics)`` honouring
+    ``tc.polyphase`` (the JAX package's ``_train_forward``): a model outside
+    the polyphase cover is refused here, when the step is built."""
+    if tc.polyphase:
+        if (
+            cfg.space_to_depth != 1 or cfg.upsample != "transpose"
+            or cfg.depth < 2 or cfg.dims not in (2, 3)
+        ):
+            raise ValueError(
+                "polyphase training requires a space_to_depth=1 "
+                f"transpose-upsample model of depth >= 2; got "
+                f"dims={cfg.dims} s2d={cfg.space_to_depth} "
+                f"upsample={cfg.upsample!r} depth={cfg.depth}"
+            )
+        fwd = polyphase.apply3d_train if cfg.dims == 3 else polyphase.apply_train
+    else:
+        fwd = unet.UNet.forward_train
     if tc.remat:
         # the backward recomputes the forward; the running statistics of
-        # the recomputation are dropped (forward_train writes none)
-        return checkpoint(model.forward_train, images, use_reentrant=False)
-    return model.forward_train(images)
+        # the recomputation are dropped (the forwards write none)
+        return lambda model, images: checkpoint(fwd, model, images, use_reentrant=False)
+    return fwd
 
 
 def _finish(state: TrainState, optimizer, loss, logits, labels, stats, extra=None):
@@ -195,11 +207,12 @@ def make_unet_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
     ``loss``, ``accuracy``, ``grad_norm``: 0-d tensors on the device.
     """
     optimizer = tc.make_optimizer()
+    forward = _train_forward(cfg, tc)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         with ieee_f32(cfg.compute_dtype == "float32"):
             images, labels, weights = _prepare(batch, generator, tc, cfg.dims)
-            logits, stats = _forward(state.model, images, tc)
+            logits, stats = forward(state.model, images)
             loss = losses.weighted_softmax_cross_entropy(logits, labels, weights)
             return _finish(state, optimizer, loss, logits, labels, stats)
 
@@ -219,13 +232,14 @@ def make_unet_distill_step(
     folded or not) sees the augmented pixels. Metrics add ``ce`` and ``kd``.
     """
     optimizer = tc.make_optimizer()
+    forward = _train_forward(cfg, tc)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         with ieee_f32(cfg.compute_dtype == "float32"):
             images, labels, weights = _prepare(batch, generator, tc, cfg.dims)
             with torch.no_grad():
                 t_soft = torch.softmax(teacher(images).to(torch.float32) / temperature, dim=-1)
-            logits, stats = _forward(state.model, images, tc)
+            logits, stats = forward(state.model, images)
             ce = losses.weighted_softmax_cross_entropy(logits, labels, weights)
             log_s = F.log_softmax(logits.to(torch.float32) / temperature, dim=-1)
             kd = -(temperature**2) * torch.mean(torch.sum(t_soft * log_s, dim=-1))

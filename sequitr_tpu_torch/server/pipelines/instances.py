@@ -1,0 +1,427 @@
+"""Instance-segmentation serving: ``segment_flows`` (2D and volumetric) and
+``segment_stars``.
+
+Port of the serving jobs of ``sequitr_tpu.server.pipelines.instances``: the
+same job JSON, params and outputs (``labels.tif`` as uint16 with ids
+renumbered 1..N per frame, or one ``labels_t{t:04d}.tif`` a timepoint for a
+``dims == 3`` flows model; ``objects.h5`` / ``objects.csv``; ``prob.tif``
+under ``save_prob``; ``frames_per_sec`` / ``volumes_per_sec`` in the
+metrics). The regular work (normalize, tiled forward, stitch, and for flows
+the flow integration) runs on ``config.device``, the card unless the server
+runs on the CPU; the irregular work stays on the host as in the JAX
+package: the sink grouping (``ops.flows.group_sinks``) and the polygon NMS
+(``ops.stardist.instances_from_rays``). The training and evaluation jobs of
+the two families are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict
+
+import numpy as np
+
+from sequitr_tpu_torch.config import ServerConfiguration
+from sequitr_tpu_torch.server import jobs as jobs_lib
+from sequitr_tpu_torch.server.jobs import Job
+from sequitr_tpu_torch.server.server import (
+    _append_writer,
+    _apply_frame_range,
+    _apply_roi,
+    _out_compression,
+    _parse_z_pages,
+    _reads_fail_fast,
+    _require_model,
+    _require_one_card,
+    _require_polyphase_model,
+    _resolve_inputs,
+    _tile_config,
+    register,
+)
+from sequitr_tpu_torch.utils import resolve_device
+
+
+def _stream(job: Job, device, fn, frames):
+    """Frames through ``fn(frame) -> (a, b)`` two ahead, both outputs
+    starting their copy to the host as soon as they are queued."""
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    def prefetch_host(out):
+        return tuple(infer_lib._copy_to_host_async(t) for t in out)
+
+    return infer_lib.stream_frames(
+        fn, _reads_fail_fast(job, frames), prefetch_host=prefetch_host, device=device
+    )
+
+
+def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, device):
+    """Shared setup of the flow-field serving jobs: load the ``flows`` model,
+    build the tile config, and return ``(segment, group)``: the device pass
+    ``segment(frame) -> (final, prob)`` (``infer.cached_flows_segmenter``)
+    and the host sink grouping ``group(final_np, prob_np) -> labels``.
+    A 3-axis ``spatial`` with a ``dims == 3`` model serves whole volumes."""
+    from sequitr_tpu_torch.ops import flows as flows_ops
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    dims = len(spatial)
+    cfg, model = _require_model(job, config, "flows")
+    if cfg.dims != dims:
+        raise jobs_lib.JobError(
+            f"job {job.id}: model is {cfg.dims}D, expected {dims}D"
+        )
+    if cfg.in_channels != n_channels:
+        raise jobs_lib.JobError(
+            f"model expects {cfg.in_channels} channel(s), "
+            f"got {n_channels} input stack(s)"
+        )
+    p = job.params
+    if int(p.get("tta", 1)) != 1:
+        raise jobs_lib.JobError(
+            "tta is unsupported for flow-field serving (vector outputs "
+            "need component-aware flips); use tta: 1"
+        )
+    tc = _tile_config(
+        p, dims=dims,
+        frame_spatial=spatial, min_multiple=cfg.min_input_multiple,
+        exact_only=True, allow_polyphase=True,
+    )
+    if tc.polyphase:
+        _require_polyphase_model(cfg)
+    thresh = float(p.get("cellprob_threshold", 0.5))
+    try:
+        seg = infer_lib.cached_flows_segmenter(
+            cfg, tc, tuple(spatial), n_iter=int(p.get("n_iter", 200)),
+            step_size=float(p.get("step_size", 1.0)),
+            cellprob_threshold=thresh,
+            # "euler" (default) or "doubling" (pointer doubling on the
+            # rounded successor map: log2(n_iter) gathers)
+            integrator=str(p.get("integrator", "euler")),
+            device=device,
+        )
+    except ValueError as e:
+        # bad patch/overlap/head combos are deterministic — never retry
+        raise jobs_lib.JobError(str(e))
+    min_sink = int(p.get("min_sink", 3))
+    min_area = int(p.get("min_area", 15))
+    snap = int(p.get("snap_radius", 3))
+
+    def group(final_np: np.ndarray, prob_np: np.ndarray) -> np.ndarray:
+        return flows_ops.group_sinks(
+            final_np, prob_np > thresh,
+            min_sink=min_sink, min_area=min_area, snap_radius=snap,
+        )
+
+    return (lambda frame: seg(model, frame)), group
+
+
+def _serve_frames(job: Job, source, device, segment, to_labels, group_phase: str):
+    """The 2D body shared by ``segment_flows`` and ``segment_stars``: stream
+    the frames through ``segment``, turn each frame's two outputs into an
+    instance map on the host, write labels.tif (+ prob.tif) and localize.
+    ``to_labels(a_np, b_np) -> (labels, prob_np)`` takes the outputs in
+    ``segment``'s order and is timed as ``group_phase``."""
+    from sequitr_tpu_torch import localize as loc_lib
+    from sequitr_tpu_torch.utils import PhaseTimer
+
+    timer = PhaseTimer()
+    n_frames = len(source)
+    do_localize = job.params.get("localize", True)
+    save_prob = bool(job.params.get("save_prob"))
+    min_area = int(job.params.get("min_area", 15))
+    labels_path = os.path.join(job.output, "labels.tif")
+    px = float(n_frames) * np.prod(source.spatial)
+    comp = _out_compression(job)
+    labels_w = _append_writer(labels_path, px * 2, comp)
+    prob_w = (
+        _append_writer(os.path.join(job.output, "prob.tif"), px * 4, comp)
+        if save_prob else None
+    )
+    tables = []
+    n_objects = 0
+    t0 = time.time()
+    try:
+        with source:
+            rep = jobs_lib.ProgressReporter(job, n_frames)
+            results = _stream(job, device, segment, source.frames())
+            for t in range(n_frames):
+                with timer.phase("infer"):
+                    out = next(results)
+                with timer.phase("fetch"):
+                    a_np, b_np = (np.asarray(o) for o in out)
+                with timer.phase(group_phase):
+                    lab, prob_np = to_labels(a_np, b_np)
+                n_objects += int(lab.max())
+                with timer.phase("write"):
+                    labels_w.append(lab.astype(np.uint16, copy=False))
+                    if prob_w is not None:
+                        prob_w.append(prob_np.astype(np.float32, copy=False))
+                if do_localize:
+                    inten = source.frame(t)
+                    if inten.ndim == 3:
+                        inten = inten.mean(axis=-1)
+                    with timer.phase("localize"):
+                        tables.append(
+                            loc_lib.localize_instances_table(
+                                lab, t=t + source.frame_offset,
+                                intensity=inten, min_area=min_area,
+                            )
+                        )
+                rep.step()
+            rep.finish()
+    except BaseException:
+        labels_w.abort()
+        if prob_w is not None:
+            prob_w.abort()
+        raise
+    labels_w.close()
+    if prob_w is not None:
+        prob_w.close()
+
+    total_s = time.time() - t0
+    metrics = dict(
+        timer.summary(), n_frames=n_frames, n_objects=n_objects,
+        total_s=round(total_s, 4), device=str(device),
+    )
+    if total_s > 0:
+        metrics["frames_per_sec"] = round(n_frames / total_s, 3)
+    outputs: Dict[str, str] = {
+        "labels": labels_path, "metrics": json.dumps(metrics),
+    }
+    if prob_w is not None:
+        outputs["prob"] = os.path.join(job.output, "prob.tif")
+    if do_localize:
+        h5_path = os.path.join(job.output, "objects.h5")
+        loc_lib.export_btrack_h5_tables(
+            h5_path, tables, n_frames=source.frame_offset + n_frames
+        )
+        outputs["objects"] = h5_path
+        if job.params.get("save_objects_csv"):
+            csv_path = os.path.join(job.output, "objects.csv")
+            loc_lib.export_objects_csv(csv_path, tables)
+            outputs["objects_csv"] = csv_path
+    return outputs
+
+
+def _frame_source(job: Job):
+    from sequitr_tpu_torch.data.source import FrameSource
+
+    try:
+        source = FrameSource(paths=_resolve_inputs(job))
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    return _apply_roi(job, _apply_frame_range(job, source))
+
+
+@register("segment_flows")
+def segment_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Flow-field INSTANCE segmentation of a (T, H, W) TIFF stack.
+
+    Every foreground pixel follows the predicted flow to its cell's sink on
+    the device; sinks group into instances on the host, so touching cells
+    come out as separate labels. input: one TIFF per channel. params: model,
+    the tiling params (patch, overlap, normalize, p_lo/p_hi, polyphase),
+    frame range / roi, ``n_iter`` / ``step_size`` / ``integrator``
+    (``euler`` or ``doubling``), ``cellprob_threshold``, ``min_sink`` /
+    ``min_area`` / ``snap_radius`` (sink grouping), ``save_prob``,
+    ``localize`` (default true), ``data_parallel`` (one card only).
+    Outputs: labels.tif (uint16, ids renumbered 1..N per frame), objects.h5
+    (btrack layout), optionally prob.tif.
+
+    A ``dims == 3`` model routes to the volumetric branch: ONE
+    volume-sequence entry (per-timepoint z-stack files, or one file with
+    the ``z`` pages-per-volume param), 3D instances per timepoint,
+    ``labels_t{t:04d}.tif`` a timepoint and one objects.h5 with per-object
+    z centroids.
+    """
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    paths = _resolve_inputs(job)
+    cfg_probe, _ = _require_model(job, config, "flows")
+    if cfg_probe.dims == 3:
+        return _segment_flows_volumes(job, config, paths, device)
+    source = _frame_source(job)
+    segment, group = _flows_serving(job, config, source.spatial, source.n_channels, device)
+    return _serve_frames(
+        job, source, device, segment,
+        lambda final_np, prob_np: (group(final_np, prob_np), prob_np), "group",
+    )
+
+
+def _segment_flows_volumes(job: Job, config: ServerConfiguration, paths, device) -> Dict[str, str]:
+    """Volumetric branch of ``segment_flows`` (``dims == 3`` models): one
+    whole (Z, H, W) volume a dispatch (trilinear integration on the device),
+    3D sink grouping on the host, per-timepoint label volumes and ONE
+    objects.h5 with per-object z centroids."""
+    from sequitr_tpu_torch import localize as loc_lib
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.data.source import VolumeSequence
+    from sequitr_tpu_torch.utils import PhaseTimer
+
+    if job.params.get("roi") is not None:
+        raise jobs_lib.JobError(
+            "roi serving is 2D-only (crop the volume upstream)"
+        )
+    if len(paths) != 1:
+        raise jobs_lib.JobError(
+            f"3D segment_flows takes ONE volume-sequence entry (the model "
+            f"is single-channel), got {len(paths)}"
+        )
+    try:
+        source = VolumeSequence(paths[0], z=_parse_z_pages(job))
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        source = _apply_frame_range(job, source)
+        segment, group = _flows_serving(job, config, source.spatial, 1, device)
+    except BaseException:
+        source.close()
+        raise
+
+    timer = PhaseTimer()
+    n_vols = len(source)
+    do_localize = job.params.get("localize", True)
+    save_prob = bool(job.params.get("save_prob"))
+    min_area = int(job.params.get("min_area", 15))
+    comp = _out_compression(job)
+    tables = []
+    n_objects = 0
+    rep = jobs_lib.ProgressReporter(job, n_vols, phase="volumes")
+    t0 = time.time()
+    # each timepoint's file is written whole on its own: a failure midway
+    # leaves only complete per-timepoint volumes
+    with source:
+        results = _stream(job, device, segment, source.volumes())
+        for t in range(n_vols):
+            with timer.phase("infer"):
+                final, prob = next(results)
+            with timer.phase("fetch"):
+                final_np = np.asarray(final)
+                prob_np = np.asarray(prob)
+            with timer.phase("group"):
+                lab = group(final_np, prob_np)
+            n_objects += int(lab.max())
+            t_abs = t + source.frame_offset
+            with timer.phase("write"):
+                lp = os.path.join(job.output, f"labels_t{t_abs:04d}.tif")
+                tiff.write_stack(lp, lab.astype(np.uint16, copy=False), compression=comp)
+                if save_prob:
+                    tiff.write_stack(
+                        os.path.join(job.output, f"prob_t{t_abs:04d}.tif"),
+                        prob_np.astype(np.float32, copy=False),
+                        compression=comp,
+                    )
+            if do_localize:
+                with timer.phase("localize"):
+                    tables.append(
+                        loc_lib.localize_instances_table(
+                            lab, t=t_abs,
+                            intensity=np.asarray(source.volume(t), np.float32),
+                            min_area=min_area,
+                        )
+                    )
+            rep.step()
+        rep.finish()
+
+    total_s = time.time() - t0
+    metrics = dict(
+        timer.summary(), n_volumes=n_vols, n_objects=n_objects,
+        total_s=round(total_s, 4), device=str(device),
+    )
+    if total_s > 0:
+        metrics["volumes_per_sec"] = round(n_vols / total_s, 3)
+    outputs: Dict[str, str] = {
+        "labels": os.path.join(job.output, "labels_t*.tif"),
+        "metrics": json.dumps(metrics),
+    }
+    if save_prob:
+        outputs["prob"] = os.path.join(job.output, "prob_t*.tif")
+    if do_localize:
+        h5_path = os.path.join(job.output, "objects.h5")
+        loc_lib.export_btrack_h5_tables(
+            h5_path, tables, n_frames=source.frame_offset + n_vols
+        )
+        outputs["objects"] = h5_path
+        if job.params.get("save_objects_csv"):
+            csv_path = os.path.join(job.output, "objects.csv")
+            loc_lib.export_objects_csv(csv_path, tables)
+            outputs["objects_csv"] = csv_path
+    return outputs
+
+
+def _stars_serving(job: Job, config: ServerConfiguration, spatial, n_channels, device):
+    """Shared setup of the star-convex serving jobs: load the ``stars``
+    model, build the tile config, and return ``(predict, to_labels)``: the
+    device pass ``predict(frame) -> (prob, dist)``
+    (``infer.cached_stars_predictor``) and the host NMS and rasterization
+    ``to_labels(prob_np, dist_np) -> labels``."""
+    from sequitr_tpu_torch.ops import stardist as sd
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    if len(spatial) != 2:
+        raise jobs_lib.JobError(
+            f"star-convex serving takes 2D frames, got {spatial}; "
+            f"volumetric instances are served by segment_flows"
+        )
+    cfg, model = _require_model(job, config, "stars")
+    if cfg.in_channels != n_channels:
+        raise jobs_lib.JobError(
+            f"model expects {cfg.in_channels} channel(s), "
+            f"got {n_channels} input stack(s)"
+        )
+    p = job.params
+    if int(p.get("tta", 1)) != 1:
+        raise jobs_lib.JobError(
+            "tta is unsupported for star-convex serving (per-ray outputs "
+            "need permutation-aware flips); use tta: 1"
+        )
+    tc = _tile_config(
+        p, dims=2,
+        frame_spatial=spatial, min_multiple=cfg.min_input_multiple,
+        exact_only=True, allow_polyphase=True,
+    )
+    if tc.polyphase:
+        _require_polyphase_model(cfg)
+    try:
+        pred = infer_lib.cached_stars_predictor(cfg, tc, tuple(spatial), device)
+    except ValueError as e:
+        # bad patch/overlap/head combos are deterministic — never retry
+        raise jobs_lib.JobError(str(e))
+    prob_thresh = float(p.get("prob_threshold", 0.5))
+    nms_thresh = float(p.get("nms_threshold", 0.3))
+    min_area = int(p.get("min_area", 15))
+    peak_window = int(p.get("peak_window", 5))
+
+    def to_labels(prob_np: np.ndarray, dist_np: np.ndarray) -> np.ndarray:
+        return sd.instances_from_rays(
+            prob_np, dist_np, prob_thresh=prob_thresh,
+            nms_thresh=nms_thresh, min_area=min_area,
+            peak_window=peak_window,
+        )
+
+    return (lambda frame: pred(model, frame)), to_labels
+
+
+@register("segment_stars")
+def segment_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Star-convex INSTANCE segmentation of a (T, H, W) TIFF stack.
+
+    The device pass emits per-pixel object probability and per-ray boundary
+    distances; greedy polygon NMS on the host keeps one star-convex polygon
+    per cell. input: one TIFF per channel. params: model, the tiling params
+    (patch, overlap, normalize, p_lo/p_hi, polyphase), frame range / roi,
+    ``prob_threshold`` (default 0.5), ``nms_threshold`` (default 0.3),
+    ``peak_window`` (default 5), ``min_area``, ``save_prob``, ``localize``
+    (default true), ``data_parallel`` (one card only). Outputs: labels.tif
+    (uint16, ids renumbered 1..N per frame), objects.h5 (btrack layout),
+    optionally prob.tif.
+    """
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    source = _frame_source(job)
+    predict, to_labels = _stars_serving(job, config, source.spatial, source.n_channels, device)
+    return _serve_frames(
+        job, source, device, predict,
+        lambda prob_np, dist_np: (to_labels(prob_np, dist_np), prob_np), "nms",
+    )

@@ -5,10 +5,11 @@ the U-Net part of ``sequitr_tpu.server.pipelines.training``).
 JSON writes the same shards, normalized by ``np.percentile`` on the host,
 no quantile pass on the card). ``train_unet2d`` / ``train_unet3d`` train
 on ``config.device`` (the card unless the server runs on the CPU) through
-``pipeline.fit.fit_unet`` and register the model in the port's store.
-``build_gan_pairs``, ``train_gan``, ``train_n2v`` and ``finetune_spatial``
-are later slices of the port; so is polyphase training (a JobError) and
-``data_parallel`` across more than one card (a JobError).
+``pipeline.fit.fit_unet`` and register the model in the port's store;
+``polyphase: true`` trains through ``models.polyphase.apply_train``
+(``apply3d_train``). ``build_gan_pairs``, ``train_gan``, ``train_n2v`` and
+``finetune_spatial`` are later slices of the port; so is ``data_parallel``
+across more than one card (a JobError).
 """
 
 from __future__ import annotations
@@ -233,10 +234,8 @@ def build_records(job: Job, config: ServerConfiguration) -> Dict[str, str]:
 
 
 def _polyphase_train_param(p, cfg) -> bool:
-    """The ``polyphase`` training param: a model outside the polyphase
-    cover is refused as the JAX package refuses it; polyphase training
-    itself is the next slice of the port, so a covered model is refused
-    too, deterministically."""
+    """Read the ``polyphase`` training param with deterministic
+    rejection of uncovered models (mirrors the serving gate)."""
     poly = bool(p.get("polyphase", False))
     if poly and (
         cfg.dims not in (2, 3) or cfg.space_to_depth != 1
@@ -247,11 +246,6 @@ def _polyphase_train_param(p, cfg) -> bool:
             f"transpose-upsample model of depth >= 2; got dims={cfg.dims}, "
             f"s2d={cfg.space_to_depth}, upsample={cfg.upsample!r}, "
             f"depth={cfg.depth}"
-        )
-    if poly:
-        raise jobs_lib.JobError(
-            "polyphase training is not ported yet (the next slice of the "
-            "port); omit polyphase to train the standard forward"
         )
     return poly
 
@@ -293,8 +287,8 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     p = job.params
     cfg = unet_config_from_params(p)
     steps = int(p.get("steps", 1000))
-    _polyphase_train_param(p, cfg)
     tc = train_lib.TrainConfig(
+        polyphase=_polyphase_train_param(p, cfg),
         learning_rate=float(p.get("learning_rate", 1e-4)),
         augment=bool(p.get("augment", True)),
         elastic_alpha=float(p.get("elastic_alpha", 20.0)),

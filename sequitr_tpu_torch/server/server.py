@@ -1,7 +1,8 @@
 """The image server: watched-dir loop, pipeline registry, model store.
 
 Port of ``sequitr_tpu.server.server``, the part the segmentation (2D and
-3D), GAN enhancement and denoising jobs need. A single-process loop scans
+3D), GAN enhancement, denoising, instance segmentation (flows and stars
+serving) and U-Net training jobs need. A single-process loop scans
 the jobs directory, atomically claims each job, dispatches to the
 registered pipeline and writes results plus a status marker into the job's
 output directory — the same filesystem contract, job JSON and outputs as
@@ -886,6 +887,7 @@ def unet_config_from_params(p: dict):
 
 from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
     gan_denoise as _pipelines_gan_denoise,
+    instances as _pipelines_instances,
     segmentation as _pipelines_segmentation,
     training as _pipelines_training,
 )

@@ -11,6 +11,9 @@
   quantile pass, ``torch.histc``, ``infer._normalize``'s device operations),
   for this checkout's port or another's:
   ``python sequitr_tpu_torch/studies/normalize_pass.py [--root DIR]``.
+* ``flow_gather`` — the flow integrator's row gather in each form PyTorch
+  offers, timed against its byte bound on the card:
+  ``python -m sequitr_tpu_torch.studies.flow_gather``.
 
 ``roofline``, ``int8_conv`` and ``ptq_unet`` are not ported yet.
 """

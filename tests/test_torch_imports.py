@@ -35,6 +35,8 @@ MODULES = [
     "sequitr_tpu_torch.ops.losses",
     "sequitr_tpu_torch.ops.augment",
     "sequitr_tpu_torch.ops.weightmaps",
+    "sequitr_tpu_torch.ops.flows",
+    "sequitr_tpu_torch.ops.stardist",
     "sequitr_tpu_torch.ops.kernels",
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
@@ -49,6 +51,7 @@ MODULES = [
     "sequitr_tpu_torch.server.server",
     "sequitr_tpu_torch.server.pipelines",
     "sequitr_tpu_torch.server.pipelines.gan_denoise",
+    "sequitr_tpu_torch.server.pipelines.instances",
     "sequitr_tpu_torch.server.pipelines.segmentation",
     "sequitr_tpu_torch.server.pipelines.training",
     "sequitr_tpu_torch.studies",
@@ -59,6 +62,7 @@ MODULES = [
     "sequitr_tpu_torch.studies.polyphase_conv",
     "sequitr_tpu_torch.studies.conv3x3_parts",
     "sequitr_tpu_torch.studies.normalize_pass",
+    "sequitr_tpu_torch.studies.flow_gather",
 ]
 
 PROBE = """
@@ -77,8 +81,9 @@ torch.cuda.is_available = lambda: False  # the check holds with or without a car
 from sequitr_tpu_torch import utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet
+from sequitr_tpu_torch.ops import flows
 from sequitr_tpu_torch.pipeline import fit, infer, train
-from sequitr_tpu_torch.studies import polyphase_conv
+from sequitr_tpu_torch.studies import flow_gather, polyphase_conv
 from sequitr_tpu_torch.server import ImageServer
 
 assert utils.DEFAULT_DEVICE == "cuda"
@@ -97,9 +102,14 @@ calls = [
     lambda: infer.make_frame_inferrer(cfg3, tc3, (4, 16, 16)),
     lambda: infer.make_gan_enhancer(gcfg, tc, (16, 16)),
     lambda: infer.make_denoiser(cfg3, tc3, (4, 16, 16)),
+    lambda: infer.make_flows_segmenter(unet.UNetConfig(depth=2, num_classes=3), tc, (16, 16)),
+    lambda: infer.make_stars_predictor(unet.UNetConfig(depth=2, num_classes=9), tc, (16, 16)),
+    lambda: flows.follow_flows(torch.zeros(8, 8, 2).numpy()),
+    lambda: flows.follow_flows_doubling(torch.zeros(8, 8, 2).numpy()),
     lambda: convert.pack_conv3x3(torch.zeros(3, 3, 1, 1).numpy(), torch.zeros(1).numpy()),
     lambda: polyphase_conv.run(size=16, iters=1),
     lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
+    lambda: flow_gather.run(iters=1),
     lambda: ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r})),
     lambda: unet.init(cfg),
     lambda: train.create_unet_state(cfg, train.TrainConfig()),

@@ -195,9 +195,14 @@ def test_rejects_unsupported_configs():
         torch_poly.apply(ok, torch.zeros(1, 31, 32, 1))
     assert torch_poly.serving(ok) is torch_poly.serving(ok)  # built once
     assert torch_poly.eligible(ok.cfg, (32, 32)) and not torch_poly.eligible(ok.cfg, (32, 31))
-    for name in ("apply_train", "apply3d_train"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            getattr(torch_poly, name)(ok, x)
+    # the training forwards are ported (tests/test_torch_polyphase_train.py):
+    # on a model without batch norm, apply_train is the plain forward with no
+    # statistics, and apply3d_train takes 3D models only
+    with torch.no_grad():
+        logits, stats = torch_poly.apply_train(ok, x + 1.0)
+        assert stats == [] and torch.allclose(logits, ok(x + 1.0), atol=1e-6)
+    with pytest.raises(ValueError, match="covers 3D"):
+        torch_poly.apply3d_train(ok, x)
     # apply3d is ported (tests/test_torch_polyphase3d.py) and takes 3D models only
     with pytest.raises(ValueError, match="3D models"):
         torch_poly.apply3d(ok, x)

@@ -175,7 +175,7 @@ def test_train_unet3d(env):
 
 
 @pytest.mark.parametrize("params,message", [
-    ({"polyphase": True}, "polyphase training is not ported yet"),
+    ({"polyphase": True, "space_to_depth": 2}, "polyphase training requires"),
     ({"polyphase": True, "upsample": "resize"}, "polyphase training requires"),
     ({"keep_best": True}, "requires holdout_every"),
     ({"ema_decay": 1.5}, "ema_decay"),

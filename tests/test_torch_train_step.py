@@ -234,8 +234,19 @@ def test_optimizer_against_optax(case):
 
 
 def test_polyphase_training_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice"):
-        torch_train.TrainConfig(polyphase=True)
+    """``TrainConfig(polyphase=True)`` builds a step; a model outside the
+    polyphase cover is refused with the JAX package's message."""
+    tc = torch_train.TrainConfig(polyphase=True, augment=False)
+    jtc = jax_train.TrainConfig(polyphase=True, augment=False)
+    base = dict(depth=2, base_features=4, compute_dtype="float32")
+    torch_train.make_unet_train_step(torch_unet.UNetConfig(**base), tc)
+    for bad in (dict(space_to_depth=2), dict(upsample="resize"), dict(depth=1)):
+        cfg = dict(base, **bad)
+        with pytest.raises(ValueError) as want:
+            jax_train._train_forward(jax_unet.UNetConfig(**cfg), jtc)
+        with pytest.raises(ValueError) as got:
+            torch_train.make_unet_train_step(torch_unet.UNetConfig(**cfg), tc)
+        assert str(got.value) == str(want.value)
 
 
 def test_distill_step_against_the_reference():
