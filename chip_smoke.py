@@ -73,8 +73,30 @@ on failure:
    ap50_vs_ref >= 0.99), and ``segment_flows`` on a 2-timepoint
    32x256x256 volume file (``z: 32``) with a ``unet.init`` model of
    ``unet3d_cells``' architecture and a flows head (held to its pass called
-   directly; its f32 positions card against CPU on a crop).
-12. train phase (U-Net training), with PyTorch's own TF32 defaults restored
+   directly; its f32 positions card against CPU on a crop). The fidelity
+   numbers (mIoU, ap50, PSNR) are ``sequitr_tpu_torch/fidelity.py``'s
+   measures, and the instances phase calls its flows and stars meters;
+12. evaluate phase: the evaluation and parity jobs through ``ImageServer``,
+   each beside its serving twin (served again in this phase) and with its
+   own launch counts: (n) ``evaluate_unet2d`` on job (a)'s stack with its
+   ``cells_frame`` labels (``save_labels``, ``per_frame``), (n')
+   the same with ``ignore_label`` on a sparse truth (one frame wholly
+   unannotated), (o) ``evaluate_unet3d`` on one 32x512x512 volume (default
+   tiling), (p) ``evaluate_gan`` with ``gan_fidelity``'s targets, (q)
+   ``evaluate_denoise`` with ``normalize: "none"`` and (q') with the kernel
+   normalize, (q'') its volumetric branch (a ``unet.init`` 3D N2V model, 2
+   volumes of 32x256x256), (r) ``evaluate_flows`` and (r') its volumetric
+   branch (job (m)'s model), (s) ``evaluate_stars`` (``polyphase: true``),
+   (t) ``parity_check`` against the torch re-derivation for five fixtures,
+   a copy with one kernel scaled by 1e6 (must fail with the JobError) and
+   the keras reference (passes, or reports itself unavailable). Each job's
+   metrics equal the same recomputed on the host from its saved outputs or
+   its twin's (counts equal, floats within 1e-6), saved labels agree with
+   the twin's on >= 0.9999 of pixels, and quantile passes are one a
+   normalized frame or volume: (n) 4, (n') 4, (o) 1, (p) 8, (q) 0, (q') 8
+   (the denoiser hands back its normalized input, so the noisy side is
+   normalized once), (q'') 4 (2 a volume), (r) 4, (r') 2, (s) 4, (t) 0;
+13. train phase (U-Net training), with PyTorch's own TF32 defaults restored
    first: an f32 ``unet2d_cells`` job served on the card and on the CPU
    (probabilities within 1e-4); three f32 train steps at ``unet2d_cells``'
    width on 8x256x256 batches, card against CPU (loss, grad_norm, weights),
@@ -86,7 +108,15 @@ on failure:
    ``train_unet2d`` -> ``segmentation_unet2d`` in one server process (the
    served labels equal the registered weights served directly), the same
    with ``polyphase: true``, and ``build_records`` -> ``train_unet3d``,
-   each job's launch counts read on its own.
+   each job's launch counts read on its own;
+14. gan_train phase (GAN training, PyTorch's TF32 defaults): three f32 GAN
+   steps (4x128x128, ``GANConfig()`` widths) card against CPU from the same
+   weights (d_loss, g_loss, weights); the bf16 step at ``bench_gan_train``'s
+   shape (8x256x256, ``GANConfig()`` defaults), standard and polyphase, with
+   its split (generator forward, D step, G step), device ops and peak
+   memory; then ``build_gan_pairs`` -> ``train_gan`` (30 steps) ->
+   ``enhancement_gan`` (bit-equal to the registered weights served
+   directly) -> ``evaluate_gan`` in one server process.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -96,7 +126,7 @@ outside a checkout of the repository.
 
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
-``instances``, ``serve``, ``train``)
+``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -137,6 +167,10 @@ INST_DIST_BAR = 1e-3  # f32 card against CPU: stars ray distances (up to ~60 px)
 INST_FINAL_PX = 1.0  # f32 card against CPU: converged flow positions, on
 INST_FINAL_SHARE = 0.999  # at least this share of foreground pixels
 INST_VOLUME = (32, 256, 256)  # job (m)'s volumes
+EVAL_FLOAT_BAR = 1e-6  # an evaluate job's float metrics against the same recomputed on the host
+EVAL_LABELS_BAR = 0.9999  # an evaluate job's saved labels against its serving twin's
+GAN_LR = 2e-4  # train_gan's default learning rate (Adam, beta1 0.5)
+GAN_LOSS_RTOL = 1e-4  # d_loss and g_loss, f32 card against CPU (TRAIN_LOSS_RTOL's bar; first card run: <= 3.5e-6)
 
 
 def _fail(msg: str) -> int:
@@ -150,17 +184,6 @@ def _median_ms(fn, n: int = 100) -> float:
     from sequitr_tpu_torch.utils import device_median_ms
 
     return device_median_ms(fn, n)
-
-
-def _miou(a, b, k: int) -> float:
-    import numpy as np
-
-    ious = []
-    for c in range(k):
-        p, t = a == c, b == c
-        union = np.logical_or(p, t).sum()
-        ious.append(1.0 if union == 0 else np.logical_and(p, t).sum() / union)
-    return float(np.mean(ious))
 
 
 QS = [0.05, 0.995]
@@ -1009,40 +1032,6 @@ def profile_phase(torch, fixtures, unet):
     )
 
 
-def _instance_pass(name, dtype, normalize, device, polyphase=False, spatial=INSTANCE_FRAME, model=None):
-    """``frame -> (a, b)`` numpy: the serving pass of a committed instance
-    fixture (``flows_cells``: final positions and prob; ``stars_cells``: prob
-    and ray distances) or of ``model``, at ``dtype``, on ``device``."""
-    from sequitr_tpu_torch.models import fixtures
-    from sequitr_tpu_torch.pipeline import infer
-
-    if model is None:
-        _, cfg, model, _ = fixtures.load(name, compute_dtype=dtype, device=device)
-    else:
-        cfg = model.cfg
-    tc = infer.TileConfig(patch=spatial, overlap=(0,) * len(spatial), normalize=normalize, polyphase=polyphase)
-    if name == "stars_cells":
-        fn = infer.make_stars_predictor(cfg, tc, spatial, device=device)
-    else:
-        fn = infer.make_flows_segmenter(cfg, tc, spatial, device=device)
-    return lambda frame: tuple(t.cpu().numpy() for t in fn(model, frame))
-
-
-def _instances_of(name, a, b):
-    """The host half: sink grouping (flows) or polygon NMS (stars)."""
-    from sequitr_tpu_torch.ops import flows, stardist
-
-    if name == "stars_cells":
-        return stardist.instances_from_rays(a, b)
-    return flows.group_sinks(a, b > 0.5)
-
-
-def _ap50(want, got) -> float:
-    from sequitr_tpu_torch.ops import flows
-
-    return flows.average_precision(want, got, thresholds=(0.5,))["ap50"]
-
-
 def instances_phase(torch, smi_line):
     """The instance families on the card (TF32 off): f32 against the CPU,
     fidelity of the bf16 device path (fidelity.py's flows and stars meters),
@@ -1050,6 +1039,7 @@ def instances_phase(torch, smi_line):
     the Euler integrator, the doubling integrator and the host grouping."""
     import numpy as np
 
+    from sequitr_tpu_torch import fidelity
     from sequitr_tpu_torch.data import synthetic
     from sequitr_tpu_torch.models import fixtures, unet
     from sequitr_tpu_torch.ops import flows, stardist
@@ -1062,10 +1052,10 @@ def instances_phase(torch, smi_line):
     # (1) f32, the card against the CPU on one 1024x1024 frame
     for name in ("flows_cells", "stars_cells"):
         t0 = time.perf_counter()
-        a_card, b_card = _instance_pass(name, "float32", "exact", "cuda")(frame)
-        a_cpu, b_cpu = _instance_pass(name, "float32", "exact", "cpu")(frame)
+        a_card, b_card = fidelity.instance_pass(name, "float32", "exact", "cuda")(frame)
+        a_cpu, b_cpu = fidelity.instance_pass(name, "float32", "exact", "cpu")(frame)
         cpu_s = time.perf_counter() - t0
-        ap = _ap50(_instances_of(name, a_cpu, b_cpu), _instances_of(name, a_card, b_card))
+        ap = fidelity.ap50(fidelity.instances_of(name, a_cpu, b_cpu), fidelity.instances_of(name, a_card, b_card))
         if name == "flows_cells":
             prob_err = float(np.abs(b_card - b_cpu).max())
             fg = b_cpu > 0.5
@@ -1097,28 +1087,21 @@ def instances_phase(torch, smi_line):
     if not np.array_equal(d_card, d_cpu):
         raise AssertionError("follow_flows_doubling: card and CPU indices differ")
 
-    # (2) fidelity: the bf16 device path with the kernel normalize against
-    # the f32 exact-normalize path on the card, and against the truth;
-    # stars serve through polyphase, as fidelity.py's meter and bench_stars do
-    fidelity = {}
-    for name in ("flows_cells", "stars_cells"):
-        dev = _instance_pass(name, "bfloat16", "auto", "cuda", polyphase=name == "stars_cells")
-        ref = _instance_pass(name, "float32", "exact", "cuda")
-        vs_ref, vs_truth = [], []
-        for i in range(2):
-            im, lab = synthetic.instances_frame(INSTANCE_SEED + i, INSTANCE_FRAME)
-            f = im.clip(0, 65535).astype(np.uint16)
-            got = _instances_of(name, *dev(f))
-            vs_ref.append(_ap50(_instances_of(name, *ref(f)), got))
-            vs_truth.append(_ap50(lab, got))
-        fidelity[name] = float(np.mean(vs_ref))
+    # (2) fidelity.py's flows and stars meters: the bf16 device path with the
+    # kernel normalize against the f32 exact-normalize path on the card, and
+    # against the truth; stars serve through polyphase, as the meter and
+    # bench_stars do
+    meters = {}
+    for name, meter in (("flows_cells", fidelity.flows_fidelity), ("stars_cells", fidelity.stars_fidelity)):
+        r = meter(frame_shape=INSTANCE_FRAME, n=2, seed0=INSTANCE_SEED, device="cuda")
+        meters[name] = r["ap50_vs_ref"]
         print(
             f"instances fidelity {name} 2 frames 1024x1024 (seeds {INSTANCE_SEED}+i): ap50_vs_ref "
-            f"{np.mean(vs_ref):.6f} (bar {AP50_BAR}; ref: f32, exact normalize, on the card), ap50_truth "
-            f"{np.mean(vs_truth):.6f}"
+            f"{r['ap50_vs_ref']:.6f} (bar {AP50_BAR}; ref: f32, exact normalize, on the card), ap50_truth "
+            f"{r['ap50_truth']:.6f}, matched_iou_truth {r['matched_iou_truth']:.6f} (fidelity.py)"
         )
-    if min(fidelity.values()) < AP50_BAR:
-        raise AssertionError(f"instances fidelity {fidelity} < {AP50_BAR}")
+    if min(meters.values()) < AP50_BAR:
+        raise AssertionError(f"instances fidelity {meters} < {AP50_BAR}")
 
     # (3) where the time goes, bf16 at 1024x1024
     _, cfg, model, _ = fixtures.load("flows_cells", device="cuda")
@@ -1189,8 +1172,8 @@ def instances_phase(torch, smi_line):
             lambda: flows.follow_flows_doubling(dev_field, dev_mask, n_iter=200), 5,
         ),
     }
-    a, b = _instance_pass("flows_cells", "bfloat16", "auto", "cuda")(frame)
-    p, d = _instance_pass("stars_cells", "bfloat16", "auto", "cuda", polyphase=True)(frame)
+    a, b = fidelity.instance_pass("flows_cells", "bfloat16", "auto", "cuda")(frame)
+    p, d = fidelity.instance_pass("stars_cells", "bfloat16", "auto", "cuda", polyphase=True)(frame)
     host = {}
     for label, fn in (("group_sinks", lambda: flows.group_sinks(a, b > 0.5)),
                       ("instances_from_rays", lambda: stardist.instances_from_rays(p, d))):
@@ -1208,14 +1191,7 @@ def instances_phase(torch, smi_line):
         f"instances: Euler integration {euler[1]:.4f} device ms / {euler[0]:.4f} ms wall against the "
         f"forward's {fwd[1]:.4f} device ms / {fwd[0]:.4f} ms wall ({euler[0] / fwd[0]:.2f}x by wall)"
     )
-    return fidelity
-
-
-def _psnr_db(a, b) -> float:
-    import numpy as np
-
-    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
-    return 10.0 * float(np.log10(1.0 / max(mse, 1e-12)))
+    return meters
 
 
 def serve_phase(torch, hist, conv, smi_line):
@@ -1225,6 +1201,7 @@ def serve_phase(torch, hist, conv, smi_line):
     import numpy as np
 
     from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import fidelity
     from sequitr_tpu_torch.config import ServerConfiguration
     from sequitr_tpu_torch.data import synthetic, tiff
     from sequitr_tpu_torch.models import fixtures, unet
@@ -1379,19 +1356,19 @@ def serve_phase(torch, hist, conv, smi_line):
         if probs.shape != (12, 1024, 1024) or not np.isfinite(probs).all():
             raise AssertionError(f"job b: probs {probs.shape}")
         k, ref = labels_of("float32", "exact")
-        miou = float(np.mean([_miou(a, b, k) for a, b in zip(labels_a, ref)]))
+        miou = float(np.mean([fidelity.miou(a, b, k) for a, b in zip(labels_a, ref)]))
         print(f"serve job a miou_vs_ref {miou:.6f} (bar {MIOU_BAR}; ref: f32, exact normalize, on the card)")
         for dtype, normalize in (("bfloat16", "exact"), ("float32", "pallas")):
             _, other = labels_of(dtype, normalize)
-            part = float(np.mean([_miou(a, b, k) for a, b in zip(other, ref)]))
+            part = float(np.mean([fidelity.miou(a, b, k) for a, b in zip(other, ref)]))
             print(f"serve fidelity split: {dtype} + {normalize} normalize vs ref miou {part:.6f}")
-        truth = float(np.mean([_miou(a, b, k) for a, b in zip(labels_a, truth_labels)]))
-        truth_ref = float(np.mean([_miou(a, b, k) for a, b in zip(ref, truth_labels)]))
+        truth = float(np.mean([fidelity.miou(a, b, k) for a, b in zip(labels_a, truth_labels)]))
+        truth_ref = float(np.mean([fidelity.miou(a, b, k) for a, b in zip(ref, truth_labels)]))
         print(f"serve job a miou_truth {truth:.6f}, ref miou_truth {truth_ref:.6f}")
         if miou < MIOU_BAR:
             raise AssertionError(f"miou_vs_ref {miou} < {MIOU_BAR}")
         agree = float(np.mean(labels_c == labels_a))
-        miou_c = float(np.mean([_miou(a, b, k) for a, b in zip(labels_c, ref)]))
+        miou_c = float(np.mean([fidelity.miou(a, b, k) for a, b in zip(labels_c, ref)]))
         print(
             f"serve job c (polyphase) labels equal to job a's on {agree:.6f} of pixels "
             f"(bar {POLY_AGREE_BAR}), miou_vs_ref {miou_c:.6f}"
@@ -1413,8 +1390,8 @@ def serve_phase(torch, hist, conv, smi_line):
                 raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
         ref_tiled = volume_labels(vols[0], (16, 128, 128), (4, 32, 32))
         ref_whole = volume_labels(vols[0], VOLUME, (0, 0, 0))
-        miou_d = _miou(labels_d, ref_tiled, 3)
-        miou_e = _miou(labels_e, ref_whole, 3)
+        miou_d = fidelity.miou(labels_d, ref_tiled, 3)
+        miou_e = fidelity.miou(labels_e, ref_whole, 3)
         agree_de = float(np.mean(labels_e == labels_d))
         print(
             f"serve job d (tiled 16x128x128/4x32x32, 75 tiles) miou_vs_ref {miou_d:.6f}; job e "
@@ -1440,10 +1417,6 @@ def serve_phase(torch, hist, conv, smi_line):
         # GAN (fidelity.py::gan_fidelity): served output against the port's
         # f32 enhancer with the exact normalize, and against the smoothed
         # exactly normalized scene the fixture was trained toward
-        from scipy import ndimage
-
-        from sequitr_tpu_torch.ops import normalize as norm_ops
-
         _, gcfg, gmodel, _ = fixtures.load("gan_denoise", compute_dtype="float32", device="cuda")
         gtc = infer.TileConfig(patch=(1024, 1024), overlap=(0, 0), normalize="exact")
         enhance = infer.make_gan_enhancer(gcfg, gtc, (1024, 1024), device="cuda")
@@ -1451,9 +1424,8 @@ def serve_phase(torch, hist, conv, smi_line):
         psnr_ref, psnr_tgt = [], []
         for f, dev in zip(gan_frames, enhanced):
             ref = enhance(gmodel, torch.from_numpy(f).cuda()).cpu().numpy()[..., 0]
-            x01 = norm_ops.percentile_normalize(torch.from_numpy(f.astype(np.float32)), 5.0, 99.5).numpy()
-            psnr_ref.append(_psnr_db(dev, ref))
-            psnr_tgt.append(_psnr_db(dev, ndimage.gaussian_filter(x01, 1.5)))
+            psnr_ref.append(fidelity.psnr_db(dev, ref))
+            psnr_tgt.append(fidelity.psnr_db(dev, fidelity.gan_target(f)))
         g_psnr = float(np.mean(psnr_ref))
         print(
             f"serve job g psnr_vs_ref_db {g_psnr:.4f} (bar {PSNR_BAR_DB}; ref: f32, exact normalize, on "
@@ -1473,17 +1445,17 @@ def serve_phase(torch, hist, conv, smi_line):
             return [den(nmodel, torch.from_numpy(f).cuda()).float().cpu().numpy()[..., 0] for f in noisy]
 
         out_h, out_i = read("h", "denoised"), read("i", "denoised")
-        h_psnr = float(np.mean([_psnr_db(a, b) for a, b in zip(out_h, denoised("float32", "none"))]))
-        truth_db = float(np.mean([_psnr_db(a, c) for a, c in zip(out_h, clean)]))
-        noisy_db = float(np.mean([_psnr_db(n, c) for n, c in zip(noisy, clean)]))
+        h_psnr = float(np.mean([fidelity.psnr_db(a, b) for a, b in zip(out_h, denoised("float32", "none"))]))
+        truth_db = float(np.mean([fidelity.psnr_db(a, c) for a, c in zip(out_h, clean)]))
+        noisy_db = float(np.mean([fidelity.psnr_db(n, c) for n, c in zip(noisy, clean)]))
         print(
             f"serve job h psnr_vs_ref_db {h_psnr:.4f} (bar {PSNR_BAR_DB}; ref: f32, normalize 'none'), "
             f"psnr_truth_db {truth_db:.4f}, psnr_noisy_db {noisy_db:.4f}"
         )
         direct = denoised("bfloat16", "auto")
-        i_psnr = float(np.mean([_psnr_db(a, b) for a, b in zip(out_i, direct)]))
+        i_psnr = float(np.mean([fidelity.psnr_db(a, b) for a, b in zip(out_i, direct)]))
         i_err = float(max(np.abs(a - b).max() for a, b in zip(out_i, direct)))
-        i_f32 = float(np.mean([_psnr_db(a, b) for a, b in zip(out_i, denoised("float32", "auto"))]))
+        i_f32 = float(np.mean([fidelity.psnr_db(a, b) for a, b in zip(out_i, denoised("float32", "auto"))]))
         print(
             f"serve job i (kernel normalize) against the bf16 denoiser called directly: max |diff| "
             f"{i_err:.3g}, psnr {i_psnr:.4f} dB (bar {PSNR_DIRECT_BAR_DB}); against the f32 path "
@@ -1498,18 +1470,18 @@ def serve_phase(torch, hist, conv, smi_line):
         # instances (fidelity.py's flows and stars meters): each job's labels
         # against the port's f32 exact-normalize path on the card
         refs = {
-            name: [_instances_of(name, *ref(f)) for f in inst_frames]
+            name: [fidelity.instances_of(name, *ref(f)) for f in inst_frames]
             for name, ref in (
-                ("flows_cells", _instance_pass("flows_cells", "float32", "exact", "cuda")),
-                ("stars_cells", _instance_pass("stars_cells", "float32", "exact", "cuda")),
+                ("flows_cells", fidelity.instance_pass("flows_cells", "float32", "exact", "cuda")),
+                ("stars_cells", fidelity.instance_pass("stars_cells", "float32", "exact", "cuda")),
             )
         }
         for name, fixture in (("j", "flows_cells"), ("k", "flows_cells"), ("l", "stars_cells")):
             labels = read(name)
             if labels.shape != (4,) + INSTANCE_FRAME or labels.dtype != np.uint16:
                 raise AssertionError(f"job {name}: labels {labels.shape} {labels.dtype}")
-            ap_ref = float(np.mean([_ap50(r, g) for r, g in zip(refs[fixture], labels)]))
-            ap_truth = float(np.mean([_ap50(t, g) for (_, t), g in zip(inst_scenes, labels)]))
+            ap_ref = float(np.mean([fidelity.ap50(r, g) for r, g in zip(refs[fixture], labels)]))
+            ap_truth = float(np.mean([fidelity.ap50(t, g) for (_, t), g in zip(inst_scenes, labels)]))
             fps = json.loads(outputs[name]["metrics"])["frames_per_sec"]
             print(
                 f"serve job {name} {specs[name][0]} {json.dumps(params_summary(specs[name][3]))}: ap50_vs_ref "
@@ -1518,15 +1490,15 @@ def serve_phase(torch, hist, conv, smi_line):
             )
             if ap_ref < AP50_BAR:
                 raise AssertionError(f"job {name}: ap50_vs_ref {ap_ref} < {AP50_BAR}")
-        ap_kj = float(np.mean([_ap50(a, b) for a, b in zip(read("j"), read("k"))]))
+        ap_kj = float(np.mean([fidelity.ap50(a, b) for a, b in zip(read("j"), read("k"))]))
         print(f"serve job k (doubling) against job j (Euler): ap50 {ap_kj:.6f}")
 
         # (m): the volumes' labels against the same bf16 pass called directly,
         # and the model at f32, card against CPU, on positions (a 16x128x128
         # crop: the CPU's Euler steps over 2 M voxels take minutes)
         _, _, model_m = load_model(models, "flows3d", device="cuda")
-        direct = _instance_pass("flows3d", None, "auto", "cuda", spatial=INST_VOLUME, model=model_m)
-        ref_m = _instance_pass(
+        direct = fidelity.instance_pass("flows3d", None, "auto", "cuda", spatial=INST_VOLUME, model=model_m)
+        ref_m = fidelity.instance_pass(
             "flows3d", None, "exact", "cuda", spatial=INST_VOLUME,
             model=_with_dtype(unet, model_m, "float32"),
         )
@@ -1534,9 +1506,9 @@ def serve_phase(torch, hist, conv, smi_line):
             lt = tiff.read_stack(os.path.join(os.path.dirname(outputs["m"]["labels"]), f"labels_t{t:04d}.tif"))
             if lt.shape != INST_VOLUME or lt.dtype != np.uint16:
                 raise AssertionError(f"job m: timepoint {t} labels {lt.shape} {lt.dtype}")
-            want = _instances_of("flows3d", *direct(inst_vols[t]))
+            want = fidelity.instances_of("flows3d", *direct(inst_vols[t]))
             same = float(np.mean(lt == want))
-            vs_f32 = _ap50(_instances_of("flows3d", *ref_m(inst_vols[t])), lt)
+            vs_f32 = fidelity.ap50(fidelity.instances_of("flows3d", *ref_m(inst_vols[t])), lt)
             print(
                 f"serve job m timepoint {t}: {int(lt.max())} instances, labels equal to the bf16 pass "
                 f"called directly on {same:.6f}; ap50 against the f32 path {vs_f32:.6f} (random weights: "
@@ -1548,7 +1520,7 @@ def serve_phase(torch, hist, conv, smi_line):
         finals = []
         for dev in ("cuda", "cpu"):
             m32 = _with_dtype(unet, model_m, "float32").to(dev)
-            finals.append(_instance_pass("flows3d", None, "exact", dev, spatial=crop.shape, model=m32)(crop))
+            finals.append(fidelity.instance_pass("flows3d", None, "exact", dev, spatial=crop.shape, model=m32)(crop))
         (fa, pa), (fb, pb) = finals
         fg = pb > 0.5
         near = float(np.mean(np.abs(fa - fb).max(-1)[fg] <= INST_FINAL_PX))
@@ -1559,6 +1531,335 @@ def serve_phase(torch, hist, conv, smi_line):
         )
         if near < INST_FINAL_SHARE or not float(np.abs(pa - pb).max()) <= INST_PROB_BAR:
             raise AssertionError("job m's model: f32 card and CPU disagree")
+        return counts
+
+
+def _same_metrics(what, got, want, tol=EVAL_FLOAT_BAR):
+    """``got`` (a job's metrics) against ``want`` (recomputed on the host):
+    every key of ``want`` present, counts equal, floats within ``tol``,
+    lists item by item with their ``None``s."""
+    for k, v in want.items():
+        g = got.get(k)
+        if isinstance(v, list):
+            ok = isinstance(g, list) and len(g) == len(v) and all(
+                (a is None and b is None) or (a is not None and b is not None and abs(a - b) <= tol)
+                for a, b in zip(g, v)
+            )
+        elif isinstance(v, float):
+            ok = g is not None and abs(g - v) <= tol
+        else:
+            ok = g == v
+        if not ok:
+            raise AssertionError(f"{what}: metric {k} {g} against {v} recomputed on the host")
+
+
+def _pooled_ap(np, flows, truths, preds, per_key, thresholds=(0.5, 0.75, 0.9)):
+    """Pooled instance AP of ``preds`` against ``truths`` (truth ids
+    renumbered densely), the evaluate jobs' metrics recomputed."""
+    tp = {t: 0 for t in thresholds}
+    n_gt = n_pred = 0
+    good, per = [], []
+    for truth, pred in zip(truths, preds):
+        ids = np.unique(truth[truth > 0])
+        dense = np.zeros(int(truth.max()) + 1, np.int64)
+        dense[ids] = np.arange(1, ids.size + 1)
+        ious, g, p = flows.match_instances(dense[truth], pred)
+        n_gt, n_pred = n_gt + g, n_pred + p
+        for t in thresholds:
+            tp[t] += int((ious >= t).sum())
+        good.extend(ious[ious >= 0.5].tolist())
+        m = int((ious >= 0.5).sum())
+        per.append(round(m / (g + p - m), 6) if g + p - m else None)
+    out = {"n_gt": n_gt, "n_pred": n_pred, per_key: per,
+           "mean_matched_iou": round(float(np.sum(good)) / len(good), 6) if good else 0.0}
+    for t in thresholds:
+        d = n_gt + n_pred - tp[t]
+        out[f"ap{int(round(t * 100))}"] = round(tp[t] / d, 6) if d else 1.0
+    return out
+
+
+def evaluate_phase(torch, hist, conv, smi_line):
+    """The evaluation and parity jobs through ImageServer on the card, one at
+    a time, each with its launch counts reset just before it and read just
+    after, beside its serving twin: each job's metrics recomputed on the
+    host from its own saved outputs (or its twin's) and the truth, its
+    saved labels against the twin's, its quantile passes against the count
+    its code gives, and its frames/s (frames over the job's wall time)
+    against the twin's. Returns {job: (histogram_2d launches, quantile
+    passes)}."""
+    import numpy as np
+    from scipy import ndimage
+
+    from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import fidelity
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import convert, fixtures, unet
+    from sequitr_tpu_torch.ops import flows, losses
+    from sequitr_tpu_torch.pipeline import infer
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import save_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+        names = ("unet2d_cells", "unet3d_cells", "gan_denoise", "n2v_cells", "flows_cells", "stars_cells")
+        for name in names:
+            meta = fixtures.manifest()[name]
+            arch = os.path.join(tmp, f"{name}.json")
+            with open(arch, "w") as f:
+                json.dump(dict(meta["config"], __kind__=meta["kind"]), f)
+            npz = os.path.join(fixtures.fixture_dir(), f"{name}.npz")
+            if cli.main(["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, name]):
+                raise AssertionError(f"import-model {name} failed")
+        # a copy of unet2d_cells with one kernel scaled by 1e6: parity_check
+        # must refuse it (its logits reach ~1e6, where f32 round-off alone
+        # breaks the 1e-3 tolerance)
+        with np.load(os.path.join(fixtures.fixture_dir(), "unet2d_cells.npz")) as npz:
+            flat = {k: npz[k].astype(np.float32) for k in npz.files}
+        flat["enc/0/conv1/w"] = flat["enc/0/conv1/w"] * 1e6
+        bad = os.path.join(tmp, "corrupt.npz")
+        np.savez(bad, **flat)
+        if cli.main(["import-model", "--models-dir", models, "--npz", bad, "--arch",
+                     os.path.join(tmp, "unet2d_cells.json"), "unet2d_corrupt"]):
+            raise AssertionError("import-model unet2d_corrupt failed")
+        # no trained 3D N2V or 3D flows fixture: unet.init models of
+        # unet3d_cells' architecture with a 1-channel and a flows head
+        cfg_n = unet.UNetConfig(dims=3, depth=3, base_features=32, features_cap=256, num_classes=1)
+        save_model(models, "n2v3d", "n2v", cfg_n, unet.init(cfg_n, torch.Generator().manual_seed(18), device="cpu"))
+        cfg_m = unet.UNetConfig(dims=3, depth=3, base_features=32, features_cap=256, num_classes=4)
+        save_model(models, "flows3d", "flows", cfg_m, unet.init(cfg_m, torch.Generator().manual_seed(17), device="cpu"))
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        scenes = [synthetic.cells_frame(424_000 + i, (1024, 1024)) for i in range(4)]
+        frames = np.stack([img for img, _ in scenes]).clip(0, 65535).astype(np.uint16)
+        truth = np.stack([lab for _, lab in scenes]).astype(np.uint16)
+        sparse = truth.copy()
+        sparse[:, ::2] = 255  # every other row unannotated
+        sparse[2] = 255  # frame 2 wholly unannotated
+        vol, vlab = synthetic.cells_volume(31_600, VOLUME)
+        vol = vol.clip(0, 65535).astype(np.uint16)
+        gan_frames = np.stack([synthetic.cells_frame(434_000 + i, (1024, 1024))[0] for i in range(4)])
+        gan_frames = gan_frames.clip(0, 65535).astype(np.uint16)
+        gan_targets = np.stack([fidelity.gan_target(f) for f in gan_frames]).astype(np.float32)
+        pairs = [synthetic.denoise_pair(515_000 + i, (1024, 1024)) for i in range(4)]
+        noisy = np.stack([n for _, n in pairs]).astype(np.float32)
+        clean = np.stack([c for c, _ in pairs]).astype(np.float32)
+        clean_v = np.stack([synthetic.cells_volume(515_800 + t, INST_VOLUME)[0] for t in range(2)]).astype(np.float32)
+        noisy_v = clean_v + np.random.default_rng(9).normal(scale=20.0, size=clean_v.shape).astype(np.float32)
+        inst = [synthetic.instances_frame(INSTANCE_SEED + i, INSTANCE_FRAME) for i in range(4)]
+        inst_frames = np.stack([img for img, _ in inst]).clip(0, 65535).astype(np.uint16)
+        inst_truth = np.stack([lab for _, lab in inst]).astype(np.uint16)
+        ivols = [synthetic.cells_volume(31_700 + t, INST_VOLUME) for t in range(2)]
+        inst_vols = np.stack([v for v, _ in ivols]).clip(0, 65535).astype(np.uint16)
+        inst_vtruth = np.stack([ndimage.label(lab == 1)[0] for _, lab in ivols]).astype(np.uint16)
+        paths = {
+            "stack": write("stack.tif", frames), "truth": write("truth.tif", truth),
+            "sparse": write("sparse.tif", sparse), "volume": write("volume.tif", vol),
+            "vlabels": write("vlabels.tif", vlab.astype(np.uint16)),
+            "gan": write("gan.tif", gan_frames), "gan_targets": write("gan_targets.tif", gan_targets),
+            "noisy": write("noisy.tif", noisy), "clean": write("clean.tif", clean),
+            "noisy_v": write("noisy_v.tif", noisy_v.reshape((-1,) + INST_VOLUME[1:])),
+            "clean_v": write("clean_v.tif", clean_v.reshape((-1,) + INST_VOLUME[1:])),
+            "inst": write("inst.tif", inst_frames), "inst_truth": write("inst_truth.tif", inst_truth),
+            "inst_v": write("inst_v.tif", inst_vols.reshape((-1,) + INST_VOLUME[1:])),
+            "inst_vtruth": write("inst_vtruth.tif", inst_vtruth.reshape((-1,) + INST_VOLUME[1:])),
+        }
+        server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+        counts, outputs, walls = {}, {}, {}
+
+        def serve(name, module, model, inputs, params, want_passes, units, expect_fail=None):
+            submit_job(jobs, {
+                "module": module, "params": dict(model=model, **params),
+                "input": [paths[k] for k in inputs], "output": os.path.join(tmp, f"out_{name}"),
+            })
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not server.poll_once():
+                raise AssertionError(f"job {name}: no job to run")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
+                raise AssertionError(f"job {name}: launched a conv study kernel")
+            with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
+                status = json.load(f)
+            if expect_fail is not None:
+                if status["state"] != "failed" or expect_fail not in status.get("error", ""):
+                    raise AssertionError(f"job {name}: expected a JobError with {expect_fail!r}, got {status}")
+                return status
+            if status["state"] != "complete":
+                raise AssertionError(f"job {name}: {status.get('error')}")
+            outputs[name] = status["outputs"]
+            print(
+                f"evaluate job {name} {module} {model} {json.dumps(params)}: {walls[name]:.4f} s, "
+                f"{units / walls[name]:.3f} items/s on {smi_line}; quantile passes {counts[name][1]} "
+                f"(histogram_2d launches {counts[name][0]}; expected {want_passes}); metrics "
+                f"{status['outputs']['metrics'][:400]}"
+            )
+            if counts[name] != (want_passes, want_passes):
+                raise AssertionError(f"job {name}: {counts[name]} launches/passes, expected {want_passes}")
+            return status
+
+        def metrics(name):
+            return json.loads(outputs[name]["metrics"])
+
+        def twin(name, twin_name, units):
+            print(
+                f"evaluate job {name} {units / walls[name]:.3f} items/s beside its serving twin "
+                f"{twin_name}'s {units / walls[twin_name]:.3f} items/s (same frames, same server, {smi_line})"
+            )
+
+        def labels_agree(name, twin_name, got, want):
+            share = float(np.mean(got == want))
+            print(f"evaluate job {name} saved labels equal to serving job {twin_name}'s on {share:.6f} of pixels")
+            if share < EVAL_LABELS_BAR:
+                raise AssertionError(f"job {name}: labels agree with {twin_name}'s on {share} < {EVAL_LABELS_BAR}")
+
+        # (a) and (n), (n'): 2D segmentation, scored by one confusion matrix
+        serve("a", "segmentation_unet2d", "unet2d_cells", ["stack"], {"localize": False}, 4, 4)
+        serve("n", "evaluate_unet2d", "unet2d_cells", ["stack", "truth"],
+              {"save_labels": True, "per_frame": True}, 4, 4)
+        serve("n_ignore", "evaluate_unet2d", "unet2d_cells", ["stack", "sparse"],
+              {"save_labels": True, "per_frame": True, "ignore_label": 255}, 4, 4)
+        twin("n", "a", 4)
+        labels_a = tiff.read_stack(outputs["a"]["labels"])
+        for name, t_stack in (("n", truth), ("n_ignore", sparse)):
+            saved = tiff.read_stack(outputs[name]["labels"])
+            labels_agree(name, "a", saved, labels_a)
+            cm, per = np.zeros((4, 3), np.int64), []
+            for pred, t in zip(saved, t_stack):
+                keep = t != 255
+                fcm = losses.confusion_matrix_np(pred[keep], t[keep], 3)
+                cm += fcm
+                per.append(round(float(np.mean(losses.metrics_from_confusion(fcm)[0])), 6) if fcm.sum() else None)
+            ious, dices, acc = losses.metrics_from_confusion(cm)
+            want = {"miou": round(float(np.mean(ious)), 6), "pixel_accuracy": round(acc, 6),
+                    "n_frames": 4, "per_frame_miou": per}
+            want.update({f"iou_{i}": round(float(ious[i]), 6) for i in range(3)})
+            want.update({f"dice_{i}": round(float(dices[i]), 6) for i in range(3)})
+            _same_metrics(f"job {name}", metrics(name), want)
+        if metrics("n_ignore")["per_frame_miou"][2] is not None:
+            raise AssertionError("job n_ignore: a wholly ignored frame scored")
+
+        # (d) and (o): the volume, default tiling
+        serve("d", "segmentation_unet3d", "unet3d_cells", ["volume"], {"localize": False}, 1, 1)
+        serve("o", "evaluate_unet3d", "unet3d_cells", ["volume", "vlabels"], {"save_labels": True}, 1, 1)
+        twin("o", "d", 1)
+        saved = tiff.read_stack(outputs["o"]["labels"])
+        labels_agree("o", "d", saved, tiff.read_stack(outputs["d"]["labels"]))
+        p_t, t_t = torch.from_numpy(saved.astype(np.int32)), torch.from_numpy(vlab.astype(np.int32))
+        ious, dices = losses.iou(p_t, t_t, 3).numpy(), losses.dice(p_t, t_t, 3).numpy()
+        want = {"miou": round(float(np.mean(ious)), 6),
+                "voxel_accuracy": round(float((saved == vlab).mean()), 6)}
+        want.update({f"iou_{i}": round(float(ious[i]), 6) for i in range(3)})
+        want.update({f"dice_{i}": round(float(dices[i]), 6) for i in range(3)})
+        _same_metrics("job o", metrics("o"), want)
+
+        # (g) and (p): GAN against gan_fidelity's targets; (h), (i), (q), (q'):
+        # N2V against the clean renders; every score recomputed from the
+        # twin's saved output, the targets normalized the job's way
+        def scores(out, t01, x01=None):
+            l1s, ps, pins = [], [], []
+            for k in range(len(out)):
+                err = np.asarray(out[k], np.float32) - t01[k]
+                l1s.append(float(np.mean(np.abs(err))))
+                ps.append(round(10.0 * float(np.log10(1.0 / max(float(np.mean(err * err)), 1e-12))), 4))
+                if x01 is not None:
+                    e = x01[k] - t01[k]
+                    pins.append(round(10.0 * float(np.log10(1.0 / max(float(np.mean(e * e)), 1e-12))), 4))
+            want = {"l1": round(float(np.mean(l1s)), 6), "psnr": round(float(np.mean(ps)), 4)}
+            if x01 is not None:
+                want["psnr_noisy_input"] = round(float(np.mean(pins)), 4)
+            return want, ps
+
+        def normalized(arr, normalize, volume=False):
+            tc = infer.TileConfig(patch=arr.shape[1:], overlap=(0,) * (arr.ndim - 1), normalize=normalize)
+            t = torch.from_numpy(arr).cuda()[..., None]
+            with torch.inference_mode():
+                if volume:
+                    return np.stack([infer._normalize(v[None], tc)[0].cpu().numpy() for v in t])
+                return np.stack([infer._normalize(f[None], tc)[0].cpu().numpy() for f in t])
+
+        serve("g", "enhancement_gan", "gan_denoise", ["gan"], {}, 4, 4)
+        serve("p", "evaluate_gan", "gan_denoise", ["gan", "gan_targets"], {}, 8, 4)
+        twin("p", "g", 4)
+        want, per = scores(tiff.read_stack(outputs["g"]["enhanced"])[..., None], normalized(gan_targets, "auto"))
+        _same_metrics("job p", metrics("p"), dict(want, per_frame_psnr=per, n_frames=4))
+        for name, twin_name, norm, passes in (("q", "h", "none", 0), ("q_auto", "i", "auto", 8)):
+            params = {"normalize": norm} if norm == "none" else {}
+            serve(twin_name, "denoise", "n2v_cells", ["noisy"], params, passes // 2, 4)
+            serve(name, "evaluate_denoise", "n2v_cells", ["noisy", "clean"], params, passes, 4)
+            twin(name, twin_name, 4)
+            want, per = scores(
+                tiff.read_stack(outputs[twin_name]["denoised"])[..., None],
+                normalized(clean, norm), normalized(noisy, norm),
+            )
+            _same_metrics(f"job {name}", metrics(name), dict(want, per_frame_psnr=per, n_frames=4))
+        serve("h_3d", "denoise", "n2v3d", ["noisy_v"], {"z": INST_VOLUME[0]}, 2, 2)
+        serve("q_3d", "evaluate_denoise", "n2v3d", ["noisy_v", "clean_v"], {"z": INST_VOLUME[0]}, 4, 2)
+        twin("q_3d", "h_3d", 2)
+        den_v = tiff.read_stack(outputs["h_3d"]["denoised"]).reshape(clean_v.shape)[..., None]
+        want, per = scores(den_v, normalized(clean_v, "auto", True), normalized(noisy_v, "auto", True))
+        _same_metrics("job q_3d", metrics("q_3d"), dict(want, per_volume_psnr=per, n_volumes=2))
+
+        # (j) and (r), (m) and (r'), (l) and (s): pooled instance AP
+        serve("j", "segment_flows", "flows_cells", ["inst"], {"localize": False}, 4, 4)
+        serve("r", "evaluate_flows", "flows_cells", ["inst", "inst_truth"],
+              {"save_labels": True, "per_frame": True}, 4, 4)
+        serve("l", "segment_stars", "stars_cells", ["inst"], {"localize": False, "polyphase": True}, 4, 4)
+        serve("s", "evaluate_stars", "stars_cells", ["inst", "inst_truth"],
+              {"save_labels": True, "per_frame": True, "polyphase": True}, 4, 4)
+        for name, twin_name in (("r", "j"), ("s", "l")):
+            twin(name, twin_name, 4)
+            saved = tiff.read_stack(outputs[name]["labels"])
+            labels_agree(name, twin_name, saved, tiff.read_stack(outputs[twin_name]["labels"]))
+            want = _pooled_ap(np, flows, inst_truth.astype(np.int64), saved, "per_frame_ap50")
+            _same_metrics(f"job {name}", metrics(name), dict(want, n_frames=4))
+            print(f"evaluate job {name}: ap50 {metrics(name)['ap50']} against the truth")
+        serve("m", "segment_flows", "flows3d", ["inst_v"], {"localize": False, "z": INST_VOLUME[0]}, 2, 2)
+        serve("r_3d", "evaluate_flows", "flows3d", ["inst_v", "inst_vtruth"],
+              {"z": INST_VOLUME[0], "per_frame": True}, 2, 2)
+        twin("r_3d", "m", 2)
+        labs_m = [tiff.read_stack(os.path.join(os.path.dirname(outputs["m"]["labels"]), f"labels_t{t:04d}.tif"))
+                  for t in range(2)]
+        want = _pooled_ap(np, flows, inst_vtruth.astype(np.int64), labs_m, "per_volume_ap50")
+        _same_metrics("job r_3d", metrics("r_3d"), dict(want, n_volumes=2))
+
+        # (t): parity_check against the torch re-derivation on the CPU
+        for name, fixture, params in (
+            ("t_unet2d", "unet2d_cells", {}),
+            ("t_unet3d", "unet3d_cells", {"spatial": [16, 64, 64], "n_probes": 2}),
+            ("t_gan", "gan_denoise", {}),
+            ("t_n2v", "n2v_cells", {}),
+            ("t_flows", "flows_cells", {}),
+        ):
+            serve(name, "parity_check", fixture, ["stack"], params, 0, 1)
+        serve("t_corrupt", "parity_check", "unet2d_corrupt", ["stack"], {}, 0, 1,
+              expect_fail="parity FAILED: max |dlogits|")
+        print("evaluate job t_corrupt: parity_check refused the copy with one kernel scaled by 1e6 (JobError)")
+        submit_job(jobs, {"module": "parity_check", "params": {"model": "unet2d_cells", "reference": "keras",
+                                                              "n_probes": 1},
+                          "input": [paths["stack"]], "output": os.path.join(tmp, "out_t_keras")})
+        server.poll_once()
+        with open(os.path.join(tmp, "out_t_keras", "status.json")) as f:
+            status = json.load(f)
+        if status["state"] == "complete":
+            print(f"evaluate job t_keras: the keras reference ran and passed: {status['outputs']['metrics']}")
+        elif "reference 'keras' unavailable" in status.get("error", ""):
+            print("evaluate job t_keras: the keras reference is unavailable on this machine "
+                  f"(JobError: {status['error'].strip().splitlines()[-1][-160:]})")
+        else:
+            raise AssertionError(f"parity_check keras: {status}")
         return counts
 
 
@@ -1605,12 +1906,12 @@ def _bn_nulled(key: str) -> bool:
     return key.endswith(("conv1/b", "conv2/b"))
 
 
-def _weights_vs(np, convert, a, b, start):
+def _weights_vs(np, convert, a, b, start, lr=TRAIN_LR):
     """Two trained models against each other: the relative L2 difference of
     their updates from ``start`` (the flat weights they both began from)
     over the parameters a batch norm does not null, the share of those
     parameters whose updates differ by more than a tenth of an Adam step
-    (TRAIN_LR / 10), the largest difference of a BN-nulled bias, and the
+    (lr / 10), the largest difference of a BN-nulled bias, and the
     largest difference of a running statistic relative to that tensor's
     largest value (a mean's beyond what its bias can move)."""
     fa, fb = convert.to_flat(a), convert.to_flat(b)
@@ -1621,14 +1922,14 @@ def _weights_vs(np, convert, a, b, start):
         d = np.abs(fa[k].astype(np.float64) - fb[k])
         if k.startswith("state/"):
             # a running mean carries its conv's bias, which Adam moves on noise
-            slack = TRAIN_STEPS_EXACT * TRAIN_LR if k.endswith("/mean") else 0.0
+            slack = TRAIN_STEPS_EXACT * lr if k.endswith("/mean") else 0.0
             stats = max(stats, float(np.maximum(d - slack, 0).max() / max(np.abs(fb[k]).max(), 1e-12)))
         elif _bn_nulled(k):
             nulled = max(nulled, float(d.max()))
         else:
             num += float((d**2).sum())
             den += float(((fb[k].astype(np.float64) - start[k]) ** 2).sum())
-            over += int((d > TRAIN_LR / 10).sum())
+            over += int((d > lr / 10).sum())
             total += d.size
     return (num / den) ** 0.5, over / total, nulled, stats
 
@@ -1642,6 +1943,7 @@ def train_phase(torch, hist, conv, smi_line):
     import numpy as np
 
     from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import fidelity
     from sequitr_tpu_torch.config import ServerConfiguration
     from sequitr_tpu_torch.data import synthetic, tiff
     from sequitr_tpu_torch.models import convert, fixtures, polyphase, unet
@@ -1975,7 +2277,7 @@ def train_phase(torch, hist, conv, smi_line):
         fn = infer.make_frame_inferrer(cfg_t, tc_serve, (1024, 1024), device="cuda")
         direct = np.stack([fn(model_t, torch.from_numpy(f).cuda())[1].cpu().numpy() for f in frames])
         equal = float(np.mean(direct == served))
-        miou = float(np.mean([_miou(a, s[1], 3) for a, s in zip(served, scenes)]))
+        miou = float(np.mean([fidelity.miou(a, s[1], 3) for a, s in zip(served, scenes)]))
         print(
             f"train job segmentation_unet2d on the trained model, same server process: labels equal to the "
             f"registered weights served directly on {equal:.6f} of pixels; miou_truth {miou:.4f}"
@@ -1997,7 +2299,7 @@ def train_phase(torch, hist, conv, smi_line):
             "serve_trained_poly",
         )
         served_p = tiff.read_stack(out["labels"])
-        miou_p = float(np.mean([_miou(a, s[1], 3) for a, s in zip(served_p, scenes)]))
+        miou_p = float(np.mean([fidelity.miou(a, s[1], 3) for a, s in zip(served_p, scenes)]))
         print(
             f"train job train_unet2d polyphase: 30 steps of 8x256x256 in {wall:.3f} s; loss "
             f"{trp[0]['loss']:.4f} -> {trp[-1]['loss']:.4f}, {trp[-1]['steps_per_sec']:.3f} steps/s; evals "
@@ -2046,13 +2348,242 @@ def train_phase(torch, hist, conv, smi_line):
         return counts
 
 
+def _gan_pairs(np, n, size, seed):
+    """``n`` normalized ``size``x``size`` cells frames and their smoothed
+    targets (N, H, W, 1), as ``fidelity.train_fidelity`` makes GAN batches."""
+    from scipy import ndimage
+
+    from sequitr_tpu_torch.data import synthetic
+
+    xs = []
+    for i in range(n):
+        img, _ = synthetic.cells_frame(seed + i, (size, size))
+        lo, hi = np.percentile(img, [5.0, 99.5])
+        xs.append(np.clip((img - lo) / max(hi - lo, 1e-8), 0, 1).astype(np.float32))
+    ys = [ndimage.gaussian_filter(x, 1.5).astype(np.float32) for x in xs]
+    return np.stack(xs)[..., None], np.stack(ys)[..., None]
+
+
+def gan_train_phase(torch, hist, conv, smi_line):
+    """GAN training on the card: 3 f32 steps card against CPU from the same
+    weights; the bf16 step at ``bench_gan_train``'s shape (batch 8 of
+    256x256, ``GANConfig()`` defaults), standard and polyphase, with its
+    split, device ops and peak memory; then ``build_gan_pairs`` ->
+    ``train_gan`` -> ``enhancement_gan`` -> ``evaluate_gan`` in one server
+    process. Returns {job: (histogram_2d launches, quantile passes)}."""
+    import numpy as np
+
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import convert
+    from sequitr_tpu_torch.models import gan as gan_lib
+    from sequitr_tpu_torch.ops import losses
+    from sequitr_tpu_torch.pipeline import infer, train
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    tc = train.TrainConfig(learning_rate=GAN_LR, beta1=0.5, augment=False)
+
+    # (1) three f32 steps, the card against the CPU from the same weights
+    cfg32 = gan_lib.GANConfig(compute_dtype="float32")
+    flat = convert.to_flat(gan_lib.init(cfg32, torch.Generator().manual_seed(0), device="cpu"))
+    batches = [_gan_pairs(np, 4, 128, 770_000 + 4 * s) for s in range(TRAIN_STEPS_EXACT)]
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda"), ("card again", "cuda")):
+        state = train.create_gan_state(cfg32, tc, model=convert.load_flat(cfg32, flat, device=dev))
+        step = train.make_gan_train_step(cfg32, tc)
+        got = []
+        for x, y in batches:
+            state, m = step(state, {"input": torch.from_numpy(x).to(dev), "target": torch.from_numpy(y).to(dev)})
+            got.append((float(m["d_loss"]), float(m["g_loss"])))
+        runs[name] = (got, state.model.to("cpu"))
+    (cpu_m, cpu_model), (card_m, card_model), (again_m, again_model) = (
+        runs["cpu"], runs["card"], runs["card again"]
+    )
+    for s, ((dc, gc), (dg, gg)) in enumerate(zip(cpu_m, card_m)):
+        print(
+            f"gan_train f32 step {s + 1} (4x128x128, GANConfig() widths): d_loss card {dg:.7f} CPU {dc:.7f} "
+            f"(rel {abs(dg - dc) / dc:.3g}), g_loss card {gg:.7f} CPU {gc:.7f} (rel {abs(gg - gc) / gc:.3g}; "
+            f"bar {GAN_LOSS_RTOL} both)"
+        )
+        if abs(dg - dc) > GAN_LOSS_RTOL * dc or abs(gg - gc) > GAN_LOSS_RTOL * gc:
+            raise AssertionError(f"gan_train step {s + 1}: card and CPU disagree")
+    rel, share, nulled, stats = _weights_vs(np, convert, card_model, cpu_model, flat, GAN_LR)
+    rel2, share2, nulled2, stats2 = _weights_vs(np, convert, card_model, again_model, flat, GAN_LR)
+    print(
+        f"gan_train f32 weights after {TRAIN_STEPS_EXACT} steps, card vs CPU: updates differ by {rel:.3g} of "
+        f"their L2 norm (bar {TRAIN_UPDATE_BAR}), {share:.3g} of the weights by more than a tenth of an Adam "
+        f"step (lr {GAN_LR}), BN-nulled biases by up to {nulled:.3g}, running statistics by {stats:.3g} of "
+        f"their largest value (bar {TRAIN_STATS_BAR}); two card runs: {rel2:.3g}, {share2:.3g}, "
+        f"{nulled2:.3g}, {stats2:.3g}"
+    )
+    if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+        raise AssertionError("gan_train weights: card and CPU disagree")
+
+    # (2) the bf16 step at bench_gan_train's shape, standard and polyphase
+    x, y = _gan_pairs(np, 8, 256, 780_000)
+    batch = {"input": torch.from_numpy(x).cuda(), "target": torch.from_numpy(y).cuda()}
+    cfg = gan_lib.GANConfig()
+    step_ms = {}
+    for kind, poly in (("standard", False), ("polyphase", True)):
+        ktc = train.TrainConfig(learning_rate=GAN_LR, beta1=0.5, augment=False, polyphase=poly)
+        state = train.create_gan_state(cfg, ktc, torch.Generator().manual_seed(0), device="cuda")
+        step = train.make_gan_train_step(cfg, ktc)
+        opt = ktc.make_optimizer()
+        forward = train._train_forward(cfg.generator_config, ktc)
+        gen_p, disc_p = list(state.model.gen.parameters()), list(state.model.disc.parameters())
+
+        def parts():
+            t = [time.perf_counter()]
+            logits, stats = forward(state.model.gen, batch["input"])
+            fake = gan_lib.activate(cfg, logits)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            d_loss = losses.gan_discriminator_loss(
+                gan_lib.discriminator_apply(state.model, batch["input"], batch["target"]),
+                gan_lib.discriminator_apply(state.model, batch["input"], fake.detach()),
+            )
+            opt.update(disc_p, torch.autograd.grad(d_loss, disc_p), state.disc_opt_state)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            g_loss = losses.gan_generator_loss(
+                gan_lib.discriminator_apply(state.model, batch["input"], fake), fake, batch["target"]
+            )
+            opt.update(gen_p, torch.autograd.grad(g_loss, gen_p), state.gen_opt_state)
+            state.model.gen.set_bn_stats(stats)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            return [b - a for a, b in zip(t, t[1:])]
+
+        for _ in range(3):
+            parts()
+        split = np.median(np.array([parts() for _ in range(10)]), axis=0) * 1e3
+
+        def whole():
+            step(state, batch)
+
+        whole()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            whole()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_ms[kind] = float(np.median(times)) * 1e3
+        _, peak = _peak_gb(torch, whole)
+        ops = _device_events(torch, whole, 2)
+        by_name = {}
+        for e in ops:
+            by_name.setdefault(e.name, []).append(e)
+        top = sorted(by_name.items(), key=lambda kv: -_ms(kv[1], 2))[:5]
+        print(
+            f"gan_train bf16 {kind} step 8x256x256 (GANConfig() defaults, bench_gan_train's shape): "
+            f"{step_ms[kind]:.4f} ms ({8 / step_ms[kind] * 1e3:.3f} pairs/s) on {smi_line}; split "
+            f"(synchronized, median of 10): generator forward {split[0]:.4f} ms, D step {split[1]:.4f} ms, "
+            f"G step (loss through the new D, backward, optimizer) {split[2]:.4f} ms; {len(ops) / 2:.0f} "
+            f"device ops a step, {_ms(ops, 2):.4f} device ms, peak {peak:.3f} GB; largest: "
+            + "; ".join(f"{n[:60]} {_ms(es, 2):.4f}" for n, es in top)
+        )
+    print(f"gan_train bf16 step, polyphase over standard: {step_ms['polyphase'] / step_ms['standard']:.3f}x on {smi_line}")
+
+    # (3) build_gan_pairs -> train_gan -> enhancement_gan -> evaluate_gan in
+    # one server process on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+        server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+        raw = np.stack([synthetic.cells_frame(790_000 + i, (256, 256))[0] for i in range(16)])
+        raw = raw.clip(0, 65535).astype(np.uint16)
+        from scipy import ndimage
+
+        tgt = np.stack([ndimage.gaussian_filter(r.astype(np.float32), 1.5) for r in raw])
+        raw_p, tgt_p = os.path.join(tmp, "raw.tif"), os.path.join(tmp, "target.tif")
+        tiff.write_stack(raw_p, raw)
+        tiff.write_stack(tgt_p, tgt)
+        counts = {}
+
+        def serve(module, params, inputs, name):
+            submit_job(jobs, {"module": module, "params": params, "input": inputs,
+                              "output": os.path.join(tmp, f"out_{name}")})
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not server.poll_once():
+                raise AssertionError(f"job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
+                raise AssertionError(f"job {name}: launched a conv study kernel")
+            with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"job {name}: {status.get('error')}")
+            return status["outputs"], wall
+
+        out, wall = serve("build_gan_pairs", {}, [raw_p, tgt_p], "build_gan_pairs")
+        print(f"gan_train job build_gan_pairs: {out['n_examples']} pairs of 256x256 in {wall:.3f} s")
+        params = {"model": "gan_trained", "steps": 30, "batch_size": 4, "holdout_every": 4, "eval_every": 10,
+                  "checkpoint_every": 10, "log_every": 5, "ema_decay": 0.9}
+        out, wall = serve("train_gan", params, [os.path.join(tmp, "out_build_gan_pairs")], "train_gan")
+        with open(out["metrics_file"]) as f:
+            rows = [json.loads(line) for line in f]
+        tr = [r for r in rows if r["kind"] == "train"]
+        ev = [r for r in rows if r["kind"] == "eval"]
+        print(
+            f"gan_train job train_gan: 30 steps of 4x256x256 (GANConfig() widths, bf16) in {wall:.3f} s; "
+            f"g_loss {tr[0]['g_loss']:.4f} -> {tr[-1]['g_loss']:.4f}, d_loss {tr[0]['d_loss']:.4f} -> "
+            f"{tr[-1]['d_loss']:.4f}, {tr[-1]['steps_per_sec']:.3f} steps/s; evals "
+            + ", ".join(f"step {r['step']} psnr {r['eval_psnr']:.3f} dB" for r in ev)
+        )
+        if not all(np.isfinite(r["g_loss"]) and np.isfinite(r["d_loss"]) for r in tr) or not ev:
+            raise AssertionError("train_gan: non-finite loss or no eval")
+        out, wall = serve("enhancement_gan", {"model": "gan_trained"}, [raw_p], "enhance_trained")
+        served = tiff.read_stack(out["enhanced"])
+        # the registered files, loaded anew (folded at load) and served
+        # directly in the job's batches of 8 (its auto frame batch at 256x256)
+        _, cfg_t, model_t = load_model(models, "gan_trained", device="cuda")
+        tc_job = infer.TileConfig(patch=(256, 256), overlap=(0, 0), labels_dtype="uint16")
+        enhance = infer.make_gan_enhancer(cfg_t, tc_job, (256, 256), device="cuda")
+        batched = infer.cached_gan_enhancer(model_t.cfg, tc_job, (256, 256), 8, "cuda")
+        direct = np.concatenate([
+            batched(model_t, torch.from_numpy(raw[i:i + 8]).cuda()).cpu().numpy()[..., 0] for i in (0, 8)
+        ])
+        one = np.stack([enhance(model_t, torch.from_numpy(f).cuda()).cpu().numpy()[..., 0] for f in raw[:2]])
+        print(
+            f"gan_train job enhancement_gan on the trained model (16 frames, 8 a batch): equal to the registered "
+            f"weights served directly in the same batches {np.array_equal(direct, served)}; one frame a call "
+            f"differs by {float(np.abs(one - served[:2]).max()):.3g} (bf16 convs at another batch size)"
+        )
+        if not np.array_equal(direct, served):
+            raise AssertionError("the trained GAN's served output differs from its weights served directly")
+        out, wall = serve("evaluate_gan", {"model": "gan_trained"}, [raw_p, tgt_p], "evaluate_trained")
+        print(f"gan_train job evaluate_gan on the trained model: {out['metrics'][:300]} ({wall:.3f} s)")
+        want = {"build_gan_pairs": 0, "train_gan": 0, "enhance_trained": 2, "evaluate_trained": 4}
+        print(
+            "gan_train jobs quantile passes (histogram_2d launches): "
+            + ", ".join(f"{k} {counts[k][1]} ({counts[k][0]})" for k in want)
+            + " (expected 0 for the pair and train jobs, which normalize on the host; one a batch of 8 "
+            "frames a side for the serve and the evaluation)"
+        )
+        for k, n in want.items():
+            if counts[k] != (n, n):
+                raise AssertionError(f"job {k}: {counts[k]} launches/passes, expected {n}")
+        return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "train",
+    "serve", "evaluate", "train", "gan_train",
 )
 
 
@@ -2114,24 +2645,35 @@ def main(argv=None) -> int:
             "profile": lambda: profile_phase(torch, fixtures, unet),
             "instances": lambda: instances_phase(torch, smi_line),
             "serve": lambda: serve_phase(torch, hist, conv, smi_line),
+            "evaluate": lambda: evaluate_phase(torch, hist, conv, smi_line),
             "train": lambda: train_phase(torch, hist, conv, smi_line),
+            "gan_train": lambda: gan_train_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
         print(f"chip_smoke: ran only {', '.join(phases)}; no result line")
         return 0
 
-    entry = kernel_phase(torch, hist)
-    conv_entries = conv_kernel_phase(torch, conv)
-    studies_launches = studies_phase(torch, fixtures, unet, conv)
-    model_phase(torch, fixtures, unet)
-    polyphase_phase(torch, fixtures, unet)
-    volume_phase(torch, fixtures, unet)
-    enhance_phase(torch, fixtures, unet)
-    profile_phase(torch, fixtures, unet)
-    instances_phase(torch, smi_line)
-    counts = serve_phase(torch, hist, conv, smi_line)
-    counts.update(train_phase(torch, hist, conv, smi_line))
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    entry = timed("histogram", kernel_phase, hist)
+    conv_entries = timed("conv", conv_kernel_phase, conv)
+    studies_launches = timed("studies", studies_phase, fixtures, unet, conv)
+    timed("model", model_phase, fixtures, unet)
+    timed("polyphase", polyphase_phase, fixtures, unet)
+    timed("volume", volume_phase, fixtures, unet)
+    timed("enhance", enhance_phase, fixtures, unet)
+    timed("profile", profile_phase, fixtures, unet)
+    timed("instances", instances_phase, smi_line)
+    counts = timed("serve", serve_phase, hist, conv, smi_line)
+    evaluated = timed("evaluate", evaluate_phase, hist, conv, smi_line)
+    counts.update({f"eval_{k}": v for k, v in evaluated.items()})
+    counts.update(timed("train", train_phase, hist, conv, smi_line))
+    counts.update(timed("gan_train", gan_train_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -2145,7 +2687,10 @@ def main(argv=None) -> int:
         "pass; jobs j-m are segment_flows (Euler, doubling), segment_stars (polyphase) and the "
         "3D segment_flows; the training jobs build_records, train_unet2d (standard and polyphase) "
         "and train_unet3d normalize on the host and run none; serve_trained and "
-        "serve_trained_polyphase are the trained models' 4-frame jobs); the conv3x3 "
+        "serve_trained_polyphase are the trained models' 4-frame jobs; eval_* are the evaluate "
+        "phase's jobs and their serving twins: evaluate_gan and evaluate_denoise with the kernel "
+        "normalize run one pass a frame for each side, parity_check none; build_gan_pairs and "
+        "train_gan run none, the trained GAN's serve and evaluation one a batch of 8 frames a side); the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

@@ -14,9 +14,10 @@ Ported so far: the ``segmentation_unet2d`` serving path (percentile
 normalize on the histogram kernel, U-Net2D, standard or polyphase forward,
 tiling/stitch, labels.tif and objects.h5), 3D segmentation, GAN and N2V
 serving, the instance families' serving (``segment_flows``,
-``segment_stars``), U-Net training (standard or polyphase forward) and the
-conv studies (``studies``: the fused 3x3 conv kernels, Winograd, the
-polyphase A/B).
+``segment_stars``), the evaluation and parity jobs with the fidelity
+meters (``fidelity``), U-Net and GAN training (standard or polyphase
+forward) and the conv studies (``studies``: the fused 3x3 conv kernels,
+Winograd, the polyphase A/B).
 Subpackages import lazily so ``import sequitr_tpu_torch`` stays
 light.
 """
@@ -24,7 +25,7 @@ light.
 __version__ = "0.1.0"
 
 _LAZY = (
-    "config", "data", "localize", "models", "native", "ops", "pipeline",
+    "config", "data", "fidelity", "localize", "models", "native", "ops", "pipeline",
     "server", "studies", "utils",
 )
 

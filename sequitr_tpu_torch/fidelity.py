@@ -1,0 +1,444 @@
+"""Fidelity meters: the accuracy half of the port's numbers.
+
+Port of ``sequitr_tpu.fidelity``'s model meters. Each runs the served
+device path (bf16 compute on CUDA, ``normalize="auto"`` = the histogram
+kernel's quantile pass) AND an f32 reference with the exact percentile
+normalize, on identical committed fixture weights (``models.fixtures``)
+over identical fixed-seed synthetic scenes (``data.synthetic``), with the
+JAX package's fixtures, seeds, frame shapes and return keys:
+
+* ``seg_fidelity``: mIoU of the device labels against the reference's,
+  and both against the scene's truth;
+* ``gan_fidelity`` / ``n2v_fidelity``: PSNR/L1 of the enhanced or
+  denoised frames against the reference, and PSNR against the clean
+  target;
+* ``flows_fidelity`` / ``stars_fidelity``: Hungarian ap50 of the device
+  instances against the reference's, and against the truth;
+* ``train_fidelity``: relative loss deviation of the bf16 train step from
+  the f32 step over a few steps from one init on the same batches.
+
+The one deliberate difference from the JAX module: the reference runs on
+the SAME device as the served path (IEEE f32, TF32 off: ``utils.ieee_f32``),
+not on the CPU. A full-width 32x512x512 f32 reference on the card
+machine's CPU would take tens of seconds a volume; the port's f32 path on
+the card is held to the CPU's (and the CPU's to the JAX package's) by the
+model and instances checks and the CPU tests. On a CPU device both sides
+run f32 and the numbers read ~1.0, as the JAX module's do on a CPU host.
+
+``miou``, ``ap50`` and ``psnr_db`` are the measures themselves, shared
+with ``chip_smoke.py``. Meters run on ``device`` (default the CUDA card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from sequitr_tpu_torch.utils import resolve_device
+
+__all__ = [
+    "miou", "ap50", "psnr_db", "seg_fidelity", "gan_fidelity", "n2v_fidelity",
+    "flows_fidelity", "stars_fidelity", "train_fidelity",
+]
+
+
+def _device_dtype(device: torch.device) -> str:
+    """The served compute dtype: bf16 on the card, f32 on the CPU (the JAX
+    module's ``_device_dtype``: bf16 on its accelerator only)."""
+    return "bfloat16" if device.type == "cuda" else "float32"
+
+
+def _round(x: float, nd: int = 4) -> float:
+    return round(float(x), nd)
+
+
+def miou(a, b, k: int) -> float:
+    """Mean over classes of the IoU of two label maps (``losses.iou``: a
+    class absent from both scores 1.0)."""
+    from sequitr_tpu_torch.ops import losses
+
+    ious = losses.iou(torch.as_tensor(np.asarray(a)), torch.as_tensor(np.asarray(b)), k)
+    return float(np.nanmean(ious.numpy()))
+
+
+def ap50(want, got) -> float:
+    """Hungarian-matched instance AP at IoU 0.5 of ``got`` against ``want``."""
+    from sequitr_tpu_torch.ops import flows
+
+    return flows.average_precision(np.asarray(want), np.asarray(got), thresholds=(0.5,))["ap50"]
+
+
+def psnr_db(a, b) -> float:
+    """PSNR in dB of ``a`` against ``b`` over [0, 1] data (peak 1)."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10.0 * float(np.log10(1.0 / max(mse, 1e-12)))
+
+
+def _polyphase_covers(cfg, patch) -> bool:
+    """Whether the polyphase forward covers the (folded) model at ``patch``."""
+    from sequitr_tpu_torch.models import polyphase
+
+    run = dataclasses.replace(cfg, norm="none") if cfg.norm == "batch" else cfg
+    return polyphase.eligible3d(run, patch) if run.dims == 3 else polyphase.eligible(run, patch)
+
+
+def _maybe_polyphase(tc, cfg, patch):
+    """The device side serves polyphase where the model is covered, the
+    standard graph otherwise: a meter measures any fixture it is pointed
+    at."""
+    return dataclasses.replace(tc, polyphase=True) if _polyphase_covers(cfg, patch) else tc
+
+
+def _load(name: str, dtype: str, device):
+    from sequitr_tpu_torch.models import fixtures
+
+    _, cfg, model, _ = fixtures.load(name, compute_dtype=dtype, device=device)
+    return cfg, model
+
+
+def _host(t) -> np.ndarray:
+    return t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# segmentation: mIoU parity
+# ---------------------------------------------------------------------------
+
+
+def seg_fidelity(
+    fixture_name: str,
+    frame_shape: Tuple[int, ...] = (1024, 1024),
+    tc=None,
+    n: int = 4,
+    seed0: int = 424_000,
+    device=None,
+) -> Dict[str, Any]:
+    """mIoU of the served device path against the f32 exact reference.
+
+    ``frame_shape`` of length 3 evaluates the volumetric family on
+    synthetic z-stacks. ``tc`` overrides the tiling; normalize stays
+    ``"auto"`` on the device side and is ``"exact"`` on the reference side.
+    """
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.models import unet
+    from sequitr_tpu_torch.pipeline import infer
+
+    device = resolve_device(device)
+    shape = tuple(frame_shape)
+    cfg_dev, model_dev = _load(fixture_name, _device_dtype(device), device)
+    cfg_ref, model_ref = _load(fixture_name, "float32", device)
+    if tc is None:
+        tc = infer.TileConfig(patch=shape, overlap=(0,) * len(shape))
+    tc_ref = dataclasses.replace(tc, normalize="exact", polyphase=False)
+    fn_dev = infer.make_frame_inferrer(cfg_dev, tc, shape, device=device)
+    fn_ref = infer.make_frame_inferrer(cfg_ref, tc_ref, shape, device=device)
+    model_dev = unet.fold_batchnorm(model_dev)  # as the server loads it
+    k = cfg_dev.num_classes
+    agree, truth_dev, truth_ref = [], [], []
+    for i in range(n):
+        make = synthetic.cells_volume if len(shape) == 3 else synthetic.cells_frame
+        img, lab = make(seed0 + i, shape)
+        dev = _host(fn_dev(model_dev, img)[1])
+        ref = _host(fn_ref(model_ref, img)[1])
+        agree.append(miou(dev, ref, k))
+        truth_dev.append(miou(dev, lab, k))
+        truth_ref.append(miou(ref, lab, k))
+    return {
+        "miou_vs_ref": _round(np.mean(agree)),
+        "miou_truth": _round(np.mean(truth_dev)),
+        "miou_truth_ref": _round(np.mean(truth_ref)),
+        "n_frames": n,
+        "fixture": fixture_name,
+    }
+
+
+# ---------------------------------------------------------------------------
+# GAN enhancement and Noise2Void: PSNR parity
+# ---------------------------------------------------------------------------
+
+
+def gan_target(img: np.ndarray) -> np.ndarray:
+    """The clean target ``gan_denoise`` was trained toward: the exactly
+    normalized scene smoothed by a Gaussian of sigma 1.5."""
+    from scipy import ndimage
+
+    from sequitr_tpu_torch.ops import normalize as norm_ops
+
+    x01 = norm_ops.percentile_normalize(torch.from_numpy(np.asarray(img, np.float32)), 5.0, 99.5)
+    return ndimage.gaussian_filter(x01.numpy(), 1.5)
+
+
+def gan_fidelity(
+    fixture_name: str = "gan_denoise",
+    frame_shape: Tuple[int, int] = (1024, 1024),
+    n: int = 2,
+    seed0: int = 434_000,
+    device=None,
+) -> Dict[str, Any]:
+    """PSNR/L1 of the device enhancement path against the f32 reference,
+    and PSNR against the clean target (``gan_target``). The device side
+    serves polyphase where the generator is covered, as the JAX meter's."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.pipeline import infer
+
+    device = resolve_device(device)
+    shape = tuple(frame_shape)
+    tc = infer.TileConfig(patch=shape, overlap=(0, 0))
+    tc_ref = dataclasses.replace(tc, normalize="exact")
+
+    def enhancer(dtype, tcfg):
+        cfg, model = _load(fixture_name, dtype, device)
+        enhance = infer.make_gan_enhancer(cfg, tcfg, shape, device=device)
+        return lambda frame: _host(enhance(model, frame))[..., 0]
+
+    cfg_dev, _ = _load(fixture_name, _device_dtype(device), "cpu")
+    dev_fn = enhancer(_device_dtype(device), _maybe_polyphase(tc, cfg_dev.generator_config, shape))
+    ref_fn = enhancer("float32", tc_ref)
+    psnr_ref, l1_ref, psnr_tgt = [], [], []
+    for i in range(n):
+        img, _ = synthetic.cells_frame(seed0 + i, shape)
+        dev, ref = dev_fn(img), ref_fn(img)
+        psnr_ref.append(psnr_db(dev, ref))
+        l1_ref.append(float(np.mean(np.abs(dev - ref))))
+        psnr_tgt.append(psnr_db(dev, gan_target(img)))
+    return {
+        "psnr_vs_ref_db": _round(np.mean(psnr_ref), 2),
+        "l1_vs_ref": _round(np.mean(l1_ref), 6),
+        "psnr_target_db": _round(np.mean(psnr_tgt), 2),
+        "n_frames": n,
+        "fixture": fixture_name,
+    }
+
+
+def n2v_fidelity(
+    fixture_name: str = "n2v_cells",
+    frame_shape: Tuple[int, int] = (1024, 1024),
+    n: int = 2,
+    seed0: int = 515_000,
+    device=None,
+) -> Dict[str, Any]:
+    """PSNR of the device Noise2Void path against the f32 reference, and of
+    both the output and the noisy input against the clean render.
+    ``normalize="none"``: ``synthetic.denoise_pair`` scenes already lie in
+    the fixture's trained intensity scale. The device side serves
+    polyphase where the model is covered; the reference is the
+    untransformed f32 graph."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.pipeline import infer
+
+    device = resolve_device(device)
+    shape = tuple(frame_shape)
+    tc = infer.TileConfig(patch=shape, overlap=(0, 0), normalize="none")
+
+    def denoiser(dtype, tcfg):
+        cfg, model = _load(fixture_name, dtype, device)
+        den = infer.make_denoiser(cfg, tcfg, shape, device=device)
+        return lambda frame: _host(den(model, frame))[..., 0]
+
+    cfg_dev, _ = _load(fixture_name, _device_dtype(device), "cpu")
+    dev_fn = denoiser(_device_dtype(device), _maybe_polyphase(tc, cfg_dev, shape))
+    ref_fn = denoiser("float32", tc)
+    psnr_ref, psnr_truth, psnr_noisy = [], [], []
+    for i in range(n):
+        clean, noisy = synthetic.denoise_pair(seed0 + i, shape)
+        dev, ref = dev_fn(noisy), ref_fn(noisy)
+        psnr_ref.append(psnr_db(dev, ref))
+        psnr_truth.append(psnr_db(dev, clean))
+        psnr_noisy.append(psnr_db(noisy, clean))
+    return {
+        "psnr_vs_ref_db": _round(np.mean(psnr_ref), 2),
+        "psnr_truth_db": _round(np.mean(psnr_truth), 2),
+        "psnr_noisy_db": _round(np.mean(psnr_noisy), 2),
+        "n_frames": n,
+        "fixture": fixture_name,
+    }
+
+
+# ---------------------------------------------------------------------------
+# instance segmentation: Hungarian-AP parity
+# ---------------------------------------------------------------------------
+
+
+def instance_pass(name, dtype, normalize, device, polyphase=False, spatial=(1024, 1024), model=None):
+    """``frame -> (a, b)`` on the host: the serving pass of a committed
+    instance fixture (``stars_cells``: prob and ray distances; any other:
+    the flows pass, final positions and prob) or of ``model`` (its own
+    configuration), at ``dtype``, on ``device``."""
+    from sequitr_tpu_torch.pipeline import infer
+
+    if model is None:
+        cfg, model = _load(name, dtype, device)
+    else:
+        cfg = model.cfg
+    spatial = tuple(spatial)
+    tc = infer.TileConfig(
+        patch=spatial, overlap=(0,) * len(spatial), normalize=normalize, polyphase=polyphase
+    )
+    if name == "stars_cells":
+        fn = infer.make_stars_predictor(cfg, tc, spatial, device=device)
+    else:
+        fn = infer.make_flows_segmenter(cfg, tc, spatial, device=device)
+    return lambda frame: tuple(_host(t) for t in fn(model, frame))
+
+
+def instances_of(name, a, b):
+    """The host half: polygon NMS (``stars_cells``) or sink grouping."""
+    from sequitr_tpu_torch.ops import flows, stardist
+
+    if name == "stars_cells":
+        return stardist.instances_from_rays(a, b)
+    return flows.group_sinks(a, b > 0.5)
+
+
+def _instance_fidelity(name, frame_shape, n, seed0, device, polyphase):
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.ops import flows
+
+    device = resolve_device(device)
+    shape = tuple(frame_shape)
+    dtype = _device_dtype(device)
+    poly = polyphase and _polyphase_covers(_load(name, dtype, "cpu")[0], shape)
+    dev_fn = instance_pass(name, dtype, "auto", device, polyphase=poly, spatial=shape)
+    ref_fn = instance_pass(name, "float32", "exact", device, spatial=shape)
+    ap_ref, ap_truth, iou_truth = [], [], []
+    for i in range(n):
+        img, lab = synthetic.instances_frame(seed0 + i, shape)
+        dev = instances_of(name, *dev_fn(img))
+        ref = instances_of(name, *ref_fn(img))
+        ap_ref.append(ap50(ref, dev))
+        t = flows.average_precision(lab, dev)
+        ap_truth.append(t["ap50"])
+        iou_truth.append(t["mean_matched_iou"])
+    return {
+        "ap50_vs_ref": _round(np.mean(ap_ref)),
+        "ap50_truth": _round(np.mean(ap_truth)),
+        "matched_iou_truth": _round(np.mean(iou_truth)),
+        "n_frames": n,
+        "fixture": name,
+    }
+
+
+def flows_fidelity(
+    fixture_name: str = "flows_cells",
+    frame_shape: Tuple[int, int] = (1024, 1024),
+    n: int = 2,
+    seed0: int = 717_000,
+    device=None,
+) -> Dict[str, Any]:
+    """Instance AP of the device flows path (``segment_flows``' pass: the
+    flow integration on the device, the sink grouping on the host) against
+    the f32 reference's instances (``ap50_vs_ref``) and the scene's truth
+    (``ap50_truth``, ``matched_iou_truth``)."""
+    return _instance_fidelity(fixture_name, frame_shape, n, seed0, device, polyphase=False)
+
+
+def stars_fidelity(
+    fixture_name: str = "stars_cells",
+    frame_shape: Tuple[int, int] = (1024, 1024),
+    n: int = 2,
+    seed0: int = 717_000,
+    device=None,
+) -> Dict[str, Any]:
+    """Instance AP of the device stars path (``segment_stars``' pass, served
+    polyphase where covered, then the host NMS) against the f32
+    reference's instances and the scene's truth."""
+    from sequitr_tpu_torch.models import fixtures
+
+    if fixture_name not in fixtures.manifest():
+        raise KeyError(f"stars_fidelity: fixture {fixture_name!r} is not committed")
+    return _instance_fidelity(fixture_name, frame_shape, n, seed0, device, polyphase=True)
+
+
+# ---------------------------------------------------------------------------
+# training: loss-trajectory parity
+# ---------------------------------------------------------------------------
+
+
+def train_fidelity(
+    kind: str = "unet2d", steps: int = 4, batch: int = 4, size: int = 128,
+    seed: int = 7, polyphase: bool = False, device=None,
+) -> Dict[str, Any]:
+    """Relative loss deviation of the device train step (bf16 on the card)
+    from the f32 step on the same device: one init, the same synthetic
+    batches and the same augmentation draws a step, so the compute dtype
+    (and with ``polyphase`` the phase-domain forward) is the only
+    difference. ``kind``: ``unet2d``, ``unet3d`` or ``gan`` (whose metric
+    is ``g_loss``). Reported as the largest per-step ``|dev - ref| /
+    |ref|`` with both final losses."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.models import gan as gan_lib
+    from sequitr_tpu_torch.models import unet
+    from sequitr_tpu_torch.pipeline import fit, train
+
+    device = resolve_device(device)
+    is_gan = kind == "gan"
+    dims = 3 if kind == "unet3d" else 2
+    dtype = _device_dtype(device)
+    if is_gan:
+        cfg_dev = gan_lib.GANConfig(compute_dtype=dtype)
+        tc = train.TrainConfig(learning_rate=2e-4, beta1=0.5, augment=False)
+    else:
+        cfg_dev = unet.UNetConfig(
+            in_channels=1, num_classes=3, dims=dims,
+            depth=3 if dims == 3 else 4,
+            base_features=32, features_cap=256 if dims == 3 else 512,
+            compute_dtype=dtype,
+        )
+        tc = train.TrainConfig(augment=True)
+    cfg_ref = dataclasses.replace(cfg_dev, compute_dtype="float32")
+
+    def normalized(img):
+        lo, hi = np.percentile(img, [5.0, 99.5])
+        return np.clip((img - lo) / max(hi - lo, 1e-8), 0, 1).astype(np.float32)
+
+    batches = []
+    for s in range(steps):
+        seeds = [seed * 1000 + s * batch + b for b in range(batch)]
+        if is_gan:
+            from scipy import ndimage
+
+            xs = [normalized(synthetic.cells_frame(sd, (size, size))[0]) for sd in seeds]
+            ys = [ndimage.gaussian_filter(x, 1.5).astype(np.float32) for x in xs]
+            batches.append({"input": np.stack(xs)[..., None], "target": np.stack(ys)[..., None]})
+            continue
+        scenes = [
+            synthetic.cells_volume(sd, (8, size, size)) if dims == 3
+            else synthetic.cells_frame(sd, (size, size))
+            for sd in seeds
+        ]
+        labs = np.stack([lab for _, lab in scenes])
+        batches.append({
+            "image": np.stack([normalized(img) for img, _ in scenes])[..., None],
+            "labels": labs.astype(np.int32),
+            "weights": np.ones(labs.shape, np.float32),
+        })
+
+    def run(cfg, run_tc):
+        init = torch.Generator().manual_seed(0)
+        if is_gan:
+            state = train.create_gan_state(cfg, run_tc, init, device)
+            step, metric = train.make_gan_train_step(cfg, run_tc), "g_loss"
+        else:
+            state = train.create_unet_state(cfg, run_tc, init, device)
+            step, metric = train.make_unet_train_step(cfg, run_tc), "loss"
+        out = []
+        for s, b in enumerate(batches):
+            b = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+            state, metrics = step(state, b, fit.step_generator(1, s))
+            out.append(float(metrics[metric]))
+        return out
+
+    # polyphase grades the phase-domain step against the STANDARD f32 step:
+    # one bound covering the reformulation and the dtype together
+    dev = run(cfg_dev, dataclasses.replace(tc, polyphase=True) if polyphase else tc)
+    ref = run(cfg_ref, tc)
+    devs = [abs(d - r) / max(abs(r), 1e-8) for d, r in zip(dev, ref)]
+    return {
+        "loss_rel_dev_max": _round(max(devs), 4),
+        "loss_final_dev": _round(dev[-1], 4),
+        "loss_final_ref": _round(ref[-1], 4),
+        "steps": steps,
+    }

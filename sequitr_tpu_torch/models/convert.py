@@ -30,7 +30,7 @@ from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
-    "build", "load_flat", "to_flat", "load_train_state", "conv_to_torch",
+    "build", "load_flat", "to_flat", "nest_flat", "load_train_state", "conv_to_torch",
     "conv_from_torch", "pack_conv3x3",
 ]
 
@@ -143,6 +143,35 @@ def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
             arr = np.transpose(arr, _inverse(axes))
         flat[_flat_key(key)] = np.ascontiguousarray(arr)
     return flat
+
+
+def nest_flat(flat: Mapping[str, np.ndarray]):
+    """The flat interchange dict as the JAX package's nested pytrees:
+    ``(params, state)``, '/'-paths split into dicts, numeric components
+    into lists (``enc/0/conv1/w`` -> ``params["enc"][0]["conv1"]["w"]``),
+    arrays as stored (HWIO kernels); ``state/`` keys go to ``state``."""
+
+    def insert(tree: dict, parts, value):
+        for part in parts[:-1]:
+            tree = tree.setdefault(part, {})
+        tree[parts[-1]] = value
+
+    def listify(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {k: listify(v) for k, v in tree.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    params: dict = {}
+    state: dict = {}
+    for key, value in flat.items():
+        if key.startswith(_STATE):
+            insert(state, key[len(_STATE):].split("/"), np.asarray(value))
+        else:
+            insert(params, key.split("/"), np.asarray(value))
+    return listify(params), listify(state)
 
 
 _OPT = "opt/"

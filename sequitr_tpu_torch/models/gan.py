@@ -13,15 +13,18 @@ where the kernel is even: a k4 stride-1 conv pads (1, 2) on each axis, a
 k4 stride-2 conv on an even axis (1, 1) — the discriminator pads
 explicitly, per axis, as ``jax.lax.conv_general_dilated`` does.
 
-The serving forward is the generator (``generator_apply``); the
-discriminator is here so a ``gan`` model's weights cross whole (flat keys
-``gen/...``, ``disc/...`` and ``state/gen/...``, ``models.convert``).
+The serving forward is the generator (``generator_apply``); training runs
+the generator in train mode (``generator_train``: batch statistics, the
+new running statistics returned) and the discriminator on (input, output)
+pairs. A ``gan`` model's weights cross whole (flat keys ``gen/...``,
+``disc/...`` and ``state/gen/...``, ``models.convert``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+import math
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -31,7 +34,8 @@ from sequitr_tpu_torch.models import unet as unet_lib
 from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
-    "GANConfig", "GAN", "generator_apply", "discriminator_apply", "fold_generator",
+    "GANConfig", "GAN", "init", "generator_apply", "generator_train",
+    "discriminator_apply", "fold_generator",
 ]
 
 _ACTIVATIONS = ("sigmoid", "tanh", "linear")
@@ -107,9 +111,40 @@ class GAN(nn.Module):
         self.disc = _Discriminator(cfg, device)
 
 
+def init(
+    cfg: GANConfig,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device, None] = None,
+) -> GAN:
+    """A ``GAN`` of ``cfg`` with the JAX package's initialisation
+    (``gan.init``): the generator as ``unet.init`` draws it, then every
+    discriminator kernel He-normal (``N(0, 1) * sqrt(2 / fan_in)``,
+    ``fan_in = 16 * c_in``) in order (the strided convs, the penultimate,
+    the head), biases zero. Draws come from ``generator`` on the CPU; the
+    values differ from ``jax.random``'s."""
+    model = GAN(cfg, device="cpu")
+    with torch.no_grad():
+        model.gen.load_state_dict(unet_lib.init(cfg.generator_config, generator, "cpu").state_dict())
+        disc = model.disc
+        for conv in [*disc.convs, disc.penultimate, disc.head]:
+            shape = conv.w.shape
+            fan_in = math.prod(shape[1:])
+            draw = torch.randn(shape, generator=generator, dtype=torch.float32)
+            conv.w.copy_(draw * math.sqrt(2.0 / fan_in))
+    return model.to(resolve_device(device))
+
+
 def generator_apply(model: GAN, x: torch.Tensor) -> torch.Tensor:
     """Enhance ``x`` (N, H, W, C_in) -> (N, H, W, C_out), f32."""
     return activate(model.cfg, model.gen(x))
+
+
+def generator_train(model: GAN, x: torch.Tensor) -> Tuple[torch.Tensor, List[unet_lib.BNStats]]:
+    """The generator in train mode (``generator_apply(train=True)``):
+    ``(activated output, new running statistics)``, the statistics as
+    ``UNet.forward_train`` returns them (``UNet.set_bn_stats`` commits them)."""
+    y, stats = model.gen.forward_train(x)
+    return activate(model.cfg, y), stats
 
 
 def activate(cfg: GANConfig, y: torch.Tensor) -> torch.Tensor:

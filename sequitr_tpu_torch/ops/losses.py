@@ -18,6 +18,8 @@ import torch.nn.functional as F
 __all__ = [
     "weighted_softmax_cross_entropy",
     "sigmoid_bce_with_logits",
+    "gan_discriminator_loss",
+    "gan_generator_loss",
     "l1_loss",
     "iou",
     "dice",
@@ -57,6 +59,25 @@ def sigmoid_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torc
         torch.clamp(logits, min=0.0) - logits * targets
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )
+
+
+def gan_discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor) -> torch.Tensor:
+    """Vanilla (non-saturating) GAN discriminator loss on patch logits."""
+    loss_real = sigmoid_bce_with_logits(real_logits, torch.ones_like(real_logits))
+    loss_fake = sigmoid_bce_with_logits(fake_logits, torch.zeros_like(fake_logits))
+    return 0.5 * (loss_real + loss_fake)
+
+
+def gan_generator_loss(
+    fake_logits: torch.Tensor,
+    fake_images: torch.Tensor,
+    target_images: torch.Tensor,
+    l1_weight: float = 100.0,
+) -> torch.Tensor:
+    """pix2pix generator objective: adversarial + ``l1_weight`` * L1 (100,
+    the pix2pix paper's weight, as the JAX package)."""
+    adv = sigmoid_bce_with_logits(fake_logits, torch.ones_like(fake_logits))
+    return adv + l1_weight * l1_loss(fake_images, target_images)
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

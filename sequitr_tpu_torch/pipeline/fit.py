@@ -1,5 +1,5 @@
-"""The training loop: record shards in, trained checkpoint out (port of the
-U-Net part of ``sequitr_tpu.pipeline.fit``).
+"""The training loops: record shards in, trained checkpoint out (port of the
+U-Net and GAN parts of ``sequitr_tpu.pipeline.fit``).
 
 An epoch loop over shuffled record shards, host-to-device prefetch, the
 train step, periodic checkpoints (``step_*``, pruned to the newest
@@ -12,7 +12,9 @@ Each step's augmentation draws from a generator seeded with (seed, global
 step), and a resumed run skips the batches the interrupted run consumed,
 so an interrupted run resumed from its checkpoint takes the same steps as
 one that ran through. (The JAX package restarts the record stream on
-resume.) The GAN, N2V and spatial trainers are later slices of the port.
+resume.) ``fit_gan`` trains the enhancement GAN from (input, target) pair
+shards (``encode_pair``), its EMA over the generator alone; the N2V,
+flows, stars and spatial trainers are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from sequitr_tpu_torch.data import records as records_lib
 from sequitr_tpu_torch.data.prefetch import ShardIterator, load_holdout, prefetch_to_device
+from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import unet
 from sequitr_tpu_torch.ops import losses
 from sequitr_tpu_torch.pipeline import train as train_lib
@@ -40,7 +43,7 @@ log = logging.getLogger("sequitr_tpu_torch.fit")
 
 __all__ = [
     "FitConfig", "MetricsLogger", "Distill", "TrainingCancelled", "fit_unet",
-    "latest_checkpoint", "step_generator",
+    "fit_gan", "encode_pair", "latest_checkpoint", "step_generator",
 ]
 
 
@@ -160,11 +163,13 @@ def _run_loop(
     eval_fn: Optional[Callable] = None,
     should_stop: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[int, int], None]] = None,
-) -> train_lib.TrainState:
+    ema_select: Optional[Callable] = None,
+):
     """Drive ``step_fn`` up to ``fc.steps`` total steps (a resumed state runs
     the rest); checkpoints are named by global step. ``eval_fn(state, g)``
     runs every ``fc.eval_every`` steps (default: every checkpoint) and at
-    the end."""
+    the end. ``ema_select(state)``: the parameters the EMA averages
+    (default all of ``state.params``)."""
     if fc.early_stop_patience and not fc.keep_best_metric:
         raise ValueError("early_stop_patience requires keep_best_metric (the monitored eval metric)")
     if not 0.0 <= fc.ema_decay < 1.0:
@@ -174,10 +179,11 @@ def _run_loop(
     start = int(state.step)
     todo = max(0, fc.steps - start)
     ema = None
+    ema_params = ema_select or (lambda s: s.params)
     if fc.ema_decay:
         # a copy of the current weights; a resumed run restores the twin of
         # the checkpoint it resumed from
-        ema = [p.detach().clone() for p in state.params]
+        ema = [p.detach().clone() for p in ema_params(state)]
         if start > 0 and ckpt_dir:
             resumed = latest_checkpoint(ckpt_dir)
             if resumed and os.path.isdir(_ema_twin(resumed)):
@@ -266,7 +272,7 @@ def _run_loop(
             g = start + i + 1  # global step after this update
             state, metrics = step_fn(state, batch, step_generator(fc.seed, g - 1))
             if ema is not None:
-                _ema_update(ema, state.params, fc.ema_decay)
+                _ema_update(ema, ema_params(state), fc.ema_decay)
             seen += 1
             if progress is not None:
                 progress(g, fc.steps)
@@ -403,4 +409,97 @@ def fit_unet(
     return _run_loop(
         state, step, batches, fc, ckpt_dir, metric_keys, eval_fn=eval_fn,
         should_stop=should_stop, progress=progress,
+    )
+
+
+def _decode_pair(payload: bytes) -> Dict[str, np.ndarray]:
+    f = records_lib.decode_example(payload)
+    shape = tuple(int(v) for v in f["image/shape"])
+    x = np.frombuffer(f["input/encoded"][0], dtype="<f4").reshape(shape)
+    y = np.frombuffer(f["target/encoded"][0], dtype="<f4").reshape(shape)
+    return {"input": x[..., None], "target": y[..., None]}
+
+
+def encode_pair(x: np.ndarray, y: np.ndarray) -> bytes:
+    """Encode a GAN training pair (raw, clean) as a record payload."""
+    x = np.asarray(x, np.float32)
+    return records_lib.encode_example(
+        {
+            "input/encoded": x.astype("<f4").tobytes(),
+            "target/encoded": np.asarray(y, np.float32).astype("<f4").tobytes(),
+            "image/shape": list(x.shape),
+        }
+    )
+
+
+def _make_gan_evaluator(
+    cfg: gan_lib.GANConfig, fc: FitConfig, shard_paths: Sequence[str], device: torch.device
+) -> Optional[Callable]:
+    """Holdout evaluator for the GAN: the inference-mode generator's L1 and
+    PSNR against the targets (``eval_l1``, ``eval_psnr``); optionally dumps
+    the first holdout output as a TIFF an eval."""
+    holdout = load_holdout(shard_paths, _decode_pair, fc.holdout_every, fc.eval_limit)
+    if holdout is None:
+        log.warning("holdout_every=%d produced no eval examples", fc.holdout_every)
+        return None
+    x = torch.as_tensor(holdout["input"], device=device)
+    y = torch.as_tensor(holdout["target"], device=device)
+    dump = (
+        os.path.dirname(os.path.abspath(fc.metrics_path))
+        if fc.dump_eval_images and fc.metrics_path else None
+    )
+
+    def eval_fn(state, g):
+        with torch.inference_mode():
+            fake = gan_lib.generator_apply(state.model, x).to(torch.float32)
+            l1 = torch.mean(torch.abs(fake - y))
+            mse = torch.mean((fake - y) ** 2)
+        # data is [0, 1]-normalized: PSNR's peak is 1
+        psnr = -10.0 * np.log10(max(float(mse), 1e-12))
+        if dump:
+            from sequitr_tpu_torch.data import tiff
+
+            tiff.write_stack(
+                os.path.join(dump, f"eval_enhanced_{g:08d}.tif"),
+                fake[0, ..., 0].cpu().numpy().astype(np.float32),
+            )
+        return {"eval_l1": float(l1), "eval_psnr": psnr}
+
+    return eval_fn
+
+
+def fit_gan(
+    cfg: gan_lib.GANConfig,
+    tc: train_lib.TrainConfig,
+    fc: FitConfig,
+    shard_paths: Sequence[str],
+    ckpt_dir: Optional[str] = None,
+    init_state: Optional[train_lib.GANTrainState] = None,
+    l1_weight: float = 100.0,
+    should_stop: Optional[Callable[[], bool]] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> train_lib.GANTrainState:
+    """Train the enhancement GAN from (input, target) pair shards on
+    ``device`` (default the card); returns the final state. ``init_state``
+    (fresh or restored) replaces ``gan.init`` from ``fc.seed``; a state at
+    step ``s`` > 0 skips the first ``s`` batches. The EMA (``ema_decay``)
+    averages the generator only: serving runs the generator alone."""
+    device = resolve_device(device)
+    _check_keep_best(fc, {"eval_l1", "eval_psnr"})
+    state = init_state or train_lib.create_gan_state(
+        cfg, tc, torch.Generator().manual_seed(fc.seed), device
+    )
+    step = train_lib.make_gan_train_step(cfg, tc, l1_weight=l1_weight)
+    it = ShardIterator(
+        shard_paths, _decode_pair, fc.batch_size, seed=fc.seed,
+        shuffle_buffer=fc.shuffle_buffer, holdout_every=fc.holdout_every,
+    )
+    eval_fn = _make_gan_evaluator(cfg, fc, shard_paths, device) if fc.holdout_every else None
+    host = itertools.islice(iter(it), int(state.step), None)
+    batches = prefetch_to_device(host, depth=fc.prefetch_depth, device=device)
+    return _run_loop(
+        state, step, batches, fc, ckpt_dir, ("d_loss", "g_loss"),
+        eval_fn=eval_fn, should_stop=should_stop, progress=progress,
+        ema_select=lambda s: list(s.model.gen.parameters()),
     )

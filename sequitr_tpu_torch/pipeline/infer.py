@@ -442,12 +442,15 @@ def _make_batch_map(
     device: torch.device,
     forward_of: Callable,
     out_channels: int,
+    with_input: bool = False,
 ) -> Callable:
     """``run(model, frames) -> (B, *spatial, out_channels)`` in
     ``tc.probs_dtype``: normalize, TTA over tiled ``forward_of(model)``,
     Hann stitch; no softmax, no edge padding (the regression serves of the
     GAN enhancer and the denoiser). ``run_cfg``: the folded network's
-    ``UNetConfig``, for the polyphase gate."""
+    ``UNetConfig``, for the polyphase gate. ``with_input``: ``run`` returns
+    ``(out, x)``, ``x`` the normalized f32 input the network saw (one
+    normalize serves both)."""
     spatial = tuple(frame_spatial)
     nd = len(spatial)
     grid = tiling.tile_grid(spatial, tc.patch, tc.overlap)
@@ -466,8 +469,8 @@ def _make_batch_map(
                 lambda xi: tiled_apply(forward, xi, grid, spatial, tc, out_channels),
                 x,
                 variants,
-            )
-            return out.to(out_dtype)
+            ).to(out_dtype)
+            return (out, x) if with_input else out
 
     return run
 
@@ -476,7 +479,12 @@ def _single_or_batch(run: Callable, batch: Optional[int]) -> Callable:
     """``run(model, frames)`` as ``fn(model, frame)`` (``batch=None``) or as
     ``fn(model, frames)`` over exactly ``batch`` frames."""
     if batch is None:
-        return lambda model, frame: run(model, torch.as_tensor(frame)[None])[0]
+
+        def one(model, frame):
+            out = run(model, torch.as_tensor(frame)[None])
+            return tuple(t[0] for t in out) if isinstance(out, tuple) else out[0]
+
+        return one
 
     def fn(model, frames):
         if len(frames) != batch:
@@ -529,7 +537,9 @@ def cached_gan_enhancer(
     return _single_or_batch(_gan_batch_map(cfg, tc, frame_spatial, device), batch)
 
 
-def _unet_batch_map(cfg: UNetConfig, tc: TileConfig, frame_spatial, device) -> Callable:
+def _unet_batch_map(
+    cfg: UNetConfig, tc: TileConfig, frame_spatial, device, with_input: bool = False
+) -> Callable:
     """``_make_batch_map`` over a regression U-Net's raw head (the
     denoiser's, the flows' and the stars'), BN folded once per model."""
     def forward_of(model):
@@ -538,7 +548,8 @@ def _unet_batch_map(cfg: UNetConfig, tc: TileConfig, frame_spatial, device) -> C
 
     run_cfg = dataclasses.replace(cfg, norm="none")
     return _make_batch_map(
-        run_cfg, tc, frame_spatial, resolve_device(device), forward_of, cfg.num_classes
+        run_cfg, tc, frame_spatial, resolve_device(device), forward_of, cfg.num_classes,
+        with_input,
     )
 
 
@@ -565,9 +576,15 @@ def cached_denoiser(
     frame_spatial: Tuple[int, ...],
     batch: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
+    with_input: bool = False,
 ) -> Callable:
-    """Process-wide cache of denoisers (``cached_gan_enhancer``'s forms)."""
-    return _single_or_batch(_unet_batch_map(cfg, tc, frame_spatial, device), batch)
+    """Process-wide cache of denoisers (``cached_gan_enhancer``'s forms).
+    ``with_input``: each call returns ``(denoised, x)``, ``x`` the
+    normalized f32 input (``evaluate_denoise`` scores the noisy input on
+    it without a second normalize)."""
+    return _single_or_batch(
+        _unet_batch_map(cfg, tc, frame_spatial, device, with_input), batch
+    )
 
 
 def make_flows_segmenter(

@@ -1,4 +1,5 @@
-"""U-Net training step (port of the U-Net part of ``sequitr_tpu.pipeline.train``).
+"""U-Net and GAN training steps (port of the U-Net and GAN parts of
+``sequitr_tpu.pipeline.train``).
 
 records in -> augmentation on the device -> forward -> weighted CE ->
 optax's Adam (``pipeline.optim``) -> batch-norm statistics, as the JAX
@@ -10,8 +11,11 @@ its step inside ``utils.ieee_f32`` (no TF32).
 
 ``TrainConfig.polyphase`` trains through ``models.polyphase.apply_train``
 (``apply3d_train`` for volumes): the same model, level 0 in the phase
-domain. The JAX package's GAN, N2V, flows and stars steps are later slices
-of the port.
+domain. The GAN step (``make_gan_train_step``) is the JAX package's
+pix2pix update: one train-mode generator forward a step, the
+discriminator stepped on the detached fake, then the generator's loss
+taken through the updated discriminator from the same fake. The JAX
+package's N2V, flows and stars steps are a later slice of the port.
 Checkpoints are PyTorch files in the directory layout of ``pipeline.fit``
 in place of orbax.
 """
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import polyphase, unet
 from sequitr_tpu_torch.ops import augment as aug
 from sequitr_tpu_torch.ops import losses
@@ -39,6 +44,9 @@ __all__ = [
     "create_unet_state",
     "make_unet_train_step",
     "make_unet_distill_step",
+    "GANTrainState",
+    "create_gan_state",
+    "make_gan_train_step",
     "save_checkpoint",
     "restore_checkpoint",
 ]
@@ -253,22 +261,123 @@ def make_unet_distill_step(
 
 
 # ---------------------------------------------------------------------------
+# GAN training (the alternating D and G updates of one step)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GANTrainState:
+    """The ``GAN`` (generator and discriminator parameters, the generator's
+    batch-norm statistics), one optimizer state each and the step count;
+    updated in place by the train step."""
+
+    model: gan_lib.GAN
+    gen_opt_state: optim.OptState
+    disc_opt_state: optim.OptState
+    step: int = 0
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+
+def create_gan_state(
+    cfg: gan_lib.GANConfig,
+    tc: TrainConfig,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device, None] = None,
+    model: Optional[gan_lib.GAN] = None,
+) -> GANTrainState:
+    """A fresh GAN train state: ``gan.init`` from ``generator`` (or
+    ``model``), parameters taking gradients, zero moments for the
+    generator's and the discriminator's optimizers."""
+    if model is None:
+        model = gan_lib.init(cfg, generator, device)
+    model.requires_grad_(True)
+    opt = tc.make_optimizer()
+    return GANTrainState(
+        model, opt.init(list(model.gen.parameters())), opt.init(list(model.disc.parameters())), 0
+    )
+
+
+def make_gan_train_step(cfg: gan_lib.GANConfig, tc: TrainConfig, l1_weight: float = 100.0) -> Callable:
+    """``step(state, batch, generator=None) -> (state, metrics)``.
+
+    ``batch``: ``input`` (N, H, W, C_in) raw and ``target`` (N, H, W,
+    C_out) clean images on the state's device (``generator`` is unused:
+    the GAN trains without augmentation). The generator runs its
+    train-mode forward ONCE (``gan.generator_train``, or
+    ``polyphase.apply_train`` plus the output activation under
+    ``tc.polyphase``); the discriminator steps on (real, detached fake);
+    the generator's loss (adversarial through the UPDATED discriminator +
+    ``l1_weight`` * L1) backpropagates from that same fake, and only into
+    the generator. Metrics ``d_loss``, ``g_loss``: 0-d tensors.
+    """
+    optimizer = tc.make_optimizer()
+    gcfg = cfg.generator_config
+    if tc.polyphase:
+        forward = _train_forward(gcfg, tc)
+
+        def generate(model, x):
+            y, stats = forward(model.gen, x)
+            return gan_lib.activate(cfg, y), stats
+    else:
+        generate = gan_lib.generator_train
+
+    def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None):
+        model = state.model
+        gen_params = list(model.gen.parameters())
+        disc_params = list(model.disc.parameters())
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            x, y_real = batch["input"], batch["target"]
+            fake, stats = generate(model, x)
+
+            # the discriminator's update: the generator frozen (detached fake)
+            fake_d = fake.detach()
+            d_loss = losses.gan_discriminator_loss(
+                gan_lib.discriminator_apply(model, x, y_real),
+                gan_lib.discriminator_apply(model, x, fake_d),
+            )
+            d_grads = torch.autograd.grad(d_loss, disc_params)
+            optimizer.update(disc_params, d_grads, state.disc_opt_state)
+
+            # the generator's update: the same fake through the new
+            # discriminator, gradients taken for the generator alone
+            g_loss = losses.gan_generator_loss(
+                gan_lib.discriminator_apply(model, x, fake), fake, y_real, l1_weight
+            )
+            g_grads = torch.autograd.grad(g_loss, gen_params)
+            optimizer.update(gen_params, g_grads, state.gen_opt_state)
+            model.gen.set_bn_stats(stats)
+        state.step += 1
+        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # checkpoints: one PyTorch file a directory (pipeline.fit's layout)
 # ---------------------------------------------------------------------------
 
 _FILE = "state.pt"
 
 
-def save_checkpoint(path: str, state: Union[TrainState, Sequence[torch.Tensor]]) -> None:
-    """Save a ``TrainState`` (module state dict, optimizer state, step) or a
-    list of tensors (an EMA of the parameters) as ``path/state.pt``,
-    replacing ``path`` whole: written under a temporary name, then renamed."""
-    if isinstance(state, TrainState):
-        obj = {
-            "model": state.model.state_dict(),
-            "opt": state.opt_state.state_dict(),
-            "step": int(state.step),
-        }
+def _opt_states(state) -> Dict[str, optim.OptState]:
+    if isinstance(state, GANTrainState):
+        return {"gen_opt": state.gen_opt_state, "disc_opt": state.disc_opt_state}
+    return {"opt": state.opt_state}
+
+
+def save_checkpoint(
+    path: str, state: Union[TrainState, GANTrainState, Sequence[torch.Tensor]]
+) -> None:
+    """Save a ``TrainState`` or ``GANTrainState`` (module state dict,
+    optimizer states, step) or a list of tensors (an EMA of parameters) as
+    ``path/state.pt``, replacing ``path`` whole: written under a temporary
+    name, then renamed."""
+    if isinstance(state, (TrainState, GANTrainState)):
+        obj = {"model": state.model.state_dict(), "step": int(state.step)}
+        obj.update({k: o.state_dict() for k, o in _opt_states(state).items()})
     else:
         obj = {"tensors": [t.detach() for t in state]}
     tmp = f"{path}.tmp"
@@ -280,17 +389,16 @@ def save_checkpoint(path: str, state: Union[TrainState, Sequence[torch.Tensor]])
 
 
 def restore_checkpoint(path: str, target):
-    """Load ``path`` into ``target`` in place (a ``TrainState``, or a list
-    of tensors for an EMA) and return it."""
-    if isinstance(target, TrainState):
-        device = next(target.model.parameters()).device
-    else:
-        device = target[0].device
+    """Load ``path`` into ``target`` in place (a ``TrainState`` or
+    ``GANTrainState``, or a list of tensors for an EMA) and return it."""
+    is_state = isinstance(target, (TrainState, GANTrainState))
+    device = next(target.model.parameters()).device if is_state else target[0].device
     obj = torch.load(os.path.join(path, _FILE), map_location=device, weights_only=True)
     with torch.no_grad():
-        if isinstance(target, TrainState):
+        if is_state:
             target.model.load_state_dict(obj["model"])
-            target.opt_state.load_state_dict(obj["opt"])
+            for key, opt_state in _opt_states(target).items():
+                opt_state.load_state_dict(obj[key])
             target.step = int(obj["step"])
         else:
             for dst, src in zip(target, obj["tensors"]):

@@ -1,15 +1,19 @@
-"""Enhancement/denoising serving: ``enhancement_gan`` and ``denoise``.
+"""Enhancement/denoising: ``enhancement_gan``, ``denoise`` and their
+evaluators ``evaluate_gan`` and ``evaluate_denoise``.
 
-Port of the serving jobs of ``sequitr_tpu.server.pipelines.gan_denoise``:
-the pix2pix generator pass (``enhanced.tif``) and the Noise2Void pass
-(``denoised.tif``, 2D stacks and volume sequences), with the same params,
-outputs and metrics. Frames stream through the cached enhancer/denoiser two
-ahead (``infer.stream_frames``), ``frame_batch`` frames a forward.
+Port of the jobs of ``sequitr_tpu.server.pipelines.gan_denoise``: the
+pix2pix generator pass (``enhanced.tif``), the Noise2Void pass
+(``denoised.tif``, 2D stacks and volume sequences) and the scores of both
+against clean targets (L1 / PSNR in the job's normalize space), with the
+same params, outputs, metrics and JobErrors. Frames stream through the
+cached enhancer/denoiser two ahead (``infer.stream_frames``),
+``frame_batch`` frames a forward. The evaluators normalize their targets
+on the device with the job's ``TileConfig`` (``infer._normalize``: on the
+card one quantile pass a target frame or volume) and score on the host.
 
-Not ported yet: ``evaluate_gan`` and ``evaluate_denoise`` (with its
-volumetric branch) belong to the evaluation slice of the port, and
-``data_parallel`` / ``spatial_parallel`` across more than one card to the
-multi-card slice (a JobError there; on one card they serve single-device).
+``data_parallel`` / ``spatial_parallel`` across more than one card belong
+to the multi-card slice (a JobError there; on one card they serve
+single-device).
 """
 
 from __future__ import annotations
@@ -347,3 +351,271 @@ def _denoise_volumes(job: Job, cfg, model, paths, device) -> Dict[str, str]:
             f"pages=(T={n_vols})*(Z={source.spatial[0]}), volume-major"
         )
     return outputs
+
+
+def _normalized(items, tc, device, volume: bool):
+    """Host target frames (B, *spatial[, C]), or one volume (Z, H, W),
+    normalized on ``device`` under ``tc`` (``infer._normalize``: every frame,
+    volume and channel its own slice), f32 on the host, with a batch axis
+    and a channel axis."""
+    import torch
+
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    with torch.inference_mode():
+        t = torch.as_tensor(np.ascontiguousarray(items), device=device)
+        if volume:  # one single-channel volume
+            t = t[None, ..., None]
+        elif t.ndim == 3:
+            t = t[..., None]
+        return infer_lib._normalize(t, tc).cpu().numpy()
+
+
+def _psnr(err: np.ndarray) -> float:
+    """PSNR in dB of an error over [0, 1]-normalized frames (peak 1)."""
+    mse = float(np.mean(err * err))
+    return round(10.0 * float(np.log10(1.0 / max(mse, 1e-12))), 4)
+
+
+def _score_pairs(job, source, tsource, fb, run, device, tc, total, phase):
+    """Stream ``source`` through ``run(item) -> out`` or ``(out, x01)``
+    (``infer.stream_frames``; ``fb`` frames an item, or one volume for
+    ``fb=None``) beside ``tsource``'s items normalized with ``tc``:
+    per-frame (per-volume) ``l1``, ``psnr`` and ``psnr_in`` lists
+    (``psnr_in``: the normalized input's own score, where ``run`` returns
+    it)."""
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    def to_host(res):
+        if isinstance(res, tuple):
+            return tuple(infer_lib._copy_to_host_async(a) for a in res)
+        return infer_lib._copy_to_host_async(res)
+
+    volume = fb is None
+    per_item = 1 if volume else fb
+    l1s, psnrs, psnrs_in = [], [], []
+    n_left = len(source)
+    feed = source.volumes() if volume else source.chunks(fb)
+    with source, tsource:
+        tfeed = _reads_fail_fast(job, tsource.volumes() if volume else tsource.chunks(fb))
+        for res in jobs_lib.track(
+            job,
+            infer_lib.stream_frames(
+                run, _reads_fail_fast(job, feed), prefetch_host=to_host, device=device
+            ),
+            total=total, phase=phase,
+        ):
+            out, x01 = res if isinstance(res, tuple) else (res, None)
+            t01 = _normalized(next(tfeed), tc, device, volume)
+            out = np.asarray(out, dtype=np.float32)
+            if x01 is not None:
+                x01 = np.asarray(x01, dtype=np.float32)
+            if volume:  # one volume: a batch of one
+                out = out[None]
+                x01 = None if x01 is None else x01[None]
+            for k in range(min(per_item, n_left)):
+                err = out[k] - t01[k]
+                l1s.append(float(np.mean(np.abs(err))))
+                psnrs.append(_psnr(err))
+                if x01 is not None:
+                    psnrs_in.append(_psnr(x01[k] - t01[k]))
+            n_left -= per_item
+    return l1s, psnrs, psnrs_in
+
+
+def _paired_sources(job: Job, open_, first, second):
+    """``(source, target)``, ``open_(first)`` and ``open_(second)``; an
+    unreadable input is a JobError, and the first is closed when the
+    second cannot be read."""
+    try:
+        source = open_(first)
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        tsource = open_(second)
+    except ValueError as e:
+        source.close()
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    return source, tsource
+
+
+def _check_pair_shapes(source, tsource, what: str) -> None:
+    a = (len(source),) + tuple(source.spatial)
+    b = (len(tsource),) + tuple(tsource.spatial)
+    if a != b:
+        raise jobs_lib.JobError(f"{what} shape mismatch: {a} vs {b}")
+
+
+@register("evaluate_gan")
+def evaluate_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Score a GAN enhancement model against clean target frames.
+
+    input: the model's ``in_channels`` raw channel stacks followed by its
+    ``out_channels`` target stacks (single-channel models: [raw.tif,
+    target.tif], same (T, H, W)). params: model, tiling params,
+    frame_batch. Outputs mean L1 and PSNR over the normalized [0, 1]
+    frames plus per-frame PSNR (the serving-time counterpart of the GAN
+    train job's holdout eval), served as ``enhancement_gan`` serves. The
+    targets go through the job's own normalize: on the card one quantile
+    pass a raw frame and one a target frame.
+    """
+    from sequitr_tpu_torch.data.source import FrameSource
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    # the model determines the input split, so load it first
+    cfg0, _ = _require_model(job, config, "gan")
+    want = cfg0.in_channels + cfg0.out_channels
+    if len(paths) != want:
+        raise jobs_lib.JobError(
+            f"job {job.id}: model needs {cfg0.in_channels} raw channel "
+            f"stack(s) then {cfg0.out_channels} target stack(s) "
+            f"({want} paths), got {len(paths)}"
+        )
+    source, tsource = _paired_sources(
+        job, lambda ps: FrameSource(paths=ps),
+        paths[: cfg0.in_channels], paths[cfg0.in_channels:],
+    )
+    try:
+        _check_pair_shapes(source, tsource, "raw/target")
+        cfg, model, tc = _gan_setup(job, config, source)
+    except BaseException:
+        source.close()
+        tsource.close()
+        raise
+    n_frames = len(source)
+    fb = job.params.get("frame_batch")
+    fb = int(fb) if fb else _auto_frame_batch(source.spatial)
+    fb = max(1, min(fb, n_frames))
+    enhance = infer_lib.cached_gan_enhancer(cfg, tc, tuple(source.spatial), fb, device)
+    l1s, psnrs, _ = _score_pairs(
+        job, source, tsource, fb, lambda ch: enhance(model, ch), device, tc,
+        -(-n_frames // fb), "chunks",
+    )
+    metrics = {
+        "l1": round(float(np.mean(l1s)), 6),
+        "psnr": round(float(np.mean(psnrs)), 4),
+        "per_frame_psnr": psnrs,
+        "n_frames": n_frames,
+    }
+    return {"metrics": json.dumps(metrics)}
+
+
+@register("evaluate_denoise")
+def evaluate_denoise(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Score a Noise2Void model against clean reference frames.
+
+    input: the model's ``in_channels`` noisy channel stacks followed by the
+    same number of clean stacks (single-channel: [noisy.tif, clean.tif],
+    same (T, H, W)). params: model, tiling params, frame_batch, normalize
+    (applied to BOTH sides so L1/PSNR compare matched intensity spaces;
+    "none" for data in the model's trained scale). Outputs mean L1/PSNR,
+    per-frame PSNR, and the raw noisy input's own PSNR.
+
+    The denoiser hands back the normalized input it ran on
+    (``infer.cached_denoiser(with_input=True)``), so the noisy side is
+    normalized once: on the card two quantile passes a frame (noisy and
+    clean) with the kernel normalize, none with ``"none"``.
+
+    A 3D model routes to the volumetric branch: input = [noisy entry,
+    clean entry] volume sequences (``z`` pages param applies to both),
+    per-volume PSNR (``_evaluate_denoise_volumes``).
+    """
+    from sequitr_tpu_torch.data.source import FrameSource
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    cfg, model = _require_model(job, config, "n2v")
+    if cfg.dims == 3:
+        return _evaluate_denoise_volumes(job, cfg, model, paths, device)
+    want = 2 * cfg.in_channels
+    if len(paths) != want:
+        raise jobs_lib.JobError(
+            f"job {job.id}: model needs {cfg.in_channels} noisy channel "
+            f"stack(s) then {cfg.in_channels} clean stack(s) "
+            f"({want} paths), got {len(paths)}"
+        )
+    source, tsource = _paired_sources(
+        job, lambda ps: FrameSource(paths=ps),
+        paths[: cfg.in_channels], paths[cfg.in_channels:],
+    )
+    try:
+        # close both lazy readers when a check rejects the job
+        _check_pair_shapes(source, tsource, "noisy/clean")
+        # no out_dtype -> probs_dtype mapping: quantized predictions would
+        # corrupt the metrics of a "successful" run
+        tc = _tile_config(
+            job.params, dims=2,
+            frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+            exact_only=True,
+        )
+    except BaseException:
+        source.close()
+        tsource.close()
+        raise
+    n_frames = len(source)
+    fb = job.params.get("frame_batch")
+    fb = int(fb) if fb else _auto_frame_batch(source.spatial)
+    fb = max(1, min(fb, n_frames))
+    den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), fb, device, with_input=True)
+    l1s, psnrs, psnrs_in = _score_pairs(
+        job, source, tsource, fb, lambda ch: den(model, ch), device, tc,
+        -(-n_frames // fb), "chunks",
+    )
+    metrics = {
+        "l1": round(float(np.mean(l1s)), 6),
+        "psnr": round(float(np.mean(psnrs)), 4),
+        "psnr_noisy_input": round(float(np.mean(psnrs_in)), 4),
+        "per_frame_psnr": psnrs,
+        "n_frames": n_frames,
+    }
+    return {"metrics": json.dumps(metrics)}
+
+
+def _evaluate_denoise_volumes(job: Job, cfg, model, paths, device) -> Dict[str, str]:
+    """Volumetric branch of ``evaluate_denoise`` (``dims == 3`` models).
+
+    input: [noisy volume-sequence entry, clean volume-sequence entry]
+    (each a dir/glob/file; the ``z`` pages-per-volume param applies to
+    BOTH). Per-volume PSNR/L1 in the job's normalize space, plus the noisy
+    input's own PSNR; one volume a dispatch, two quantile passes a volume
+    on the card (the noisy one shared with the denoiser, the clean one).
+    """
+    from sequitr_tpu_torch.data.source import VolumeSequence
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    if len(paths) != 2:
+        raise jobs_lib.JobError(
+            f"3D evaluate_denoise takes [noisy entry, clean entry] "
+            f"(the model is single-channel), got {len(paths)} input(s)"
+        )
+    z_pages = _parse_z_pages(job)
+    source, tsource = _paired_sources(
+        job, lambda entry: VolumeSequence(entry, z=z_pages), paths[0], paths[1]
+    )
+    try:
+        _check_pair_shapes(source, tsource, "noisy/clean")
+        tc = _tile_config(
+            job.params, dims=3,
+            frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+            exact_only=True,
+        )
+    except BaseException:
+        source.close()
+        tsource.close()
+        raise
+    n_vols = len(source)
+    den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), None, device, with_input=True)
+    l1s, psnrs, psnrs_in = _score_pairs(
+        job, source, tsource, None, lambda v: den(model, v), device, tc, n_vols, "volumes",
+    )
+    metrics = {
+        "l1": round(float(np.mean(l1s)), 6),
+        "psnr": round(float(np.mean(psnrs)), 4),
+        "psnr_noisy_input": round(float(np.mean(psnrs_in)), 4),
+        "per_volume_psnr": psnrs,
+        "n_volumes": n_vols,
+    }
+    return {"metrics": json.dumps(metrics)}

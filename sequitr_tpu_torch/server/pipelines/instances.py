@@ -1,5 +1,6 @@
-"""Instance-segmentation serving: ``segment_flows`` (2D and volumetric) and
-``segment_stars``.
+"""Instance segmentation: ``segment_flows`` (2D and volumetric),
+``segment_stars`` and their evaluators ``evaluate_flows`` (2D and
+volumetric) and ``evaluate_stars``.
 
 Port of the serving jobs of ``sequitr_tpu.server.pipelines.instances``: the
 same job JSON, params and outputs (``labels.tif`` as uint16 with ids
@@ -10,8 +11,11 @@ metrics). The regular work (normalize, tiled forward, stitch, and for flows
 the flow integration) runs on ``config.device``, the card unless the server
 runs on the CPU; the irregular work stays on the host as in the JAX
 package: the sink grouping (``ops.flows.group_sinks``) and the polygon NMS
-(``ops.stardist.instances_from_rays``). The training and evaluation jobs of
-the two families are later slices of the port.
+(``ops.stardist.instances_from_rays``). The evaluators serve exactly as
+their serving twins and score on the host: truth ids renumbered densely,
+Hungarian IoU matching (``ops.flows.match_instances``), AP pooled over the
+whole stack. The training jobs of the two families (``train_flows``,
+``train_stars``) are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from sequitr_tpu_torch.server.server import (
     _append_writer,
     _apply_frame_range,
     _apply_roi,
+    _check_truth_shape,
     _out_compression,
     _parse_z_pages,
     _reads_fail_fast,
@@ -38,6 +43,7 @@ from sequitr_tpu_torch.server.server import (
     _require_polyphase_model,
     _resolve_inputs,
     _tile_config,
+    _truth_reader,
     register,
 )
 from sequitr_tpu_torch.utils import resolve_device
@@ -350,6 +356,210 @@ def _segment_flows_volumes(job: Job, config: ServerConfiguration, paths, device)
     return outputs
 
 
+def _match_scores(job: Job):
+    """``(add, finish)``: ``add(truth, pred)`` matches one frame's (or
+    volume's) instances and pools the counts; ``finish(metrics)`` adds the
+    pooled AP at ``thresholds`` (default 0.5, 0.75, 0.9), the mean matched
+    IoU, the counts, and the per-item ap50 series (``per_frame``) to
+    ``metrics``. Pooled counts: AP over the whole stack, not a mean of
+    per-frame APs (a frame with one cell would weigh as much as one with
+    hundreds)."""
+    from sequitr_tpu_torch.ops import flows as flows_ops
+
+    thresholds = tuple(
+        float(v) for v in job.params.get("thresholds", (0.5, 0.75, 0.9))
+    )
+    tp = {t: 0 for t in thresholds}
+    tot = {"gt": 0, "pred": 0, "iou_sum": 0.0, "iou_n": 0}
+    per_frame = [] if job.params.get("per_frame") else None
+
+    def add(truth_t, lab):
+        # renumber truth ids densely (match_instances indexes by max id;
+        # sparse ids from cropped stacks stay cheap)
+        ids = np.unique(truth_t[truth_t > 0])
+        if ids.size:
+            remap = np.zeros(int(ids.max()) + 1, dtype=np.int64)
+            remap[ids] = np.arange(1, ids.size + 1)
+            truth_t = remap[np.maximum(truth_t, 0)]
+        ious, n_gt, n_pred = flows_ops.match_instances(truth_t, lab)
+        tot["gt"] += n_gt
+        tot["pred"] += n_pred
+        for th in thresholds:
+            tp[th] += int((ious >= th).sum())
+        good = ious[ious >= 0.5]
+        tot["iou_sum"] += float(good.sum())
+        tot["iou_n"] += int(good.size)
+        if per_frame is not None:
+            m_tp = int((ious >= 0.5).sum())
+            denom = n_gt + n_pred - m_tp
+            per_frame.append(round(m_tp / denom, 6) if denom else None)
+
+    def finish(metrics: dict, per_key: str) -> dict:
+        metrics.update(
+            n_gt=tot["gt"], n_pred=tot["pred"],
+            mean_matched_iou=(
+                round(tot["iou_sum"] / tot["iou_n"], 6) if tot["iou_n"] else 0.0
+            ),
+        )
+        for th in thresholds:
+            denom = tot["gt"] + tot["pred"] - tp[th]
+            metrics[f"ap{int(round(th * 100))}"] = (
+                round(tp[th] / denom, 6) if denom else 1.0
+            )
+        if per_frame is not None:
+            metrics[per_key] = per_frame
+        return metrics
+
+    return add, finish
+
+
+def _score_instances(job: Job, source, read_truth, pred_labels) -> Dict[str, str]:
+    """Pooled instance-AP scoring loop shared by the 2D evaluators
+    (``evaluate_flows``, ``evaluate_stars``): ``pred_labels`` yields one
+    host instance map a source frame, ``read_truth(t)`` the truth at
+    ABSOLUTE frame ``t``. Honors ``thresholds``, ``per_frame`` and
+    ``save_labels``; owns the progress reporter and the labels writer."""
+    n_frames = len(source)
+    labels_w = (
+        _append_writer(
+            os.path.join(job.output, "labels.tif"),
+            float(n_frames) * np.prod(source.spatial) * 2,
+            _out_compression(job),
+        )
+        if job.params.get("save_labels") else None
+    )
+    add, finish = _match_scores(job)
+    rep = jobs_lib.ProgressReporter(job, n_frames)
+    try:
+        with source:
+            for t in range(n_frames):
+                lab = next(pred_labels)
+                add(read_truth(t + source.frame_offset), lab)
+                if labels_w is not None:
+                    labels_w.append(lab.astype(np.uint16, copy=False))
+                rep.step()
+            rep.finish()
+    except BaseException:
+        if labels_w is not None:
+            labels_w.abort()
+        raise
+    metrics = finish({"n_frames": n_frames}, "per_frame_ap50")
+    outputs: Dict[str, str] = {"metrics": json.dumps(metrics)}
+    if labels_w is not None:
+        labels_w.close()
+        outputs["labels"] = os.path.join(job.output, "labels.tif")
+    return outputs
+
+
+def _evaluate_frames(job: Job, config: ServerConfiguration, paths, device, serving) -> Dict[str, str]:
+    """The 2D body of ``evaluate_flows`` and ``evaluate_stars``: the images
+    (``paths[:-1]``) served by ``serving(job, config, spatial, n_channels,
+    device) -> (pass, to_labels)``, scored against the truth
+    (``paths[-1]``)."""
+    from sequitr_tpu_torch.data.source import FrameSource
+
+    try:
+        source = FrameSource(paths=paths[:-1])
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    source = _apply_frame_range(job, source)
+    t_shape, read_truth, close_truth = _truth_reader(job, paths[-1])
+    try:
+        _check_truth_shape(source, t_shape)
+        run, to_labels = serving(job, config, source.spatial, source.n_channels, device)
+
+        def pred_labels():
+            results = _stream(job, device, run, source.frames())
+            while True:
+                a, b = next(results)
+                yield to_labels(np.asarray(a), np.asarray(b))
+
+        return _score_instances(job, source, read_truth, pred_labels())
+    finally:
+        close_truth()
+
+
+def _need_truth(job: Job, paths) -> None:
+    if len(paths) < 2:
+        raise jobs_lib.JobError(
+            f"job {job.id}: need [image(s)..., instance labels], "
+            f"got {len(paths)} input(s)"
+        )
+
+
+@register("evaluate_flows")
+def evaluate_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Score a ``flows`` model against ground-truth INSTANCE labels.
+
+    input: [image.tif, ..., instances.tif] (the LAST path is the ground
+    truth). Serves the model exactly as ``segment_flows`` would, then
+    matches predicted to true instances per frame (Hungarian, IoU-optimal,
+    ``ops.flows.match_instances``) and reports AP@t = TP / (TP + FP + FN)
+    pooled over frames at ``thresholds`` (default [0.5, 0.75, 0.9]),
+    ``mean_matched_iou`` over IoU >= 0.5 matches and the instance counts.
+    params: the ``segment_flows`` serving params, ``per_frame: true`` for
+    a per-frame ap50 series, ``save_labels: true`` to also write the
+    predicted instance maps. On the card one quantile pass a frame.
+
+    A ``dims == 3`` model routes to the volumetric branch: input = [image
+    volume-sequence entry, instance-label volume-sequence entry] (the
+    ``z`` pages-per-volume param applies to both), AP pooled over 3D
+    instances across timepoints (one quantile pass a volume).
+    """
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    _need_truth(job, paths)
+    cfg_probe, _ = _require_model(job, config, "flows")
+    if cfg_probe.dims == 3:
+        return _evaluate_flows_volumes(job, config, paths, device)
+    return _evaluate_frames(job, config, paths, device, _flows_serving)
+
+
+def _evaluate_flows_volumes(job: Job, config: ServerConfiguration, paths, device) -> Dict[str, str]:
+    """Volumetric branch of ``evaluate_flows``: [image volume entry,
+    instance-label volume entry], Hungarian AP over 3D instances pooled
+    across timepoints (the 2D branch's metric contract)."""
+    from sequitr_tpu_torch.data.source import VolumeSequence
+
+    if len(paths) != 2:
+        raise jobs_lib.JobError(
+            f"3D evaluate_flows takes [image volumes, label volumes] "
+            f"(2 entries), got {len(paths)}"
+        )
+    z = _parse_z_pages(job)
+    try:
+        source = VolumeSequence(paths[0], z=z)
+        truth = VolumeSequence(paths[1], z=z)
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        if truth.spatial != source.spatial or len(truth) < len(source):
+            raise jobs_lib.JobError(
+                f"image/label volume mismatch: images "
+                f"{(len(source),) + tuple(source.spatial)}, labels "
+                f"{(len(truth),) + tuple(truth.spatial)}"
+            )
+        source = _apply_frame_range(job, source)
+        segment, group = _flows_serving(job, config, source.spatial, 1, device)
+    except BaseException:
+        source.close()
+        truth.close()
+        raise
+    n_vols = len(source)
+    add, finish = _match_scores(job)
+    rep = jobs_lib.ProgressReporter(job, n_vols, phase="volumes")
+    with source, truth:
+        results = _stream(job, device, segment, source.volumes())
+        for t in range(n_vols):
+            final, prob = next(results)
+            lab = group(np.asarray(final), np.asarray(prob))
+            add(np.asarray(truth.volume(t + source.frame_offset), np.int64), lab)
+            rep.step()
+        rep.finish()
+    metrics = finish({"n_volumes": n_vols}, "per_volume_ap50")
+    return {"metrics": json.dumps(metrics)}
+
+
 def _stars_serving(job: Job, config: ServerConfiguration, spatial, n_channels, device):
     """Shared setup of the star-convex serving jobs: load the ``stars``
     model, build the tile config, and return ``(predict, to_labels)``: the
@@ -425,3 +635,21 @@ def segment_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         job, source, device, predict,
         lambda prob_np, dist_np: (to_labels(prob_np, dist_np), prob_np), "nms",
     )
+
+
+@register("evaluate_stars")
+def evaluate_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Score a ``stars`` model against ground-truth INSTANCE labels.
+
+    input: [image.tif, ..., instances.tif] (the LAST path is the ground
+    truth). Serves the model exactly as ``segment_stars`` would, then
+    scores pooled instance AP (``evaluate_flows``' metrics: Hungarian
+    IoU-optimal matching, AP@t = TP / (TP + FP + FN) at ``thresholds``,
+    ``mean_matched_iou`` and counts). params: the ``segment_stars``
+    serving params, ``per_frame``, ``save_labels``. On the card one
+    quantile pass a frame.
+    """
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    _need_truth(job, paths)
+    return _evaluate_frames(job, config, paths, device, _stars_serving)

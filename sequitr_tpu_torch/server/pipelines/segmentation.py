@@ -1,13 +1,16 @@
-"""Semantic-segmentation serving: ``segmentation_unet2d`` and
-``segmentation_unet3d``.
+"""Semantic segmentation: ``segmentation_unet2d``, ``segmentation_unet3d``,
+their evaluators ``evaluate_unet2d`` / ``evaluate_unet3d``, and
+``parity_check``.
 
-Port of the two jobs of ``sequitr_tpu.server.pipelines.segmentation``: the
+Port of the jobs of ``sequitr_tpu.server.pipelines.segmentation``: the
 same params and outputs (labels.tif as uint16, probs.tif under
 ``save_probs``, entropy.tif, objects.h5 / objects.csv; for volume
 timelapses one labels_t{t:04d}.tif a timepoint and one objects.h5; the
-``frames_per_sec`` / ``mvox_per_sec`` / ``volumes_per_sec`` metrics).
-Registration happens at import time via the shared registry in
-``sequitr_tpu_torch.server.server``.
+``frames_per_sec`` / ``mvox_per_sec`` / ``volumes_per_sec`` metrics; the
+evaluators' metrics JSON and JobErrors). The evaluators serve exactly as
+their serving twins and score on the host (confusion matrices, as the JAX
+package does). Registration happens at import time via the shared
+registry in ``sequitr_tpu_torch.server.server``.
 """
 
 from __future__ import annotations
@@ -28,9 +31,11 @@ from sequitr_tpu_torch.server.server import (
     _append_writer,
     _apply_frame_range,
     _apply_roi,
+    _check_truth_shape,
     _expand_inputs_entry,
     _normalized_entropy,
     _out_compression,
+    _parse_eval_ignore,
     _parse_z_pages,
     _read_stack_or_fail,
     _reads_fail_fast,
@@ -40,6 +45,7 @@ from sequitr_tpu_torch.server.server import (
     _resolve_inputs,
     _run_frames,
     _tile_config,
+    _truth_reader,
     register,
 )
 from sequitr_tpu_torch.utils import resolve_device
@@ -226,6 +232,370 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
             csv_path = os.path.join(job.output, "objects.csv")
             loc_lib.export_objects_csv(csv_path, tables)
             outputs["objects_csv"] = csv_path
+    return outputs
+
+
+@register("evaluate_unet2d")
+def evaluate_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Score a registered model against ground-truth labels.
+
+    The post-training counterpart of the train jobs' holdout eval: segment
+    a stack exactly as ``segmentation_unet2d`` serves it and compare to
+    provided label maps. input: [image.tif, ..., labels.tif] (one TIFF per
+    channel, the LAST path is the ground truth). params: model, the usual
+    tiling params, ``per_frame: true`` for a per-frame mIoU series
+    (``null`` for a wholly ignored frame), ``save_labels: true`` to also
+    write the predicted label maps, ``ignore_label`` (pixels carrying it
+    are excluded from every metric). Outputs: ``metrics`` JSON with
+    per-class IoU, mIoU, dice and pixel accuracy over the whole stack.
+    """
+    from sequitr_tpu_torch.data.source import FrameSource
+    from sequitr_tpu_torch.ops import losses
+
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    if len(paths) < 2:
+        raise jobs_lib.JobError(
+            f"job {job.id}: need [image(s)..., labels], got {len(paths)} input(s)"
+        )
+    try:
+        source = FrameSource(paths=paths[:-1])
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    source = _apply_frame_range(job, source)
+    t_shape, read_truth, close_truth = _truth_reader(job, paths[-1])
+    try:
+        _check_truth_shape(source, t_shape)
+        cfg, model = _require_model(job, config, "unet")
+        if cfg.dims != 2:
+            raise jobs_lib.JobError(f"job {job.id}: model is {cfg.dims}D, expected 2D")
+        if cfg.in_channels != source.n_channels:
+            raise jobs_lib.JobError(
+                f"model expects {cfg.in_channels} channel(s), "
+                f"got {source.n_channels} input stack(s)"
+            )
+        tc = _tile_config(
+            job.params, dims=2,
+            frame_spatial=source.spatial, min_multiple=cfg.min_input_multiple,
+        )
+        k = cfg.num_classes
+        ignore = _parse_eval_ignore(job, k)
+        # one (K+1, K) confusion matrix accumulates frame by frame: the
+        # whole-stack metrics without holding every label map
+        cm = np.zeros((k + 1, k), dtype=np.int64)
+        per_frame = [] if job.params.get("per_frame") else None
+        n_frames = len(source)
+        labels_w = (
+            _append_writer(
+                os.path.join(job.output, "labels.tif"),
+                float(n_frames) * np.prod(source.spatial) * 2,
+                _out_compression(job),
+            )
+            if job.params.get("save_labels") else None
+        )
+        rep = jobs_lib.ProgressReporter(job, n_frames)
+        try:
+            with source:
+                results = _run_frames(cfg, tc, model, source, job, device)
+                for t in range(n_frames):
+                    pred = np.asarray(next(results).labels)
+                    truth_t = read_truth(t + source.frame_offset)
+                    if ignore is not None:
+                        keep_px = truth_t != ignore
+                        fcm = losses.confusion_matrix_np(pred[keep_px], truth_t[keep_px], k)
+                    else:
+                        fcm = losses.confusion_matrix_np(pred, truth_t, k)
+                    cm += fcm
+                    if per_frame is not None:
+                        if fcm.sum() == 0:
+                            # a wholly ignored frame has no score: null, not
+                            # a vacuous 1.0 a reader would take for perfect
+                            per_frame.append(None)
+                        else:
+                            f_ious, _, _ = losses.metrics_from_confusion(fcm)
+                            per_frame.append(round(float(np.mean(f_ious)), 6))
+                    if labels_w is not None:
+                        labels_w.append(pred.astype(np.uint16, copy=False))
+                    rep.step()
+                rep.finish()
+        except BaseException:
+            if labels_w is not None:
+                labels_w.abort()
+            raise
+    finally:
+        close_truth()
+
+    ious, dices, accuracy = losses.metrics_from_confusion(cm)
+    if cm.sum() == 0:
+        accuracy = 1.0  # vacuous, matching miou and the 3D evaluator
+    metrics = {
+        "miou": round(float(np.mean(ious)), 6),
+        "pixel_accuracy": round(accuracy, 6),
+        "n_frames": n_frames,
+    }
+    for i in range(k):
+        metrics[f"iou_{i}"] = round(float(ious[i]), 6)
+        metrics[f"dice_{i}"] = round(float(dices[i]), 6)
+    if per_frame is not None:
+        metrics["per_frame_miou"] = per_frame
+
+    outputs: Dict[str, str] = {"metrics": json.dumps(metrics)}
+    if labels_w is not None:
+        labels_w.close()
+        outputs["labels"] = os.path.join(job.output, "labels.tif")
+    return outputs
+
+
+def _parity_params(job: Job, cfg, dims: int, what: str):
+    """``(reference, spatial, n_probes, tolerance, rng)`` of a parity job,
+    validated against the model's input multiple."""
+    p = job.params
+    ref = str(p.get("reference", "torch"))
+    spatial = tuple(int(v) for v in p.get("spatial", (64, 64)))
+    if len(spatial) != dims:
+        raise jobs_lib.JobError(f"spatial {spatial} must {what}")
+    if any(s % cfg.min_input_multiple for s in spatial):
+        raise jobs_lib.JobError(
+            f"every spatial axis of {spatial} must be divisible by "
+            f"{cfg.min_input_multiple}"
+        )
+    n_probes = int(p.get("n_probes", 4))
+    if n_probes < 1:
+        raise jobs_lib.JobError(f"n_probes must be >= 1, got {n_probes}")
+    tolerance = float(p.get("tolerance", 1e-3))
+    rng = np.random.default_rng(int(p.get("seed", 0)))
+    return ref, spatial, n_probes, tolerance, rng
+
+
+def _ours(fn, device, *xs):
+    """``fn``'s f32 forward (IEEE f32 on the card) on host arrays moved to
+    ``device``; the result on the host."""
+    import torch
+
+    from sequitr_tpu_torch.utils import ieee_f32
+
+    with torch.inference_mode(), ieee_f32():
+        out = fn(*(torch.from_numpy(x).to(device) for x in xs))
+    return out.float().cpu().numpy()
+
+
+@register("parity_check")
+def parity_check(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Validate a registered model against an independent re-derivation.
+
+    After ``import-model`` lands converted weights, this job runs them
+    through the port's ``UNet`` (batch norm unfolded, f32, on
+    ``config.device``) AND a reference implementation in another framework
+    (``reference: "torch"`` default, ``models.torch_reference``, or
+    ``"keras"``, ``models.tf_reference``; both on the CPU) on random probe
+    frames, reporting per-pixel deltas. params: model, ``reference``,
+    ``spatial`` ([H, W] or [Z, H, W], default [64, 64]; divisible by the
+    model's pooling multiple), ``n_probes`` (default 4), ``seed``.
+    Outputs: metrics JSON with max/mean |dlogits| and label agreement.
+    Fails (deterministically) if max |dlogits| exceeds ``tolerance``
+    (default 1e-3). A ``gan`` model checks the generator and the
+    discriminator (``_parity_check_gan``).
+    """
+    from sequitr_tpu_torch.models import convert
+
+    kind, cfg, flat = _require_model(job, config, unfolded=True)
+    device = resolve_device(config.device)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if kind == "gan":
+        return _parity_check_gan(job, cfg32, flat, device)
+    ref, spatial, n_probes, tolerance, rng = _parity_params(
+        job, cfg, cfg.dims, f"have {cfg.dims} axes for this model"
+    )
+    probes = rng.normal(size=(n_probes,) + spatial + (cfg.in_channels,)).astype(np.float32)
+
+    # f32 on both sides: this validates WEIGHT conversion, not bf16 drift
+    ours = _ours(convert.load_flat(cfg32, flat, device=device), device, probes)
+    params, state = convert.nest_flat(flat)
+    try:
+        if ref == "torch":
+            from sequitr_tpu_torch.models import torch_reference
+
+            model = torch_reference.build_torch_unet(cfg32)
+            torch_reference.inject_weights_torch(model, cfg32, params, state)
+            theirs = torch_reference.torch_forward(model, probes)
+        elif ref == "keras":
+            from sequitr_tpu_torch.models import tf_reference
+
+            model = tf_reference.build_tf_unet(cfg32, spatial)
+            tf_reference.inject_weights(model, cfg32, params, state)
+            theirs = tf_reference.tf_forward(model, probes)
+        else:
+            raise jobs_lib.JobError(f"reference={ref!r} must be 'torch' or 'keras'")
+    except (NotImplementedError, ImportError) as e:
+        raise jobs_lib.JobError(f"reference {ref!r} unavailable: {e}")
+
+    d = np.abs(ours - theirs)
+    agree = float((np.argmax(ours, -1) == np.argmax(theirs, -1)).mean())
+    metrics = {
+        "reference": ref,
+        "max_abs_dlogits": round(float(d.max()), 8),
+        "mean_abs_dlogits": round(float(d.mean()), 8),
+        "label_agreement": round(agree, 6),
+        "n_probes": n_probes,
+        "spatial": list(spatial),
+    }
+    if float(d.max()) > tolerance:
+        raise jobs_lib.JobError(
+            f"parity FAILED: max |dlogits| {float(d.max()):.3e} > "
+            f"tolerance {tolerance:.1e} vs the {ref} reference "
+            f"(metrics: {json.dumps(metrics)})"
+        )
+    return {"metrics": json.dumps(metrics)}
+
+
+def _parity_check_gan(job: Job, cfg32, flat, device) -> Dict[str, str]:
+    """GAN branch of ``parity_check``: the generator (with its output
+    activation) AND the discriminator against an independent
+    re-derivation (torch or keras) on identical weights."""
+    from sequitr_tpu_torch.models import convert
+    from sequitr_tpu_torch.models import gan as gan_lib
+    from sequitr_tpu_torch.models import torch_reference
+
+    ref = str(job.params.get("reference", "torch"))
+    if ref not in ("torch", "keras"):
+        raise jobs_lib.JobError(f"reference={ref!r} must be 'torch' or 'keras'")
+    ref, spatial, n_probes, tolerance, rng = _parity_params(
+        job, cfg32, 2, "be [H, W] (the GAN family is 2D)"
+    )
+    x = rng.normal(size=(n_probes,) + spatial + (cfg32.in_channels,)).astype(np.float32)
+    y = rng.normal(size=(n_probes,) + spatial + (cfg32.out_channels,)).astype(np.float32)
+    gcfg = cfg32.generator_config
+
+    try:
+        model = convert.load_flat(cfg32, flat, device=device)
+        ours_g = _ours(lambda t: gan_lib.generator_apply(model, t), device, x)
+        ours_d = _ours(lambda a, b: gan_lib.discriminator_apply(model, a, b), device, x, y)
+        params, state = convert.nest_flat(flat)
+        pair = np.concatenate([x, y], axis=-1)
+        if ref == "torch":
+            gen_model = torch_reference.build_torch_unet(gcfg)
+            torch_reference.inject_weights_torch(gen_model, gcfg, params["gen"], state.get("gen", {}))
+            theirs_g = torch_reference.torch_forward(gen_model, x)
+            disc_model = torch_reference.build_torch_patchgan(cfg32)
+            torch_reference.inject_patchgan_weights_torch(disc_model, cfg32, params)
+            theirs_d = torch_reference.torch_forward(disc_model, pair)
+        else:
+            from sequitr_tpu_torch.models import tf_reference
+
+            gen_model = tf_reference.build_tf_unet(gcfg, spatial)
+            tf_reference.inject_weights(gen_model, gcfg, params["gen"], state.get("gen", {}))
+            theirs_g = tf_reference.tf_forward(gen_model, x)
+            disc_model = tf_reference.build_tf_patchgan(cfg32, spatial)
+            tf_reference.inject_patchgan_weights(disc_model, cfg32, params)
+            theirs_d = tf_reference.tf_forward(disc_model, pair)
+        if cfg32.output_activation == "tanh":
+            theirs_g = np.tanh(theirs_g)
+        elif cfg32.output_activation == "sigmoid":
+            theirs_g = 1.0 / (1.0 + np.exp(-theirs_g))
+    except (NotImplementedError, ImportError) as e:
+        raise jobs_lib.JobError(f"reference {ref!r} unavailable: {e}")
+
+    dg = np.abs(ours_g - theirs_g)
+    dd = np.abs(ours_d - theirs_d)
+    metrics = {
+        "reference": ref,
+        "max_abs_dgen": round(float(dg.max()), 8),
+        "mean_abs_dgen": round(float(dg.mean()), 8),
+        "max_abs_ddisc": round(float(dd.max()), 8),
+        "n_probes": n_probes,
+        "spatial": list(spatial),
+    }
+    worst = max(float(dg.max()), float(dd.max()))
+    if worst > tolerance:
+        raise jobs_lib.JobError(
+            f"parity FAILED: max |d| {worst:.3e} > tolerance "
+            f"{tolerance:.1e} vs the torch reference "
+            f"(metrics: {json.dumps(metrics)})"
+        )
+    return {"metrics": json.dumps(metrics)}
+
+
+@register("evaluate_unet3d")
+def evaluate_unet3d(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Volumetric counterpart of ``evaluate_unet2d``.
+
+    input: [volume.tif, labels.tif] ((Z, H, W) stacks, one volume TIFF per
+    channel). params: model, 3-axis tiling params, ``save_labels``,
+    ``ignore_label`` (sparse ground truth excluded from every metric).
+    The whole volume runs through the 3D inferrer as
+    ``segmentation_unet3d`` serves it. Outputs per-class IoU/dice, mIoU and
+    voxel accuracy over the volume.
+    """
+    import torch
+
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.ops import losses
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    if len(paths) < 2:
+        raise jobs_lib.JobError(
+            f"job {job.id}: need [volume channel(s)..., labels], "
+            f"got {len(paths)} input(s)"
+        )
+    vols = []
+    for p_ in paths[:-1]:
+        v = _read_stack_or_fail(job, p_)
+        if v.ndim != 3:
+            raise jobs_lib.JobError(
+                f"unet3d expects (Z, H, W) stacks, got {v.shape} from {p_}"
+            )
+        vols.append(v)
+    if len({v.shape for v in vols}) != 1:
+        raise jobs_lib.JobError(
+            f"channel stacks disagree in shape: {[v.shape for v in vols]}"
+        )
+    vol = np.stack(vols, axis=-1) if len(vols) > 1 else vols[0]
+    vol_spatial = tuple(vol.shape[:3])
+    truth = _read_stack_or_fail(job, paths[-1]).astype(np.int32)
+    if vol_spatial != truth.shape:
+        raise jobs_lib.JobError(
+            f"volume/label shape mismatch: {vol_spatial} vs {truth.shape}"
+        )
+
+    cfg, model = _require_model(job, config, "unet")
+    _require_3d(job, cfg, vol.shape[-1] if vol.ndim == 4 else 1, "input stack(s)")
+    k = cfg.num_classes
+    # validate BEFORE the volumetric inference: a bad param must not cost
+    # card time first
+    ignore = _parse_eval_ignore(job, k)
+    tc = _tile_config(
+        job.params, dims=3,
+        frame_spatial=vol_spatial, min_multiple=cfg.min_input_multiple,
+    )
+    tc = dataclasses.replace(tc, emit_probs=False)  # segmentation_unet3d's labels-only graph
+    fn = infer_lib.cached_frame_inferrer(cfg, tc, vol_spatial, device)
+    _, labels = fn(model, vol)
+    preds = labels.cpu().numpy().astype(np.int32)
+    p_eval, t_eval = preds, truth
+    if ignore is not None:
+        keep_vx = truth != ignore
+        p_eval, t_eval = preds[keep_vx], truth[keep_vx]
+    # the scores on the host, as the JAX package computes them
+    p_t, t_t = torch.from_numpy(p_eval), torch.from_numpy(t_eval)
+    ious = losses.iou(p_t, t_t, k).numpy()
+    dices = losses.dice(p_t, t_t, k).numpy()
+    metrics = {
+        "miou": round(float(np.mean(ious)), 6),
+        "voxel_accuracy": round(
+            float((p_eval == t_eval).mean()) if p_eval.size else 1.0, 6
+        ),
+    }
+    for i in range(k):
+        metrics[f"iou_{i}"] = round(float(ious[i]), 6)
+        metrics[f"dice_{i}"] = round(float(dices[i]), 6)
+
+    outputs: Dict[str, str] = {"metrics": json.dumps(metrics)}
+    if job.params.get("save_labels"):
+        out_path = os.path.join(job.output, "labels.tif")
+        tiff.write_stack(out_path, preds.astype(np.uint16), compression=_out_compression(job))
+        outputs["labels"] = out_path
     return outputs
 
 

@@ -1,15 +1,17 @@
-"""Training pipelines: record building and the U-Net train jobs (port of
-the U-Net part of ``sequitr_tpu.server.pipelines.training``).
+"""Training pipelines: record building and the U-Net and GAN train jobs
+(port of the U-Net and GAN parts of
+``sequitr_tpu.server.pipelines.training``).
 
-``build_records`` is the JAX package's, copied (host numpy: the same job
-JSON writes the same shards, normalized by ``np.percentile`` on the host,
-no quantile pass on the card). ``train_unet2d`` / ``train_unet3d`` train
-on ``config.device`` (the card unless the server runs on the CPU) through
-``pipeline.fit.fit_unet`` and register the model in the port's store;
-``polyphase: true`` trains through ``models.polyphase.apply_train``
-(``apply3d_train``). ``build_gan_pairs``, ``train_gan``, ``train_n2v`` and
-``finetune_spatial`` are later slices of the port; so is ``data_parallel``
-across more than one card (a JobError).
+``build_records`` and ``build_gan_pairs`` are the JAX package's, copied
+(host numpy: the same job JSON writes the same shards, byte for byte,
+normalized by ``np.percentile`` on the host, no quantile pass on the
+card). ``train_unet2d`` / ``train_unet3d`` (``pipeline.fit.fit_unet``) and
+``train_gan`` (``pipeline.fit.fit_gan``) train on ``config.device`` (the
+card unless the server runs on the CPU) and register the model in the
+port's store (kind ``unet`` or ``gan``); ``polyphase: true`` trains
+through ``models.polyphase.apply_train`` (``apply3d_train``).
+``train_n2v`` and ``finetune_spatial`` are a later slice of the port; so
+is ``data_parallel`` across more than one card (a JobError).
 """
 
 from __future__ import annotations
@@ -366,4 +368,150 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         state = train_lib.restore_checkpoint(best_path, state)
     model = _ema_or_raw_params(ckpt_dir, fc, state, used_best)
     model_dir = save_model(config.models_dir, _require_param(job, "model"), "unet", cfg, model)
+    return {"model": model_dir, "metrics_file": fc.metrics_path}
+
+
+@register("build_gan_pairs")
+def build_gan_pairs(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Build GAN training pair shards from (raw, target) TIFF stacks.
+
+    input: [raw.tif, target.tif] (same shape). params: normalize (bool,
+    default True: each frame of both stacks percentile-normalized on the
+    host), p_lo/p_hi, shard_size, compress_records. Output:
+    ``pairs-*.tfrecord`` shards.
+    """
+    from sequitr_tpu_torch.data import records, tiff
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+
+    raw_path, tgt_path = _resolve_inputs(job)[:2]
+    raw = np.asarray(tiff.read_stack(raw_path), dtype=np.float32)
+    tgt = np.asarray(tiff.read_stack(tgt_path), dtype=np.float32)
+    if raw.ndim == 2:
+        raw, tgt = raw[None], tgt[None]
+    if raw.shape != tgt.shape:
+        raise jobs_lib.JobError(f"shape mismatch: {raw.shape} vs {tgt.shape}")
+    p = job.params
+    p_lo, p_hi = float(p.get("p_lo", 5.0)), float(p.get("p_hi", 99.5))
+
+    def norm(img):
+        lo, hi = np.percentile(img, [p_lo, p_hi])
+        return np.clip((img - lo) / max(hi - lo, 1e-8), 0.0, 1.0).astype(np.float32)
+
+    os.makedirs(job.output, exist_ok=True)
+    shard_size = int(p.get("shard_size", 128))
+    payloads = []
+    for x, y in zip(raw, tgt):
+        if p.get("normalize", True):
+            x, y = norm(x), norm(y)
+        payloads.append(fit_lib.encode_pair(x, y))
+    n_shards = max(1, -(-len(payloads) // shard_size))
+    for s in range(n_shards):
+        path = os.path.join(job.output, f"pairs-{s:05d}-of-{n_shards:05d}.tfrecord")
+        with records.RecordWriter(
+            path, compression="gzip" if p.get("compress_records") else None,
+        ) as w:
+            for payload in payloads[s * shard_size:(s + 1) * shard_size]:
+                w.write(payload)
+    return {"shards": os.path.join(job.output, "pairs-*.tfrecord"),
+            "n_examples": str(len(payloads))}
+
+
+@register("train_gan")
+def train_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train the enhancement GAN from pair shards and register it (kind
+    ``gan``: ``enhancement_gan``, ``evaluate_gan`` and ``parity_check``
+    serve it).
+
+    input: pair shard globs (or a build_gan_pairs output directory).
+    params: model (output name), in_channels, out_channels, gen_depth,
+    gen_base_features, disc_layers, disc_base_features, compute_dtype,
+    steps, batch_size, learning_rate (Adam with beta1 0.5), l1_weight, the
+    lr schedule, polyphase, observability (holdout_every, eval_every,
+    dump_eval_images, log_every, checkpoint_every), keep_best (on
+    ``eval_psnr`` by default), early_stop_patience, ema_decay (the
+    generator's), resume, seed.
+    """
+    from sequitr_tpu_torch.models import gan as gan_lib
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    shard_paths: list = []
+    for pattern in _resolve_globs(job):
+        shard_paths.extend(sorted(glob_lib.glob(pattern)))
+    if not shard_paths:
+        raise jobs_lib.JobError(f"job {job.id}: no pair shards found")
+    p = job.params
+    cfg = gan_lib.GANConfig(
+        in_channels=int(p.get("in_channels", 1)),
+        out_channels=int(p.get("out_channels", 1)),
+        gen_depth=int(p.get("gen_depth", 4)),
+        gen_base_features=int(p.get("gen_base_features", 32)),
+        disc_layers=int(p.get("disc_layers", 3)),
+        disc_base_features=int(p.get("disc_base_features", 64)),
+        compute_dtype=str(p.get("compute_dtype", "bfloat16")),
+    )
+    steps = int(p.get("steps", 1000))
+    tc = train_lib.TrainConfig(
+        learning_rate=float(p.get("learning_rate", 2e-4)), beta1=0.5,
+        polyphase=_polyphase_train_param(p, cfg.generator_config),
+        lr_schedule=str(p.get("lr_schedule", "constant")),
+        lr_warmup_steps=int(p.get("lr_warmup_steps", 0)),
+        # the decay runs over the steps after the warmup by default
+        lr_decay_steps=int(
+            p.get("lr_decay_steps", max(1, steps - int(p.get("lr_warmup_steps", 0))))
+        ),
+        lr_end_factor=float(p.get("lr_end_factor", 0.01)),
+    )
+    fc = fit_lib.FitConfig(
+        steps=steps,
+        batch_size=int(p.get("batch_size", 4)),
+        checkpoint_every=int(p.get("checkpoint_every", 500)),
+        log_every=int(p.get("log_every", 50)),
+        holdout_every=int(p.get("holdout_every", 0)),
+        eval_every=int(p.get("eval_every", 0)),
+        metrics_path=os.path.join(job.output, "metrics.jsonl"),
+        dump_eval_images=bool(p.get("dump_eval_images", False)),
+        seed=int(p.get("seed", 0)),
+        keep_checkpoints=int(p.get("keep_checkpoints", 3)),
+        keep_best_metric=(
+            str(p.get("keep_best_metric", "eval_psnr"))
+            if p.get("keep_best") or _parse_patience(p)
+            else ""
+        ),
+        early_stop_patience=_parse_patience(p),
+        ema_decay=_parse_ema_decay(p),
+    )
+    if fc.keep_best_metric and not fc.holdout_every:
+        raise jobs_lib.JobError(
+            "keep_best/early_stop_patience requires holdout_every > 0 "
+            "(no eval metric to track)"
+        )
+    ckpt_dir = os.path.join(job.output, "ckpts")
+    init_state = None
+    ckpt = fit_lib.latest_checkpoint(ckpt_dir) if p.get("resume", True) else None
+    if ckpt:
+        template = train_lib.create_gan_state(cfg, tc, device=device)
+        init_state = train_lib.restore_checkpoint(ckpt, template)
+    # the fit loop owns the cancel poll (it checkpoints before raising)
+    rep = jobs_lib.ProgressReporter(job, fc.steps, phase="steps", raise_on_cancel=False)
+    try:
+        state = fit_lib.fit_gan(
+            cfg, tc, fc, shard_paths, ckpt_dir=ckpt_dir, init_state=init_state,
+            l1_weight=float(p.get("l1_weight", 100.0)),
+            should_stop=lambda: jobs_lib.cancel_requested(job),
+            progress=lambda s, _t: rep.step(s), device=device,
+        )
+    except fit_lib.TrainingCancelled as e:
+        raise jobs_lib.JobCancelled(str(e))
+    rep.finish()
+    best_path = os.path.join(ckpt_dir, "best")
+    used_best = bool(fc.keep_best_metric) and os.path.isdir(best_path)
+    if used_best:
+        state = train_lib.restore_checkpoint(best_path, state)
+    # the EMA twin covers the generator only (fit_gan's ema_select); the
+    # discriminator keeps its raw weights
+    model = _ema_or_raw_params(ckpt_dir, fc, state, used_best, subtree="gen")
+    model_dir = save_model(config.models_dir, _require_param(job, "model"), "gan", cfg, model)
     return {"model": model_dir, "metrics_file": fc.metrics_path}

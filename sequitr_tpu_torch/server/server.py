@@ -2,7 +2,7 @@
 
 Port of ``sequitr_tpu.server.server``, the part the segmentation (2D and
 3D), GAN enhancement, denoising, instance segmentation (flows and stars
-serving) and U-Net training jobs need. A single-process loop scans
+serving), evaluation and parity, U-Net and GAN training jobs need. A single-process loop scans
 the jobs directory, atomically claims each job, dispatches to the
 registered pipeline and writes results plus a status marker into the job's
 output directory — the same filesystem contract, job JSON and outputs as
@@ -40,7 +40,7 @@ log = logging.getLogger("sequitr_tpu_torch.server")
 
 __all__ = [
     "PipelineRegistry", "ImageServer", "REGISTRY", "register", "JobTimeout",
-    "save_model", "load_model", "load_model_cached",
+    "save_model", "read_model", "load_model", "load_model_cached",
 ]
 
 
@@ -357,16 +357,11 @@ def save_model(models_dir: str, name: str, kind: str, cfg, model) -> str:
     return model_dir
 
 
-def load_model(models_dir: str, name: str, device=None):
-    """Load ``(kind, cfg, model)`` saved by ``save_model``.
-
-    ``cfg`` is the stored configuration (a ``GANConfig`` for kind ``gan``,
-    else a ``UNetConfig``); ``model`` has its batch norm folded into the
-    convs (once, here, in f32: ``unet.fold_batchnorm``,
-    ``gan.fold_generator``) and lives on ``device``.
-    """
-    from sequitr_tpu_torch.models import convert as convert_lib
-    from sequitr_tpu_torch.models import fixtures, gan, unet
+def read_model(models_dir: str, name: str):
+    """``(kind, cfg, flat)`` of a model saved by ``save_model``: its stored
+    configuration (a ``GANConfig`` for kind ``gan``, else a ``UNetConfig``)
+    and its weights in the flat interchange layout, unfolded."""
+    from sequitr_tpu_torch.models import fixtures
 
     model_dir = os.path.join(models_dir, name)
     with open(os.path.join(model_dir, "config.json")) as f:
@@ -384,6 +379,21 @@ def load_model(models_dir: str, name: str, device=None):
     cfg = cfg_cls(**cfg_dict)
     with np.load(os.path.join(model_dir, _WEIGHTS)) as npz:
         flat = {k: npz[k] for k in npz.files}
+    return kind, cfg, flat
+
+
+def load_model(models_dir: str, name: str, device=None):
+    """Load ``(kind, cfg, model)`` saved by ``save_model``.
+
+    ``cfg`` is the stored configuration (``read_model``); ``model`` has its
+    batch norm folded into the convs (once, here, in f32:
+    ``unet.fold_batchnorm``, ``gan.fold_generator``) and lives on
+    ``device``.
+    """
+    from sequitr_tpu_torch.models import convert as convert_lib
+    from sequitr_tpu_torch.models import gan, unet
+
+    kind, cfg, flat = read_model(models_dir, name)
     model = convert_lib.load_flat(cfg, flat, device=device)
     fold = gan.fold_generator if kind == "gan" else unet.fold_batchnorm
     return kind, cfg, fold(model)
@@ -421,18 +431,22 @@ def load_model_cached(models_dir: str, name: str, device=None):
     return loaded
 
 
-def _require_model(job: Job, config: ServerConfiguration, expect_kind=None):
+def _require_model(job: Job, config: ServerConfiguration, expect_kind=None, unfolded=False):
     """Load the job's model on ``config.device``, raising deterministic
     JobErrors for a missing param, an unregistered name or the wrong kind.
     Returns ``(cfg, model)`` (``(kind, cfg, model)`` for
-    ``expect_kind=None``)."""
+    ``expect_kind=None``). ``unfolded``: ``model`` is the stored weights in
+    the flat layout (``read_model``), not a loaded module."""
     name = job.params.get("model")
     if not name:
         raise jobs_lib.JobError(f"job {job.id}: missing required param 'model'")
     try:
-        kind, cfg, model = load_model_cached(
-            config.models_dir, name, device=config.device
-        )
+        if unfolded:
+            kind, cfg, model = read_model(config.models_dir, name)
+        else:
+            kind, cfg, model = load_model_cached(
+                config.models_dir, name, device=config.device
+            )
     except (FileNotFoundError, KeyError, NotImplementedError) as e:
         raise jobs_lib.JobError(f"job {job.id}: model {name!r} not loadable: {e!r}")
     if expect_kind is None:
@@ -521,6 +535,15 @@ def _check_ignore_collision(ignore_label, num_classes: int) -> None:
         )
 
 
+def _parse_eval_ignore(job: Job, k: int):
+    """The evaluate family's ``ignore_label``: ground truth carrying this
+    value is excluded from every metric (score only where a human
+    annotated). Deterministic errors on malformed or colliding values."""
+    ig = _parse_ignore_label(job)
+    _check_ignore_collision(ig, k)
+    return ig
+
+
 def _parse_patience(p: dict) -> int:
     """Validated ``early_stop_patience`` (a JobError, never a retried
     ValueError)."""
@@ -545,11 +568,13 @@ def _parse_ema_decay(p: dict) -> float:
     return v
 
 
-def _ema_or_raw_params(ckpt_dir: str, fc, state, used_best: bool):
+def _ema_or_raw_params(ckpt_dir: str, fc, state, used_best: bool, subtree=None):
     """The module a finished train job registers: with ``ema_decay``, the
     EMA twin of the checkpoint being registered (``ema_best`` when
     keep_best chose it, else ``ema_final``) as parameters beside the
-    state's batch-norm statistics; else the state's own module."""
+    state's batch-norm statistics; else the state's own module.
+    ``subtree``: the submodule the EMA covers (a GAN's ``"gen"``); the
+    rest keeps its raw weights."""
     from sequitr_tpu_torch.models import convert as convert_lib
     from sequitr_tpu_torch.pipeline import train as train_lib
 
@@ -567,7 +592,8 @@ def _ema_or_raw_params(ckpt_dir: str, fc, state, used_best: bool):
     device = next(state.model.parameters()).device
     model = convert_lib.build(state.model.cfg, device=device)
     model.load_state_dict(state.model.state_dict())
-    train_lib.restore_checkpoint(path, list(model.parameters()))
+    target = getattr(model, subtree) if subtree else model
+    train_lib.restore_checkpoint(path, list(target.parameters()))
     return model
 
 
@@ -595,6 +621,36 @@ def _resolve_inputs(job: Job):
             continue
         raise jobs_lib.JobError(f"job {job.id}: input not found: {p}")
     return job.input
+
+
+def _truth_reader(job: Job, path: str):
+    """``(shape, read_truth, close)`` of a ground-truth label stack: frames
+    read lazily as int64 (``read_truth(t)``), or the eager read for layouts
+    the lazy reader cannot parse."""
+    from sequitr_tpu_torch.data import tiff
+
+    try:
+        reader = tiff.TiffReader(path)
+    except ValueError:
+        arr = _read_stack_or_fail(job, path).astype(np.int64)
+        if arr.ndim == 2:
+            arr = arr[None]
+        return arr.shape, lambda i: arr[i], lambda: None
+    return (
+        reader.shape,
+        lambda i: np.asarray(reader.read_frame(i), dtype=np.int64),
+        reader.close,
+    )
+
+
+def _check_truth_shape(source, t_shape) -> None:
+    """The truth must cover the UNDERLYING stack: comparisons index it at
+    absolute frame positions (``frame_range`` offsets apply)."""
+    shape = (source.frame_offset + len(source),) + tuple(source.spatial)
+    if tuple(t_shape)[1:] != tuple(source.spatial) or t_shape[0] < shape[0]:
+        raise jobs_lib.JobError(
+            f"image/label shape mismatch: need >= {shape}, got {tuple(t_shape)}"
+        )
 
 
 def _normalized_entropy(probs: np.ndarray, n_classes: int) -> np.ndarray:

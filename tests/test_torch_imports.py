@@ -14,6 +14,7 @@ MODULES = [
     "sequitr_tpu_torch",
     "sequitr_tpu_torch.__main__",
     "sequitr_tpu_torch.config",
+    "sequitr_tpu_torch.fidelity",
     "sequitr_tpu_torch.utils",
     "sequitr_tpu_torch.native",
     "sequitr_tpu_torch.localize",
@@ -29,6 +30,8 @@ MODULES = [
     "sequitr_tpu_torch.models.fixtures",
     "sequitr_tpu_torch.models.gan",
     "sequitr_tpu_torch.models.polyphase",
+    "sequitr_tpu_torch.models.torch_reference",
+    "sequitr_tpu_torch.models.tf_reference",
     "sequitr_tpu_torch.ops",
     "sequitr_tpu_torch.ops.normalize",
     "sequitr_tpu_torch.ops.tiling",
@@ -73,12 +76,20 @@ bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
     or m == "sequitr_tpu" or m.startswith("sequitr_tpu.")
+    or m == "tensorflow" or m.startswith("tensorflow.")
 )
 assert not bad, bad
+from sequitr_tpu_torch.server.server import REGISTRY
+for job in (
+    "evaluate_unet2d", "evaluate_unet3d", "parity_check", "evaluate_gan",
+    "evaluate_denoise", "evaluate_flows", "evaluate_stars", "build_gan_pairs",
+    "train_gan",
+):
+    assert job in REGISTRY.names(), job
 
 import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
-from sequitr_tpu_torch import utils
+from sequitr_tpu_torch import fidelity, utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet
 from sequitr_tpu_torch.ops import flows
@@ -114,6 +125,15 @@ calls = [
     lambda: unet.init(cfg),
     lambda: train.create_unet_state(cfg, train.TrainConfig()),
     lambda: fit.fit_unet(cfg, train.TrainConfig(), fit.FitConfig(), []),
+    lambda: gan.init(gcfg),
+    lambda: train.create_gan_state(gcfg, train.TrainConfig()),
+    lambda: fit.fit_gan(gcfg, train.TrainConfig(), fit.FitConfig(), []),
+    lambda: fidelity.seg_fidelity("unet2d_cells", (64, 64), n=1),
+    lambda: fidelity.gan_fidelity(frame_shape=(64, 64), n=1),
+    lambda: fidelity.n2v_fidelity(frame_shape=(64, 64), n=1),
+    lambda: fidelity.flows_fidelity(frame_shape=(64, 64), n=1),
+    lambda: fidelity.stars_fidelity(frame_shape=(64, 64), n=1),
+    lambda: fidelity.train_fidelity("gan", steps=1, batch=1, size=32),
 ]
 for call in calls:
     try:
@@ -128,6 +148,7 @@ gan.GAN(gcfg, device="cpu")
 infer.make_frame_inferrer(cfg, tc, (16, 16), device="cpu")
 infer.make_gan_enhancer(gcfg, tc, (16, 16), device="cpu")
 train.create_unet_state(cfg, train.TrainConfig(), device="cpu")
+train.create_gan_state(gcfg, train.TrainConfig(), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
 print("ok")
 """
