@@ -118,6 +118,32 @@ on failure:
    ``enhancement_gan`` (bit-equal to the registered weights served
    directly) -> ``evaluate_gan`` in one server process.
 
+15. family_train phase (N2V, flows and stars training, PyTorch's TF32
+   defaults; the f32 steps enter ``utils.ieee_f32``): the N2V masking's
+   apply on the card bit-equal to the CPU's on the same draws, under
+   ``set_sync_debug_mode("error")`` (uniform, median, structN2V, 2D
+   16x64x64 and 3D 16x8x64x64 with radius (2, 5, 5), and forced
+   duplicate centres); three f32 steps of N2V 2D and 3D, flows and stars
+   (the jobs' presets) card against CPU from the same weights and draws
+   (the train phase's bars on step 1 and on the updates after 3 steps,
+   and for flows and stars on every step; N2V's steps 2-3 at
+   ``FAMILY_N2V_LATER_BAR``, see the phase), two card runs printed; the bf16
+   step at each job's default shape and preset (``n2v_denoise`` 16x64x64
+   and 16x8x64x64, ``flows_cells`` and ``stars_cells`` 16x64x64), standard
+   and polyphase, with its split, device ops, busy share and peak memory;
+   then in one server process ``train_n2v`` (30 steps) on 4 noisy
+   1024x1024 ``denoise_pair`` frames -> ``denoise`` -> ``evaluate_denoise``,
+   ``train_n2v`` ``dims: 3`` on 2x32x256x256 -> ``denoise``,
+   ``train_flows`` on 4 256x256 ``instances_frame``s -> ``segment_flows``
+   -> ``evaluate_flows``, ``train_stars`` -> ``segment_stars`` ->
+   ``evaluate_stars``, ``train_flows`` ``dims: 3`` on 2x16x64x64
+   (instances from ``cells_volume`` by ``scipy.ndimage.label``) ->
+   ``segment_flows``; each served output (denoised frames or volumes,
+   ``save_prob``'s probabilities) equal to the registered weights served
+   directly the job's way; quantile passes 0 in every train job, 4 in
+   each 4-frame serve and in evaluate_flows / evaluate_stars, 8 in
+   evaluate_denoise, 2 in each 2-volume serve.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -126,7 +152,8 @@ outside a checkout of the repository.
 
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
-``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``)
+``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
+``family_train``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -2577,13 +2604,417 @@ def gan_train_phase(torch, hist, conv, smi_line):
         return counts
 
 
+FAMILY_LR = {"n2v": 4e-4, "flows": 3e-4, "stars": 3e-4}  # the train jobs' default learning rates
+FAMILY_N2V_LATER_BAR = 1e-2  # N2V f32 steps 2-3, card vs CPU: loss and running statistics (family_train_phase)
+
+
+def _family_cfg(family, dims, dtype):
+    """The train job's default architecture: its preset (``n2v_denoise``,
+    ``flows_cells`` with depth 3 for volumes, ``stars_cells``) at ``dtype``."""
+    import dataclasses
+
+    from sequitr_tpu_torch.models import zoo
+
+    base = zoo.get({"n2v": "n2v_denoise", "flows": "flows_cells", "stars": "stars_cells"}[family])
+    kw = dict(dims=dims, compute_dtype=dtype)
+    if family == "flows":
+        kw.update(num_classes=dims + 1, depth=base.depth if dims == 2 else 3)
+    return dataclasses.replace(base, **kw)
+
+
+def _family_batch(np, family, n, spatial, seed):
+    """``n`` examples of ``family``'s records (host arrays), normalized as
+    the train jobs write them: noisy ``denoise_pair`` frames or noisy
+    ``cells_volume`` volumes (N2V); ``instances_frame`` images with their
+    flow or ray targets (flows, stars)."""
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.ops import flows as flows_ops
+    from sequitr_tpu_torch.ops import stardist as sd
+
+    def norm(img):
+        lo, hi = np.percentile(img, [5.0, 99.5])
+        return np.clip((img - lo) / max(hi - lo, 1e-8), 0, 1).astype(np.float32)
+
+    rng = np.random.default_rng(seed)
+    if family == "n2v":
+        if len(spatial) == 2:
+            imgs = [synthetic.denoise_pair(seed + i, spatial)[1] for i in range(n)]
+        else:
+            imgs = [synthetic.cells_volume(seed + i, spatial)[0] + rng.normal(0, 20.0, spatial) for i in range(n)]
+        return {"image": np.stack([norm(x) for x in imgs])[..., None]}
+    imgs, targets, probs = [], [], []
+    for i in range(n):
+        img, lab = synthetic.instances_frame(seed + i, spatial)
+        t, p = (flows_ops.flow_targets(lab.astype(np.int64)) if family == "flows"
+                else sd.star_targets(lab.astype(np.int64), n_rays=32, max_dist=40.0))
+        imgs.append(norm(img))
+        targets.append(t.astype(np.float32))
+        probs.append(p.astype(np.float32))
+    key = "flow" if family == "flows" else "dist"
+    return {"image": np.stack(imgs)[..., None], key: np.stack(targets), "prob": np.stack(probs)}
+
+
+def _family_step(train, family, cfg, tc):
+    if family == "n2v":
+        return train.make_n2v_train_step(cfg, tc, radius=5 if cfg.dims == 2 else (2, 5, 5))
+    return (train.make_flows_train_step if family == "flows" else train.make_stars_train_step)(cfg, tc)
+
+
+def _family_draws(np, train, family, gen, shape, tc):
+    """One step's draws from ``gen`` (the step's own order)."""
+    nd = len(shape) - 2
+    if family != "n2v":
+        return train.draw_flips(gen, shape, nd, tc)
+    radii = (5, 5) if nd == 2 else (2, 5, 5)
+    n_mask = max(1, int(0.005 * int(np.prod(shape[1:-1]))))
+    return train.N2VDraws(train.n2v_draw_flip(gen, shape), train.n2v_draw_mask(gen, shape, n_mask, radii))
+
+
+def family_train_phase(torch, hist, conv, smi_line):
+    """N2V, flows and stars training on the card (PyTorch's TF32 defaults
+    restored; the f32 steps enter ``utils.ieee_f32`` themselves): the N2V
+    masking's apply on the card bit-equal to the CPU's on the same draws,
+    with no host sync; 3 f32 steps of each family card against CPU from the
+    same weights and draws; the bf16 step at each job's default shape and
+    preset, standard and polyphase, with its split, device ops, busy share
+    and peak memory; then each train job in one server process followed by
+    the serve and evaluation of its model. Returns {job: (histogram_2d
+    launches, quantile passes)}."""
+    import numpy as np
+    from scipy import ndimage
+
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import convert, unet
+    from sequitr_tpu_torch.ops import stardist as sd
+    from sequitr_tpu_torch.pipeline import infer, optim, train
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import _tile_config, load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+
+    # (1) the masking: the card's apply against the CPU's on the same
+    # draws, bit for bit, and no host sync on the card
+    cases = [
+        ("2D uniform", (16, 64, 64, 1), (5, 5), "uniform", None, 20),
+        ("2D median (120 taps)", (16, 64, 64, 1), (5, 5), "median", None, 20),
+        ("2D struct y", (16, 64, 64, 1), (5, 5), "uniform", (0, 4), 20),
+        ("2D median struct x", (16, 64, 64, 1), (5, 5), "median", (1, 4), 20),
+        ("3D uniform", (16, 8, 64, 64, 1), (2, 5, 5), "uniform", None, 163),
+        ("3D median (604 taps)", (16, 8, 64, 64, 1), (2, 5, 5), "median", None, 163),
+        ("3D struct z", (16, 8, 64, 64, 1), (2, 5, 5), "uniform", (0, 2), 163),
+        ("2D forced duplicates", (16, 64, 64, 1), (5, 5), "uniform", (1, 4), 20),
+    ]
+    for name, shape, radii, mode, struct, n_mask in cases:
+        gen = torch.Generator().manual_seed(len(name))
+        img = torch.rand(shape, generator=gen)
+        draws = train.n2v_draw_mask(gen, shape, n_mask, radii, mode, struct)
+        if "duplicates" in name:
+            # every second centre repeats its neighbour, offsets differ
+            draws.centers[:, :, 1::2] = draws.centers[:, :, 0::2]
+        cpu, cpu_c = train.n2v_mask_apply(img, draws, radii, mode, struct)
+        card_img = img.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card, card_c = train.n2v_mask_apply(card_img, draws, radii, mode, struct)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same = torch.equal(card.cpu(), cpu) and all(torch.equal(a.cpu(), b) for a, b in zip(card_c, cpu_c))
+        changed = int((cpu != img).any(-1).sum())
+        ms = _median_ms(lambda: train.n2v_mask_apply(card_img, draws, radii, mode, struct), 20)
+        print(
+            f"family_train mask {name} {tuple(shape)}: card bit-equal to the CPU {same}, no host sync, "
+            f"{changed} pixels replaced, {ms:.4f} ms on the card"
+        )
+        if not same:
+            raise AssertionError(f"N2V masking {name}: card and CPU differ")
+
+    # (2) three f32 steps a family, the card against the CPU, from the same
+    # weights and draws. The train phase's bars (TRAIN_*) hold for everything
+    # read on the same weights (step 1's loss and grad_norm; the weights and
+    # statistics after step 1) and for the updates after 3 steps. Adam's first update is the
+    # sign of each gradient, so weights whose gradient cancels to round-off
+    # part by 2 lr at once, and the later steps run on parted weights:
+    # flows and stars still meet those loss and statistics bars at step 3,
+    # N2V (its loss reads 20 masked pixels a sample, 163 a volume) reads
+    # step-3 losses 3.0e-4 (2D) and 2.0e-3 (3D) apart and statistics up to
+    # 3.7e-3 (NVIDIA H100 80GB HBM3, 700 W; two card runs agree to 7e-6 and
+    # 2.2e-5), so its steps 2-3 are held at FAMILY_N2V_LATER_BAR
+    failed = []
+    exact = [("n2v", 2, (4, 64, 64)), ("n2v", 3, (2, 8, 64, 64)), ("flows", 2, (4, 64, 64)), ("stars", 2, (4, 64, 64))]
+    for family, dims, shape in exact:
+        lr = FAMILY_LR[family]
+        cfg32 = _family_cfg(family, dims, "float32")
+        tc = train.TrainConfig(learning_rate=lr)
+        flat = convert.to_flat(unet.init(cfg32, torch.Generator().manual_seed(3), device="cpu"))
+        batches = [_family_batch(np, family, shape[0], shape[1:], 880_000 + 10 * s) for s in range(TRAIN_STEPS_EXACT)]
+        gen = torch.Generator().manual_seed(5)
+        draws = [_family_draws(np, train, family, gen, b["image"].shape, tc) for b in batches]
+        runs = {}
+        for name, where in (("cpu", "cpu"), ("card", "cuda"), ("card again", "cuda")):
+            state = train.create_unet_state(cfg32, tc, model=convert.load_flat(cfg32, flat, device=where))
+            step = _family_step(train, family, cfg32, tc)
+            got, first = [], None
+            for b, d in zip(batches, draws):
+                state, m = step(state, {k: torch.from_numpy(v).to(where) for k, v in b.items()}, draws=d)
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+                if first is None:
+                    first = convert.load_flat(cfg32, convert.to_flat(state.model), device="cpu")
+            runs[name] = (got, first, state.model.to("cpu"))
+        rel1, _, _, stats1 = _weights_vs(np, convert, runs["card"][1], runs["cpu"][1], flat, lr)
+        rel, share, nulled, stats = _weights_vs(np, convert, runs["card"][2], runs["cpu"][2], flat, lr)
+        rel2, share2, nulled2, stats2 = _weights_vs(np, convert, runs["card"][2], runs["card again"][2], flat, lr)
+        loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs["card"][0], runs["cpu"][0])]
+        gn_rel = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(runs["card"][0], runs["cpu"][0])]
+        again = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs["card"][0], runs["card again"][0])]
+        later = FAMILY_N2V_LATER_BAR if family == "n2v" else None
+        print(
+            f"family_train f32 {family} {dims}D {TRAIN_STEPS_EXACT} steps of {shape} ({cfg32.depth} levels, base "
+            f"{cfg32.base_features}, {cfg32.num_classes} out): losses card {[g[0] for g in runs['card'][0]]} CPU "
+            f"{[g[0] for g in runs['cpu'][0]]} (rel {', '.join(f'{r:.3g}' for r in loss_rel)}), grad_norm rel "
+            f"{', '.join(f'{r:.3g}' for r in gn_rel)}; after step 1 updates differ by {rel1:.3g} of their L2 norm "
+            f"and statistics by {stats1:.3g}; after {TRAIN_STEPS_EXACT} steps updates by {rel:.3g} (bar "
+            f"{TRAIN_UPDATE_BAR}), {share:.3g} of the weights by more than lr/10, BN-nulled biases by up to "
+            f"{nulled:.3g}, statistics by {stats:.3g}; bars: step 1 loss {TRAIN_LOSS_RTOL}, grad_norm "
+            f"{TRAIN_GRAD_NORM_RTOL}, statistics {TRAIN_STATS_BAR}; steps 2-3 loss and statistics "
+            f"{later or f'{TRAIN_LOSS_RTOL} and {TRAIN_STATS_BAR}'}; two card runs: losses rel "
+            f"{', '.join(f'{r:.3g}' for r in again)}, updates {rel2:.3g}, {share2:.3g}, {nulled2:.3g}, "
+            f"statistics {stats2:.3g}"
+        )
+        ok = (
+            loss_rel[0] <= TRAIN_LOSS_RTOL and gn_rel[0] <= TRAIN_GRAD_NORM_RTOL
+            and rel1 <= TRAIN_UPDATE_BAR and stats1 <= TRAIN_STATS_BAR and rel <= TRAIN_UPDATE_BAR
+            and max(loss_rel[1:]) <= (later or TRAIN_LOSS_RTOL) and stats <= (later or TRAIN_STATS_BAR)
+        )
+        if not ok:
+            failed.append(f"{family} {dims}D")
+
+    # (3) the bf16 step at each job's default shape and preset
+    timed = [("n2v", 2, (16, 64, 64)), ("n2v", 3, (16, 8, 64, 64)), ("flows", 2, (16, 64, 64)), ("stars", 2, (16, 64, 64))]
+    for family, dims, shape in timed:
+        host = _family_batch(np, family, shape[0], shape[1:], 890_000)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        cfg = _family_cfg(family, dims, "bfloat16")
+        ms = {}
+        for kind, poly in (("standard", False), ("polyphase", True)):
+            tc = train.TrainConfig(learning_rate=FAMILY_LR[family], polyphase=poly)
+            state = train.create_unet_state(cfg, tc, torch.Generator().manual_seed(0), device="cuda")
+            step = _family_step(train, family, cfg, tc)
+            opt = tc.make_optimizer()
+            forward = train._train_forward(cfg, tc)
+            gen = torch.Generator().manual_seed(1)
+
+            perms = (torch.stack([torch.as_tensor(sd.ray_flip_perm(cfg.num_classes - 1, a)) for a in (0, 1)])
+                     if family == "stars" else None)
+
+            def prep(d):
+                """(forward input, loss of the output) after the step's flips and mask."""
+                if family == "n2v":
+                    x = train.n2v_flip_batch(batch["image"], d.flip)
+                    masked, coords = train.n2v_mask_apply(x, d.mask, (5, 5) if dims == 2 else (2, 5, 5))
+                    return masked, lambda out: train.n2v_masked_mse(out, x, *coords)
+                if family == "flows":
+                    x, f, pr = train.flows_flip_batch(batch["image"], batch["flow"], batch["prob"], d.flips)
+                    return x, lambda out: train.flows_loss(out, f, pr)[0]
+                x, dist, pr = train.stars_flip_batch(batch["image"], batch["dist"], batch["prob"], d.flips, perms)
+                return x, lambda out: train.stars_loss(out, dist, pr)[0]
+
+            def parts():
+                t = [time.perf_counter()]
+                x, loss_of = prep(_family_draws(np, train, family, gen, tuple(batch["image"].shape), tc))
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                out, stats = forward(state.model, x)
+                params = state.params
+                grads = torch.autograd.grad(loss_of(out), params)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                opt.update(params, grads, state.opt_state, grad_norm=optim.global_norm(grads))
+                state.model.set_bn_stats(stats)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                return [b - a for a, b in zip(t, t[1:])]
+
+            for _ in range(3):
+                parts()
+            split = np.median(np.array([parts() for _ in range(10)]), axis=0) * 1e3
+
+            def whole():
+                step(state, batch, gen)
+
+            whole()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                whole()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            ms[kind] = float(np.median(times)) * 1e3
+            _, peak = _peak_gb(torch, whole)
+            ops = _device_events(torch, whole, 2)
+            dev = _ms(ops, 2)
+            by_name = {}
+            for e in ops:
+                by_name.setdefault(e.name, []).append(e)
+            top = sorted(by_name.items(), key=lambda kv: -_ms(kv[1], 2))[:4]
+            print(
+                f"family_train bf16 {family} {dims}D {kind} step {shape} ({cfg.depth} levels, base "
+                f"{cfg.base_features}, {cfg.num_classes} out): {ms[kind]:.4f} ms "
+                f"({shape[0] / ms[kind] * 1e3:.3f} patches/s) on {smi_line}; split (synchronized, median of 10): "
+                f"{'flip + mask' if family == 'n2v' else 'flip'} {split[0]:.4f} ms, forward + backward "
+                f"{split[1]:.4f} ms, optimizer + BN statistics {split[2]:.4f} ms; {len(ops) / 2:.0f} device ops a "
+                f"step, {dev:.4f} device ms, busy share {dev / ms[kind]:.3f}, peak {peak:.3f} GB; largest: "
+                + "; ".join(f"{n[:50]} {_ms(es, 2):.4f}" for n, es in top)
+            )
+        print(f"family_train bf16 {family} {dims}D polyphase over standard: {ms['polyphase'] / ms['standard']:.3f}x")
+
+    # (4) the jobs in one server process on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+        server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+        counts, outputs = {}, {}
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        def serve(name, module, params, inputs, passes):
+            submit_job(jobs, {"module": module, "params": params, "input": inputs,
+                              "output": os.path.join(tmp, f"out_{name}")})
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not server.poll_once():
+                raise AssertionError(f"job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"job {name}: {status.get('error')}")
+            if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
+                raise AssertionError(f"job {name}: launched a conv study kernel")
+            if counts[name] != (passes, passes):
+                raise AssertionError(f"job {name}: {counts[name]} launches/passes, expected {passes}")
+            outputs[name] = status["outputs"]
+            extra = ""
+            if "metrics_file" in status["outputs"]:
+                with open(status["outputs"]["metrics_file"]) as f:
+                    rows = [json.loads(line) for line in f]
+                tr = [r for r in rows if r["kind"] == "train"]
+                if not tr or not all(np.isfinite(r["loss"]) for r in tr):
+                    raise AssertionError(f"job {name}: no or non-finite training loss")
+                extra = (f"; loss {tr[0]['loss']:.4f} -> {tr[-1]['loss']:.4f}, "
+                         f"{tr[-1]['steps_per_sec']:.3f} steps/s")
+            elif "metrics" in status["outputs"]:
+                extra = f"; {str(status['outputs']['metrics'])[:240]}"
+            print(f"family_train job {name} ({module}): {wall:.3f} s, quantile passes {counts[name][1]}{extra}")
+            return status["outputs"]
+
+        def direct(name, model_name, frames, make, out_of):
+            """The registered weights served directly, as the job serves
+            them (its tile config, one item a call), against the job's
+            saved output."""
+            _, cfg_t, model_t = load_model(models, model_name, device="cuda")
+            spatial = frames.shape[1:]
+            tc = _tile_config({}, len(spatial), spatial, cfg_t.min_input_multiple, exact_only=True,
+                              allow_polyphase=True)
+            fn = make(cfg_t, tc, tuple(spatial))
+            with torch.inference_mode():
+                want = np.stack([out_of(fn(model_t, torch.from_numpy(f).cuda())) for f in frames])
+            return want
+
+        def hold(name, served, want):
+            same = np.array_equal(served, want)
+            print(f"family_train job {name}: served output equal to the registered weights served directly {same}"
+                  f" (max |diff| {float(np.abs(served - want).max()):.3g})")
+            if not same:
+                raise AssertionError(f"job {name}: served output differs from its weights served directly")
+
+        # N2V 2D: 4 noisy 1024x1024 denoise_pair frames
+        pairs = [synthetic.denoise_pair(895_000 + i, (1024, 1024)) for i in range(4)]
+        noisy = np.stack([n for _, n in pairs]).astype(np.float32)
+        p_noisy, p_clean = write("noisy.tif", noisy), write("clean.tif", np.stack([c for c, _ in pairs]).astype(np.float32))
+        steps = {"steps": 30, "log_every": 10, "checkpoint_every": 30}
+        serve("train_n2v", "train_n2v", dict(steps, model="n2v_t"), [p_noisy], 0)
+        out = serve("denoise_n2v", "denoise", {"model": "n2v_t"}, [p_noisy], 4)
+        hold("denoise_n2v", tiff.read_stack(out["denoised"]),
+             direct("denoise_n2v", "n2v_t", noisy,
+                    lambda c, t, s: infer.cached_denoiser(c, t, s, None, "cuda"),
+                    lambda y: y.float().cpu().numpy()[..., 0]))
+        serve("evaluate_denoise_n2v", "evaluate_denoise", {"model": "n2v_t"}, [p_noisy, p_clean], 8)
+
+        # N2V 3D: 2 volumes of 32x256x256 in one file (z: 32)
+        vols = np.stack([synthetic.cells_volume(896_000 + t, INST_VOLUME)[0] for t in range(2)]).astype(np.float32)
+        vols = vols + np.random.default_rng(3).normal(0, 20.0, vols.shape).astype(np.float32)
+        p_vols = write("noisy_v.tif", vols.reshape((-1,) + INST_VOLUME[1:]))
+        serve("train_n2v_3d", "train_n2v", dict(steps, model="n2v3d_t", dims=3, z=INST_VOLUME[0]), [p_vols], 0)
+        out = serve("denoise_n2v_3d", "denoise", {"model": "n2v3d_t", "z": INST_VOLUME[0]}, [p_vols], 2)
+        hold("denoise_n2v_3d", tiff.read_stack(out["denoised"]).reshape(vols.shape),
+             direct("denoise_n2v_3d", "n2v3d_t", vols,
+                    lambda c, t, s: infer.cached_denoiser(c, t, s, None, "cuda"),
+                    lambda y: y.float().cpu().numpy()[..., 0]))
+
+        # flows 2D and stars: 4 instances_frames of 256x256 (the targets are
+        # computed on the host: star_targets marches 32 rays a pixel)
+        scenes = [synthetic.instances_frame(897_000 + i, (256, 256)) for i in range(4)]
+        inst = np.stack([img for img, _ in scenes]).clip(0, 65535).astype(np.uint16)
+        p_inst = write("inst.tif", inst)
+        p_truth = write("inst_truth.tif", np.stack([lab for _, lab in scenes]).astype(np.uint16))
+        seg_params = {"localize": False, "save_prob": True}
+        serve("train_flows", "train_flows", dict(steps, model="flows_t"), [p_inst, p_truth], 0)
+        out = serve("segment_flows_t", "segment_flows", dict(seg_params, model="flows_t"), [p_inst], 4)
+        hold("segment_flows_t", tiff.read_stack(os.path.join(os.path.dirname(out["labels"]), "prob.tif")),
+             direct("segment_flows_t", "flows_t", inst,
+                    lambda c, t, s: infer.cached_flows_segmenter(c, t, s, device="cuda"),
+                    lambda y: y[1].float().cpu().numpy()))
+        serve("evaluate_flows_t", "evaluate_flows", {"model": "flows_t"}, [p_inst, p_truth], 4)
+        serve("train_stars", "train_stars", dict(steps, model="stars_t", max_dist=40), [p_inst, p_truth], 0)
+        out = serve("segment_stars_t", "segment_stars", dict(seg_params, model="stars_t"), [p_inst], 4)
+        hold("segment_stars_t", tiff.read_stack(os.path.join(os.path.dirname(out["labels"]), "prob.tif")),
+             direct("segment_stars_t", "stars_t", inst,
+                    lambda c, t, s: infer.cached_stars_predictor(c, t, s, "cuda"),
+                    lambda y: y[0].float().cpu().numpy()))
+        serve("evaluate_stars_t", "evaluate_stars", {"model": "stars_t"}, [p_inst, p_truth], 4)
+
+        # flows 3D: 2 volumes of 16x64x64, instances from cells_volume
+        fv = [synthetic.cells_volume(898_000 + t, (16, 64, 64)) for t in range(2)]
+        fvols = np.stack([v for v, _ in fv]).clip(0, 65535).astype(np.uint16)
+        p_fv = write("inst_v.tif", fvols.reshape(-1, 64, 64))
+        p_fl = write("inst_vl.tif", np.stack([ndimage.label(lab > 0)[0] for _, lab in fv]).astype(np.uint16).reshape(-1, 64, 64))
+        serve("train_flows_3d", "train_flows", dict(steps, model="flows3d_t", dims=3, z=16), [p_fv, p_fl], 0)
+        out = serve("segment_flows_3d_t", "segment_flows", dict(seg_params, model="flows3d_t", z=16), [p_fv], 2)
+        served = np.stack([tiff.read_stack(os.path.join(os.path.dirname(out["labels"]), f"prob_t{t:04d}.tif"))
+                           for t in range(2)])
+        hold("segment_flows_3d_t", served,
+             direct("segment_flows_3d_t", "flows3d_t", fvols,
+                    lambda c, t, s: infer.cached_flows_segmenter(c, t, s, device="cuda"),
+                    lambda y: y[1].float().cpu().numpy()))
+        if failed:
+            raise AssertionError(f"family_train f32 steps: card and CPU disagree for {failed}")
+        print(
+            "family_train jobs quantile passes: " + ", ".join(f"{k} {v[1]}" for k, v in counts.items())
+            + " (0 for every train job, which normalizes on the host; one a normalized frame or volume for "
+            "each serve, two a frame for evaluate_denoise, one a frame for evaluate_flows and evaluate_stars)"
+        )
+        return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "evaluate", "train", "gan_train",
+    "serve", "evaluate", "train", "gan_train", "family_train",
 )
 
 
@@ -2648,6 +3079,7 @@ def main(argv=None) -> int:
             "evaluate": lambda: evaluate_phase(torch, hist, conv, smi_line),
             "train": lambda: train_phase(torch, hist, conv, smi_line),
             "gan_train": lambda: gan_train_phase(torch, hist, conv, smi_line),
+            "family_train": lambda: family_train_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -2674,6 +3106,7 @@ def main(argv=None) -> int:
     counts.update({f"eval_{k}": v for k, v in evaluated.items()})
     counts.update(timed("train", train_phase, hist, conv, smi_line))
     counts.update(timed("gan_train", gan_train_phase, hist, conv, smi_line))
+    counts.update(timed("family_train", family_train_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -2690,7 +3123,10 @@ def main(argv=None) -> int:
         "serve_trained_polyphase are the trained models' 4-frame jobs; eval_* are the evaluate "
         "phase's jobs and their serving twins: evaluate_gan and evaluate_denoise with the kernel "
         "normalize run one pass a frame for each side, parity_check none; build_gan_pairs and "
-        "train_gan run none, the trained GAN's serve and evaluation one a batch of 8 frames a side); the conv3x3 "
+        "train_gan run none, the trained GAN's serve and evaluation one a batch of 8 frames a side; "
+        "train_n2v (2D, 3D), train_flows (2D, 3D) and train_stars run none, the trained models' "
+        "serves one a frame or volume, evaluate_denoise two a frame, evaluate_flows and "
+        "evaluate_stars one a frame); the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

@@ -1,5 +1,5 @@
-"""The training loops: record shards in, trained checkpoint out (port of the
-U-Net and GAN parts of ``sequitr_tpu.pipeline.fit``).
+"""The training loops: record shards in, trained checkpoint out (port of
+``sequitr_tpu.pipeline.fit`` but its spatial trainer).
 
 An epoch loop over shuffled record shards, host-to-device prefetch, the
 train step, periodic checkpoints (``step_*``, pruned to the newest
@@ -13,8 +13,12 @@ step), and a resumed run skips the batches the interrupted run consumed,
 so an interrupted run resumed from its checkpoint takes the same steps as
 one that ran through. (The JAX package restarts the record stream on
 resume.) ``fit_gan`` trains the enhancement GAN from (input, target) pair
-shards (``encode_pair``), its EMA over the generator alone; the N2V,
-flows, stars and spatial trainers are a later slice of the port.
+shards (``encode_pair``), its EMA over the generator alone. ``fit_n2v``,
+``fit_flows`` and ``fit_stars`` train from image-only, flow and ray
+shards (their codecs are the JAX package's, byte for byte), each with its
+holdout evaluator; the N2V evaluator scores one mask drawn once from a
+generator seeded 0. ``fit_unet_spatial`` (the halo-exchanged whole-frame
+trainer) belongs to the multi-card slice of the port.
 """
 
 from __future__ import annotations
@@ -43,7 +47,9 @@ log = logging.getLogger("sequitr_tpu_torch.fit")
 
 __all__ = [
     "FitConfig", "MetricsLogger", "Distill", "TrainingCancelled", "fit_unet",
-    "fit_gan", "encode_pair", "latest_checkpoint", "step_generator",
+    "fit_gan", "fit_n2v", "fit_flows", "fit_stars", "encode_pair",
+    "encode_image_example", "encode_flow_example", "encode_stars_example",
+    "latest_checkpoint", "step_generator",
 ]
 
 
@@ -313,6 +319,13 @@ class Distill:
     temperature: float = 2.0
 
 
+def _dump_dir(fc: FitConfig) -> Optional[str]:
+    """Where an evaluator dumps its images: beside the metric stream."""
+    if fc.dump_eval_images and fc.metrics_path:
+        return os.path.dirname(os.path.abspath(fc.metrics_path))
+    return None
+
+
 def _make_unet_evaluator(
     cfg: unet.UNetConfig, fc: FitConfig, shard_paths: Sequence[str], device: torch.device
 ) -> Optional[Callable]:
@@ -326,10 +339,7 @@ def _make_unet_evaluator(
     images = torch.as_tensor(holdout["image"], device=device)
     labels = torch.as_tensor(holdout["labels"], device=device)
     weights = torch.as_tensor(holdout["weights"], device=device) if "weights" in holdout else None
-    dump = (
-        os.path.dirname(os.path.abspath(fc.metrics_path))
-        if fc.dump_eval_images and fc.metrics_path else None
-    )
+    dump = _dump_dir(fc)
 
     def eval_fn(state, g):
         with torch.inference_mode():
@@ -444,10 +454,7 @@ def _make_gan_evaluator(
         return None
     x = torch.as_tensor(holdout["input"], device=device)
     y = torch.as_tensor(holdout["target"], device=device)
-    dump = (
-        os.path.dirname(os.path.abspath(fc.metrics_path))
-        if fc.dump_eval_images and fc.metrics_path else None
-    )
+    dump = _dump_dir(fc)
 
     def eval_fn(state, g):
         with torch.inference_mode():
@@ -502,4 +509,291 @@ def fit_gan(
         state, step, batches, fc, ckpt_dir, ("d_loss", "g_loss"),
         eval_fn=eval_fn, should_stop=should_stop, progress=progress,
         ema_select=lambda s: list(s.model.gen.parameters()),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Noise2Void, flows and stars: codecs, holdout evaluators, fit loops
+# ---------------------------------------------------------------------------
+
+
+def _decode_image(payload: bytes) -> Dict[str, np.ndarray]:
+    """Decode an image-only example (Noise2Void shards: no labels)."""
+    f = records_lib.decode_example(payload)
+    shape = tuple(int(v) for v in f["image/shape"])
+    x = np.frombuffer(f["image/encoded"][0], dtype="<f4").reshape(shape)
+    if x.ndim == 2:
+        x = x[..., None]
+    return {"image": x.astype(np.float32)}
+
+
+def encode_image_example(x: np.ndarray) -> bytes:
+    """Encode an image-only record payload ((H, W), (H, W, C) or a volume
+    with its channel axis, float32)."""
+    x = np.asarray(x, np.float32)
+    return records_lib.encode_example(
+        {"image/encoded": x.astype("<f4").tobytes(), "image/shape": list(x.shape)}
+    )
+
+
+def _fit(init_state, cfg, tc, fc, device, make_step, shard_paths, decode, make_eval, metric_keys, ckpt_dir,
+         should_stop, progress):
+    """The shared body of the N2V, flows and stars fit loops."""
+    state = init_state or train_lib.create_unet_state(
+        cfg, tc, torch.Generator().manual_seed(fc.seed), device
+    )
+    it = ShardIterator(
+        shard_paths, decode, fc.batch_size, seed=fc.seed,
+        shuffle_buffer=fc.shuffle_buffer, holdout_every=fc.holdout_every,
+    )
+    eval_fn = make_eval() if fc.holdout_every else None
+    host = itertools.islice(iter(it), int(state.step), None)
+    batches = prefetch_to_device(host, depth=fc.prefetch_depth, device=device)
+    return _run_loop(
+        state, make_step, batches, fc, ckpt_dir, metric_keys, eval_fn=eval_fn,
+        should_stop=should_stop, progress=progress,
+    )
+
+
+def _make_n2v_evaluator(
+    cfg: unet.UNetConfig,
+    fc: FitConfig,
+    shard_paths: Sequence[str],
+    device: torch.device,
+    mask_frac: float,
+    radius,
+    mask_mode: str = "uniform",
+    struct=None,
+    draws: Optional[train_lib.N2VMaskDraws] = None,
+) -> Optional[Callable]:
+    """Holdout evaluator for Noise2Void: the masked MSE of the inference
+    forward under one mask, drawn once from a generator seeded 0 (or
+    ``draws``), so every eval scores the same pixels: ``eval_n2v_mse`` and
+    ``eval_psnr_masked`` = -10 log10(mse). Optionally dumps the first
+    holdout image denoised (unmasked) as a TIFF an eval."""
+    holdout = load_holdout(shard_paths, _decode_image, fc.holdout_every, fc.eval_limit)
+    if holdout is None:
+        log.warning("holdout_every=%d produced no eval examples", fc.holdout_every)
+        return None
+    images = torch.as_tensor(holdout["image"], device=device)
+    n_mask = max(1, int(mask_frac * int(np.prod(images.shape[1:-1]))))
+    radii = train_lib._n2v_radii(radius, images.ndim - 2)
+    if draws is None:
+        draws = train_lib.n2v_draw_mask(
+            torch.Generator().manual_seed(0), images.shape, n_mask, radii, mask_mode, struct
+        )
+    masked, coords = train_lib.n2v_mask_apply(images, draws, radii, mask_mode, struct)
+    dump = _dump_dir(fc)
+
+    def eval_fn(state, g):
+        with torch.inference_mode():
+            mse = max(float(train_lib.n2v_masked_mse(state.model(masked), images, *coords)), 1e-12)
+            pred = state.model(images[:1]) if dump else None
+        if dump:
+            from sequitr_tpu_torch.data import tiff
+
+            tiff.write_stack(
+                os.path.join(dump, f"eval_denoised_{g:08d}.tif"),
+                pred[0, ..., 0].to(torch.float32).cpu().numpy(),
+            )
+        return {"eval_n2v_mse": mse, "eval_psnr_masked": -10.0 * np.log10(mse)}
+
+    return eval_fn
+
+
+def fit_n2v(
+    cfg: unet.UNetConfig,
+    tc: train_lib.TrainConfig,
+    fc: FitConfig,
+    shard_paths: Sequence[str],
+    ckpt_dir: Optional[str] = None,
+    init_state: Optional[train_lib.TrainState] = None,
+    mask_frac: float = 0.005,
+    radius=5,
+    mask_mode: str = "uniform",
+    struct=None,
+    should_stop: Optional[Callable[[], bool]] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device: Union[str, torch.device, None] = None,
+    eval_draws: Optional[train_lib.N2VMaskDraws] = None,
+) -> train_lib.TrainState:
+    """Train a Noise2Void denoiser from image-only shards on ``device``
+    (default the card): ``fit_unet``'s loop with ``make_n2v_train_step``;
+    the holdout evaluator scores under the same masking (``eval_draws``
+    replaces its seeded draw)."""
+    device = resolve_device(device)
+    _check_keep_best(fc, {"eval_n2v_mse", "eval_psnr_masked"})
+    step = train_lib.make_n2v_train_step(
+        cfg, tc, mask_frac=mask_frac, radius=radius, mask_mode=mask_mode, struct=struct
+    )
+    return _fit(
+        init_state, cfg, tc, fc, device, step, shard_paths, _decode_image,
+        lambda: _make_n2v_evaluator(
+            cfg, fc, shard_paths, device, mask_frac, radius, mask_mode, struct, eval_draws
+        ),
+        ("loss", "grad_norm"), ckpt_dir, should_stop, progress,
+    )
+
+
+def _decode_flow(payload: bytes) -> Dict[str, np.ndarray]:
+    """Decode a flows training example (image + flow field + cell prob)."""
+    f = records_lib.decode_example(payload)
+    ishape = tuple(int(v) for v in f["image/shape"])
+    x = np.frombuffer(f["image/encoded"][0], dtype="<f4").reshape(ishape)
+    if x.ndim == 2:
+        x = x[..., None]
+    nd = x.ndim - 1
+    spatial = x.shape[:nd]
+    flow = np.frombuffer(f["flow/encoded"][0], dtype="<f4").reshape(spatial + (nd,))
+    prob = np.frombuffer(f["prob/encoded"][0], dtype="<f4").reshape(spatial)
+    return {"image": x.astype(np.float32), "flow": flow, "prob": prob}
+
+
+def encode_flow_example(image: np.ndarray, flow: np.ndarray, prob: np.ndarray) -> bytes:
+    """Encode a flows example: image (*s, C) or (*s), flow (*s, D), prob
+    (*s), all float32 (targets from ``ops.flows.flow_targets``)."""
+    image = np.asarray(image, np.float32)
+    if image.ndim == flow.ndim - 1:
+        image = image[..., None]
+    return records_lib.encode_example(
+        {
+            "image/encoded": image.astype("<f4").tobytes(),
+            "flow/encoded": np.asarray(flow, np.float32).astype("<f4").tobytes(),
+            "prob/encoded": np.asarray(prob, np.float32).astype("<f4").tobytes(),
+            "image/shape": list(image.shape),
+        }
+    )
+
+
+def _holdout_tensors(shard_paths, decode, fc, device):
+    holdout = load_holdout(shard_paths, decode, fc.holdout_every, fc.eval_limit)
+    if holdout is None:
+        log.warning("holdout_every=%d produced no eval examples", fc.holdout_every)
+        return None
+    return {k: torch.as_tensor(v, device=device) for k, v in holdout.items()}
+
+
+def _make_flows_evaluator(
+    cfg: unet.UNetConfig, fc: FitConfig, shard_paths: Sequence[str], device: torch.device
+) -> Optional[Callable]:
+    """Holdout evaluator for flows: the inference forward's flow MSE and
+    prob BCE (``eval_flow_mse``, ``eval_prob_bce``, their sum
+    ``eval_loss``)."""
+    held = _holdout_tensors(shard_paths, _decode_flow, fc, device)
+    if held is None:
+        return None
+
+    def eval_fn(state, g):
+        with torch.inference_mode():
+            _, flow_mse, prob_bce = train_lib.flows_loss(state.model(held["image"]), held["flow"], held["prob"])
+        flow_mse, prob_bce = float(flow_mse), float(prob_bce)
+        return {"eval_loss": flow_mse + prob_bce, "eval_flow_mse": flow_mse, "eval_prob_bce": prob_bce}
+
+    return eval_fn
+
+
+def fit_flows(
+    cfg: unet.UNetConfig,
+    tc: train_lib.TrainConfig,
+    fc: FitConfig,
+    shard_paths: Sequence[str],
+    ckpt_dir: Optional[str] = None,
+    init_state: Optional[train_lib.TrainState] = None,
+    should_stop: Optional[Callable[[], bool]] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> train_lib.TrainState:
+    """Train a flow-field instance segmenter from flow shards on ``device``
+    (default the card): ``fit_unet``'s loop with ``make_flows_train_step``."""
+    device = resolve_device(device)
+    _check_keep_best(fc, {"eval_loss", "eval_flow_mse", "eval_prob_bce"})
+    return _fit(
+        init_state, cfg, tc, fc, device, train_lib.make_flows_train_step(cfg, tc), shard_paths,
+        _decode_flow, lambda: _make_flows_evaluator(cfg, fc, shard_paths, device),
+        ("loss", "flow_mse", "prob_bce", "grad_norm"), ckpt_dir, should_stop, progress,
+    )
+
+
+def _decode_stars(payload: bytes) -> Dict[str, np.ndarray]:
+    """Decode a star-convex training example (image + ray dists + prob)."""
+    f = records_lib.decode_example(payload)
+    ishape = tuple(int(v) for v in f["image/shape"])
+    n_rays = int(f["dist/n_rays"][0])
+    x = np.frombuffer(f["image/encoded"][0], dtype="<f4").reshape(ishape)
+    if x.ndim == 2:
+        x = x[..., None]
+    spatial = x.shape[:2]
+    dist = np.frombuffer(f["dist/encoded"][0], dtype="<f4").reshape(spatial + (n_rays,))
+    prob = np.frombuffer(f["prob/encoded"][0], dtype="<f4").reshape(spatial)
+    return {"image": x.astype(np.float32), "dist": dist, "prob": prob}
+
+
+def encode_stars_example(image: np.ndarray, dist: np.ndarray, prob: np.ndarray) -> bytes:
+    """Encode a star-convex example: image (H, W[, C]), dist (H, W,
+    n_rays), prob (H, W), all float32 (targets from
+    ``ops.stardist.star_targets``)."""
+    image = np.asarray(image, np.float32)
+    if image.ndim == 2:
+        image = image[..., None]
+    return records_lib.encode_example(
+        {
+            "image/encoded": image.astype("<f4").tobytes(),
+            "dist/encoded": np.asarray(dist, np.float32).astype("<f4").tobytes(),
+            "prob/encoded": np.asarray(prob, np.float32).astype("<f4").tobytes(),
+            "image/shape": list(image.shape),
+            "dist/n_rays": [int(dist.shape[-1])],
+        }
+    )
+
+
+def _make_stars_evaluator(
+    cfg: unet.UNetConfig, fc: FitConfig, shard_paths: Sequence[str], device: torch.device
+) -> Optional[Callable]:
+    """Holdout evaluator for stars: the inference forward's prob BCE and
+    distance MAE weighted by ``prob`` itself (the train step weights by
+    ``prob > 0``; both as in the JAX package): ``eval_dist_mae``,
+    ``eval_prob_bce`` and ``eval_loss`` = BCE + ``STARS_DIST_WEIGHT`` x
+    MAE."""
+    held = _holdout_tensors(shard_paths, _decode_stars, fc, device)
+    if held is None:
+        return None
+    n_rays = cfg.num_classes - 1
+
+    def eval_fn(state, g):
+        with torch.inference_mode():
+            out = state.model(held["image"]).to(torch.float32)
+            prob_bce = float(losses.sigmoid_bce_with_logits(out[..., 0], held["prob"]))
+            w = held["prob"][..., None]
+            dist_mae = float(
+                torch.sum(w * torch.abs(out[..., 1:] - held["dist"])) / (torch.sum(w) * n_rays + 1e-8)
+            )
+        return {
+            "eval_loss": prob_bce + train_lib.STARS_DIST_WEIGHT * dist_mae,
+            "eval_dist_mae": dist_mae,
+            "eval_prob_bce": prob_bce,
+        }
+
+    return eval_fn
+
+
+def fit_stars(
+    cfg: unet.UNetConfig,
+    tc: train_lib.TrainConfig,
+    fc: FitConfig,
+    shard_paths: Sequence[str],
+    ckpt_dir: Optional[str] = None,
+    init_state: Optional[train_lib.TrainState] = None,
+    should_stop: Optional[Callable[[], bool]] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> train_lib.TrainState:
+    """Train a star-convex instance segmenter from stars shards on
+    ``device`` (default the card): ``fit_unet``'s loop with
+    ``make_stars_train_step``."""
+    device = resolve_device(device)
+    _check_keep_best(fc, {"eval_loss", "eval_dist_mae", "eval_prob_bce"})
+    return _fit(
+        init_state, cfg, tc, fc, device, train_lib.make_stars_train_step(cfg, tc), shard_paths,
+        _decode_stars, lambda: _make_stars_evaluator(cfg, fc, shard_paths, device),
+        ("loss", "dist_mae", "prob_bce", "grad_norm"), ckpt_dir, should_stop, progress,
     )

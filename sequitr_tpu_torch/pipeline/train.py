@@ -1,5 +1,5 @@
-"""U-Net and GAN training steps (port of the U-Net and GAN parts of
-``sequitr_tpu.pipeline.train``).
+"""The training steps (port of ``sequitr_tpu.pipeline.train``): U-Net,
+GAN, Noise2Void, flows and stars.
 
 records in -> augmentation on the device -> forward -> weighted CE ->
 optax's Adam (``pipeline.optim``) -> batch-norm statistics, as the JAX
@@ -14,18 +14,27 @@ its step inside ``utils.ieee_f32`` (no TF32).
 domain. The GAN step (``make_gan_train_step``) is the JAX package's
 pix2pix update: one train-mode generator forward a step, the
 discriminator stepped on the detached fake, then the generator's loss
-taken through the updated discriminator from the same fake. The JAX
-package's N2V, flows and stars steps are a later slice of the port.
-Checkpoints are PyTorch files in the directory layout of ``pipeline.fit``
+taken through the updated discriminator from the same fake.
+
+The Noise2Void step (``make_n2v_train_step``) flips, masks (blind spot:
+uniform neighbour or the N2V2 window median, structN2V segments) and
+scores the masked MSE at the centres; the flows and stars steps flip with
+the vector signs or ray permutations and take ``flows_loss`` /
+``stars_loss``. As in ``ops.augment``, each random op is a *draw* from a
+``torch.Generator`` and a deterministic *apply*; on the JAX package's own
+draws the applies give its outputs bit for bit, a position drawn twice
+taking its last write as XLA's serial scatter does. Checkpoints are PyTorch files in the directory layout of ``pipeline.fit``
 in place of orbax.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import os
 import shutil
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +53,27 @@ __all__ = [
     "create_unet_state",
     "make_unet_train_step",
     "make_unet_distill_step",
+    "N2VFlipDraws",
+    "N2VMaskDraws",
+    "N2VDraws",
+    "n2v_draw_flip",
+    "n2v_flip_batch",
+    "n2v_draw_mask",
+    "n2v_mask_apply",
+    "n2v_mask_batch",
+    "n2v_mask_batch_3d",
+    "n2v_masked_mse",
+    "make_n2v_train_step",
+    "FlipDraws",
+    "draw_flips",
+    "flows_flip_batch",
+    "flows_loss",
+    "make_flows_train_step",
+    "stars_flip_batch",
+    "STARS_DIST_WEIGHT",
+    "STARS_BG_REG",
+    "stars_loss",
+    "make_stars_train_step",
     "GANTrainState",
     "create_gan_state",
     "make_gan_train_step",
@@ -188,13 +218,20 @@ def _train_forward(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
     return fwd
 
 
-def _finish(state: TrainState, optimizer, loss, logits, labels, stats, extra=None):
+def _update(state: TrainState, optimizer, loss, stats) -> torch.Tensor:
+    """Backward, the optimizer's update, the new batch-norm statistics and
+    the step count; returns the raw gradients' global norm."""
     params = state.params
     grads = torch.autograd.grad(loss, params)
     grad_norm = optim.global_norm(grads)  # of the raw gradients, as optax.global_norm
     optimizer.update(params, grads, state.opt_state, grad_norm=grad_norm)
     state.model.set_bn_stats(stats)
     state.step += 1
+    return grad_norm
+
+
+def _finish(state: TrainState, optimizer, loss, logits, labels, stats, extra=None):
+    grad_norm = _update(state, optimizer, loss, stats)
     with torch.no_grad():
         preds = torch.argmax(logits, dim=-1)
         metrics = {
@@ -256,6 +293,541 @@ def make_unet_distill_step(
                 state, optimizer, loss, logits, labels, stats,
                 {"ce": ce.detach(), "kd": kd.detach()},
             )
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Noise2Void self-supervised denoising (blind-spot masking)
+# ---------------------------------------------------------------------------
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    """A host draw on ``device``: on the card through pinned memory, so the
+    copy needs no host sync."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _where(bits: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per sample: ``a`` where its bit is set, else ``b`` (bits (B,))."""
+    return torch.where(bits.view((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+@dataclasses.dataclass
+class N2VFlipDraws:
+    """``flips``: (B, D) bools, one per spatial axis; ``transpose``: (B,)
+    bools, or None where no transpose applies (a non-square plane, or a
+    structN2V axis in the plane)."""
+
+    flips: torch.Tensor
+    transpose: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class N2VMaskDraws:
+    """``centers``: (B, D, n_mask) scored positions; ``offsets``: (B, D,
+    n_rep) neighbour offsets of the uniform mode (zero along a structN2V
+    axis), None in the median mode."""
+
+    centers: torch.Tensor
+    offsets: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class N2VDraws:
+    flip: Optional[N2VFlipDraws]
+    mask: N2VMaskDraws
+
+
+def n2v_draw_flip(generator: Optional[torch.Generator], shape: Sequence[int], transpose: bool = True) -> N2VFlipDraws:
+    """Fair coins for each sample's flips of a (B, *spatial, C) batch, then
+    its in-plane transpose when ``transpose`` and the plane is square."""
+    b, spatial = shape[0], tuple(shape[1:-1])
+    flips = torch.rand((b, len(spatial)), generator=generator) < 0.5
+    ts = None
+    if transpose and spatial[-1] == spatial[-2]:
+        ts = torch.rand((b,), generator=generator) < 0.5
+    return N2VFlipDraws(flips, ts)
+
+
+def n2v_flip_batch(images: torch.Tensor, draws: N2VFlipDraws) -> torch.Tensor:
+    """The JAX package's ``n2v_flip_batch`` on given draws: each sample
+    flipped along every axis whose bit is set, then its trailing two
+    spatial axes swapped where its transpose bit is set."""
+    nd = images.ndim - 2
+    flips = _to(draws.flips, images.device)
+    out = images
+    for ax in range(nd):
+        out = _where(flips[:, ax], torch.flip(out, [ax + 1]), out)
+    if draws.transpose is not None:
+        out = _where(_to(draws.transpose, images.device), out.transpose(nd - 1, nd), out)
+    return out
+
+
+def _n2v_radii(radius, n_axes: int) -> Tuple[int, ...]:
+    """Per-axis neighbour radii: an int broadcasts; a tuple is taken as-is.
+    At least one axis must allow movement (radius >= 1)."""
+    radii = (
+        tuple(int(r) for r in radius)
+        if isinstance(radius, (tuple, list))
+        else (int(radius),) * n_axes
+    )
+    if len(radii) != n_axes:
+        raise ValueError(f"radius {radius} must have {n_axes} axes")
+    if any(r < 0 for r in radii) or max(radii) < 1:
+        raise ValueError(
+            f"radius {radius}: per-axis radii must be >= 0 with at least "
+            "one axis >= 1 (the substitute must be able to move)"
+        )
+    return radii
+
+
+def _n2v_struct(struct, radii, nd: int):
+    """Validate a structN2V spec ``(axis, span)`` against the radii: the
+    substitutes must be able to move along another axis."""
+    if struct is None:
+        return None
+    s_ax, span = int(struct[0]), int(struct[1])
+    if not 0 <= s_ax < nd:
+        raise ValueError(f"struct axis {s_ax} out of range for {nd}D patches")
+    if span < 1:
+        raise ValueError(f"struct span {span} must be >= 1")
+    if not any(r >= 1 for i, r in enumerate(radii) if i != s_ax):
+        raise ValueError(
+            f"structN2V along axis {s_ax} needs radius >= 1 on another "
+            f"axis (got radii {radii}): substitutes must come from "
+            "OUTSIDE the correlated line"
+        )
+    return s_ax, span
+
+
+def _reflect(idx: torch.Tensor, extent: int) -> torch.Tensor:
+    """Reflect out-of-bounds indices back inside [0, extent)."""
+    n = torch.abs(idx)
+    return torch.where(n > extent - 1, 2 * (extent - 1) - n, n)
+
+
+def _n2v_plan(spatial: Sequence[int], radii, mode: str, struct):
+    """The JAX package's checks of ``_n2v_mask_nd``, with their messages;
+    returns (struct, fix axis, median window taps or None)."""
+    nd = len(spatial)
+    for r, s in zip(radii, spatial):
+        if r >= s:
+            # one reflection stays in bounds only for radius < extent
+            raise ValueError(
+                f"radius {tuple(radii)} must be < the patch extent {tuple(spatial)} "
+                "on every axis"
+            )
+    if mode not in ("uniform", "median"):
+        raise ValueError(f"mask mode {mode!r} must be 'uniform' or 'median'")
+    struct = _n2v_struct(struct, radii, nd)
+    if struct is not None and struct[1] >= spatial[struct[0]]:
+        raise ValueError(
+            f"struct span {struct[1]} must be < the patch extent "
+            f"{spatial[struct[0]]} along axis {struct[0]}"
+        )
+    # the last non-struct axis that allows movement
+    fix = max(i for i, r in enumerate(radii) if r >= 1 and (struct is None or i != struct[0]))
+    window = None
+    if mode == "median":
+        # the centre (and, under struct, the correlated line) left out
+        window = [
+            o for o in itertools.product(*[range(-r, r + 1) for r in radii])
+            if any(o) and (struct is None or any(o[a] for a in range(nd) if a != struct[0]))
+        ]
+    return struct, fix, window
+
+
+def _window_median(vals: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` over axis 1: for an even count the mean of the two
+    middle values, ``(lower + upper) * 0.5`` (``torch.median`` returns the
+    lower middle)."""
+    srt = torch.sort(vals, dim=1).values
+    t = vals.shape[1]
+    return (srt[:, (t - 1) // 2] + srt[:, t // 2]) * 0.5
+
+
+def n2v_draw_mask(
+    generator: Optional[torch.Generator],
+    shape: Sequence[int],
+    n_mask: int,
+    radii,
+    mode: str = "uniform",
+    struct=None,
+) -> N2VMaskDraws:
+    """Uniform centres on every axis of a (B, *spatial, C) batch, then (in
+    the uniform mode) uniform offsets in ``[-r, r]`` for each replaced
+    position, zero along a structN2V axis."""
+    b, spatial = shape[0], tuple(shape[1:-1])
+    centers = torch.stack([torch.randint(0, s, (b, n_mask), generator=generator) for s in spatial], 1)
+    offsets = None
+    if mode == "uniform":
+        n_rep = n_mask * (1 if struct is None else 2 * int(struct[1]) + 1)
+        offsets = torch.stack([
+            torch.zeros((b, n_rep), dtype=torch.int64)
+            if struct is not None and a == int(struct[0])
+            else torch.randint(-r, r + 1, (b, n_rep), generator=generator)
+            for a, r in enumerate(radii)
+        ], 1)
+    return N2VMaskDraws(centers, offsets)
+
+
+def n2v_mask_apply(
+    images: torch.Tensor,
+    draws: N2VMaskDraws,
+    radii,
+    mode: str = "uniform",
+    struct=None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The JAX package's ``_n2v_mask_nd`` on given draws: ``(masked,
+    coords)``, coords the D (B, n_mask) centres.
+
+    Each centre (under ``struct``, its whole reflected +/-span segment
+    along the struct axis) is replaced by a neighbour (uniform: the drawn
+    offset, the all-zero one moved to +1 on the fix axis, reflected, a
+    reflected self-hit moved one step off) or by the median of its window
+    (the mean of the two middle values for an even count, as
+    ``jnp.median``; taps reflected onto the blind region moved off it).
+    Positions are drawn with replacement: a position written more than
+    once takes its last write, as XLA's serial scatter does, whatever the
+    order the device writes in (every write of a position carries the last
+    one's value). No host sync, no data-dependent shape.
+    """
+    spatial = tuple(images.shape[1:-1])
+    nd = len(spatial)
+    b, c = images.shape[0], images.shape[-1]
+    struct, fix, window = _n2v_plan(spatial, radii, mode, struct)
+    dev = images.device
+    centers = _to(draws.centers, dev)
+    cs = [centers[:, a] for a in range(nd)]
+    if struct is None:
+        ps = cs
+    else:
+        s_ax, span = struct
+        offs = torch.arange(-span, span + 1, device=dev)
+        ps = [
+            (_reflect(cc[:, :, None] + offs, spatial[a]) if a == s_ax
+             else cc[:, :, None].expand(-1, -1, 2 * span + 1)).reshape(b, -1)
+            for a, cc in enumerate(cs)
+        ]
+    n_rep = ps[0].shape[1]
+    rows = torch.arange(b, device=dev)
+    if mode == "median":
+        taps = torch.tensor(window, dtype=torch.int64).t().contiguous()  # (D, T)
+        taps = _to(taps, dev)
+        idx = [_reflect(p[:, None, :] + taps[a][None, :, None], spatial[a]) for a, p in enumerate(ps)]
+        blind = None
+        for a in range(nd):
+            if struct is not None and a == struct[0]:
+                continue
+            eq = idx[a] == ps[a][:, None, :]
+            blind = eq if blind is None else blind & eq
+        pf = ps[fix][:, None, :]
+        idx[fix] = torch.where(blind, torch.where(pf > 0, pf - 1, pf + 1), idx[fix])
+        sub = _window_median(images[(rows[:, None, None], *idx)])  # (B, T, n_rep, C) -> (B, n_rep, C)
+    else:
+        offsets = _to(draws.offsets, dev)
+        ds = [
+            torch.zeros_like(ps[a]) if struct is not None and a == struct[0] else offsets[:, a]
+            for a in range(nd)
+        ]
+        all_zero = ds[0] == 0
+        for d in ds[1:]:
+            all_zero = all_zero & (d == 0)
+        ds[fix] = torch.where(all_zero, 1, ds[fix])
+        ns = [_reflect(p + d, s) for p, d, s in zip(ps, ds, spatial)]
+        self_hit = ns[0] == ps[0]
+        for n, p in zip(ns[1:], ps[1:]):
+            self_hit = self_hit & (n == p)
+        ns[fix] = torch.where(self_hit, torch.where(ps[fix] > 0, ps[fix] - 1, ps[fix] + 1), ns[fix])
+        sub = images[(rows[:, None], *ns)]  # (B, n_rep, C)
+    # the last write of each position wins: every write takes its value
+    n_px = 1
+    lin = torch.zeros_like(ps[0])
+    for a in reversed(range(nd)):
+        lin = lin + ps[a] * n_px
+        n_px *= spatial[a]
+    flat = (lin + rows[:, None] * n_px).reshape(-1)
+    order = torch.arange(b * n_rep, device=dev)
+    last = torch.full((b * n_px,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, flat, order, "amax")
+    out = images.reshape(b * n_px, c).clone()
+    out[flat] = sub.reshape(b * n_rep, c)[last[flat]]
+    return out.reshape(images.shape), tuple(cs)
+
+
+def n2v_mask_batch(generator, images, n_mask: int, radius, mode: str = "uniform", struct=None):
+    """2D blind-spot masking on fresh draws: ``(masked, ys, xs)``."""
+    radii = _n2v_radii(radius, 2)
+    draws = n2v_draw_mask(generator, images.shape, n_mask, radii, mode, struct)
+    masked, (ys, xs) = n2v_mask_apply(images, draws, radii, mode, struct)
+    return masked, ys, xs
+
+
+def n2v_mask_batch_3d(generator, volumes, n_mask: int, radius, mode: str = "uniform", struct=None):
+    """Volumetric blind-spot masking over (B, Z, H, W, C) on fresh draws;
+    ``radius`` an int or (rz, ry, rx). Returns ``(masked, zs, ys, xs)``."""
+    radii = _n2v_radii(radius, 3)
+    draws = n2v_draw_mask(generator, volumes.shape, n_mask, radii, mode, struct)
+    masked, (zs, ys, xs) = n2v_mask_apply(volumes, draws, radii, mode, struct)
+    return masked, zs, ys, xs
+
+
+def n2v_masked_mse(pred: torch.Tensor, target: torch.Tensor, *coords: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (f32) at the D (B, n_mask) coordinates only; a
+    centre drawn twice counts twice."""
+    rows = torch.arange(pred.shape[0], device=pred.device)[:, None]
+    p = pred.to(torch.float32)[(rows, *coords)]
+    t = target.to(torch.float32)[(rows, *coords)]
+    return torch.mean((p - t) ** 2)
+
+
+def make_n2v_train_step(
+    cfg: unet.UNetConfig,
+    tc: TrainConfig,
+    mask_frac: float = 0.005,
+    radius=5,
+    mask_mode: str = "uniform",
+    struct=None,
+) -> Callable:
+    """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
+
+    The JAX package's Noise2Void step: flips (and the in-plane transpose,
+    dropped for an in-plane struct axis) when ``tc.augment``, the
+    blind-spot mask of ``max(1, int(mask_frac * pixels))`` centres a
+    sample, the train forward (standard or polyphase) of the masked
+    batch, the masked MSE against the unmasked batch at the centres, then
+    the optimizer. ``batch``: ``image`` (B, *spatial, C) f32 on the
+    state's device. The flips, then the mask, are drawn from
+    ``generator`` unless ``draws`` (an ``N2VDraws``) gives them. Metrics
+    ``loss`` and ``grad_norm``.
+    """
+    if cfg.dims not in (2, 3):
+        raise ValueError(f"Noise2Void training needs dims 2 or 3, got {cfg.dims}")
+    if not 0.0 < mask_frac <= 0.5:
+        raise ValueError(f"mask_frac={mask_frac} must be in (0, 0.5]")
+    radii = _n2v_radii(radius, cfg.dims)
+    if mask_mode not in ("uniform", "median"):
+        raise ValueError(f"mask_mode {mask_mode!r} must be 'uniform' or 'median'")
+    struct = _n2v_struct(struct, radii, cfg.dims)
+    # a transpose would rotate an in-plane correlated-noise axis
+    transpose = struct is None or struct[0] < cfg.dims - 2
+    optimizer = tc.make_optimizer()
+    forward = _train_forward(cfg, tc)
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[N2VDraws] = None):
+        images = batch["image"]
+        if images.ndim != cfg.dims + 2:
+            raise ValueError(
+                f"n2v batch must be (B, *spatial, C) with {cfg.dims} "
+                f"spatial axes; got shape {tuple(images.shape)}"
+            )
+        n_mask = max(1, int(mask_frac * math.prod(images.shape[1:-1])))
+        if draws is None:
+            flip = n2v_draw_flip(generator, images.shape, transpose) if tc.augment else None
+            draws = N2VDraws(flip, n2v_draw_mask(generator, images.shape, n_mask, radii, mask_mode, struct))
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            if tc.augment:
+                images = n2v_flip_batch(images, draws.flip)
+            masked, coords = n2v_mask_apply(images, draws.mask, radii, mask_mode, struct)
+            pred, stats = forward(state.model, masked)
+            loss = n2v_masked_mse(pred, images, *coords)
+            grad_norm = _update(state, optimizer, loss, stats)
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# flow-field and star-convex instance training
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FlipDraws:
+    """``flips``: (B, n_axes) bools; ``photometric``: a (gain, offset,
+    noise) triple a sample (``aug.draw_photometric``), or None when every
+    jitter is 0."""
+
+    flips: torch.Tensor
+    photometric: Optional[List[tuple]] = None
+
+
+def draw_flips(generator: Optional[torch.Generator], shape: Sequence[int], n_axes: int, tc: TrainConfig) -> FlipDraws:
+    """A fair coin for each sample's flip axes, then each sample's
+    photometric draws when a jitter is above 0."""
+    flips = torch.rand((shape[0], n_axes), generator=generator) < 0.5
+    phot = None
+    if tc.gain_jitter > 0 or tc.offset_jitter > 0 or tc.noise_std > 0:
+        phot = [
+            aug.draw_photometric(generator, shape[1:], tc.gain_jitter, tc.offset_jitter, tc.noise_std)
+            for _ in range(shape[0])
+        ]
+    return FlipDraws(flips, phot)
+
+
+def _photometric(images: torch.Tensor, phot) -> torch.Tensor:
+    if phot is None:
+        return images
+    dev = images.device
+    return torch.stack([
+        aug.apply_photometric(x, *(None if t is None else _to(t, dev) for t in p))
+        for x, p in zip(images, phot)
+    ])
+
+
+def flows_flip_batch(images, flow, prob, flips: torch.Tensor):
+    """The JAX package's ``flows_flip_batch`` on given bits (B, D): flipping
+    spatial axis ``ax`` flips the image, the field and the probability and
+    negates flow component ``ax``."""
+    nd = flow.shape[-1]
+    flips = _to(flips, images.device)
+    for ax in range(nd):
+        bit = flips[:, ax]
+        f = torch.flip(flow, [ax + 1])
+        f = torch.cat([f[..., :ax], -f[..., ax:ax + 1], f[..., ax + 1:]], dim=-1)
+        images = _where(bit, torch.flip(images, [ax + 1]), images)
+        flow = _where(bit, f, flow)
+        prob = _where(bit, torch.flip(prob, [ax + 1]), prob)
+    return images, flow, prob
+
+
+def flows_loss(out: torch.Tensor, flow: torch.Tensor, prob: torch.Tensor):
+    """``(loss, flow_mse, prob_bce)`` of a flows head ``out`` (B, *s, D +
+    1): the MSE of the first D channels against ``FLOW_SCALE * flow`` plus
+    the mean sigmoid BCE of the last against ``prob``, in f32."""
+    from sequitr_tpu_torch.ops.flows import FLOW_SCALE
+
+    out = out.to(torch.float32)
+    nd = flow.shape[-1]
+    flow_mse = torch.mean((out[..., :nd] - FLOW_SCALE * flow) ** 2)
+    prob_bce = losses.sigmoid_bce_with_logits(out[..., nd], prob)
+    return flow_mse + prob_bce, flow_mse, prob_bce
+
+
+def make_flows_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+    """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
+
+    The JAX package's flow-field step: flips (vector-aware) and the
+    photometric jitter when ``tc.augment``, the train forward,
+    ``flows_loss``, then the optimizer.
+    ``batch``: ``image`` (B, *s, C), ``flow`` (B, *s, D), ``prob`` (B,
+    *s). Draws from ``generator`` unless ``draws`` (a ``FlipDraws``) gives
+    them. Metrics ``loss``, ``flow_mse``, ``prob_bce``, ``grad_norm``.
+    """
+    if cfg.num_classes != cfg.dims + 1:
+        raise ValueError(
+            f"flows training needs num_classes == dims + 1 "
+            f"({cfg.dims + 1}), got {cfg.num_classes}"
+        )
+    optimizer = tc.make_optimizer()
+    forward = _train_forward(cfg, tc)
+    nd = cfg.dims
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[FlipDraws] = None):
+        images, flow, prob = batch["image"], batch["flow"], batch["prob"]
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            if tc.augment:
+                if draws is None:
+                    draws = draw_flips(generator, images.shape, nd, tc)
+                images, flow, prob = flows_flip_batch(images, flow, prob, draws.flips)
+                images = _photometric(images, draws.photometric)
+            out, stats = forward(state.model, images)
+            loss, flow_mse, prob_bce = flows_loss(out, flow, prob)
+            grad_norm = _update(state, optimizer, loss, stats)
+        return state, {
+            "loss": loss.detach(), "flow_mse": flow_mse.detach(),
+            "prob_bce": prob_bce.detach(), "grad_norm": grad_norm,
+        }
+
+    return step
+
+
+def stars_flip_batch(images, dist, prob, flips: torch.Tensor, perms: torch.Tensor):
+    """The JAX package's ``stars_flip_batch`` on given bits (B, 2): flipping
+    axis ``ax`` flips the image, the distances and the probability and
+    permutes the rays by ``perms[ax]`` (``stardist.ray_flip_perm``), axis 0
+    first."""
+    dev = images.device
+    flips, perms = _to(flips, dev), _to(perms, dev)
+    for ax in range(2):
+        bit = flips[:, ax]
+        images = _where(bit, torch.flip(images, [ax + 1]), images)
+        dist = _where(bit, torch.flip(dist, [ax + 1]).index_select(-1, perms[ax]), dist)
+        prob = _where(bit, torch.flip(prob, [ax + 1]), prob)
+    return images, dist, prob
+
+
+# the distance head's weight and the background regulariser (the JAX
+# package's measured balance, sequitr_tpu/pipeline/train.py)
+STARS_DIST_WEIGHT = 1.0
+STARS_BG_REG = 1e-4
+
+
+def stars_loss(out: torch.Tensor, dist: torch.Tensor, prob: torch.Tensor):
+    """``(loss, dist_mae, prob_bce)`` of a stars head ``out`` (B, H, W, 1 +
+    n_rays), in f32: the mean sigmoid BCE of channel 0 against ``prob``,
+    plus ``STARS_DIST_WEIGHT`` x the distance MAE over ``prob > 0``, plus
+    ``STARS_BG_REG`` x the background distances' mean magnitude."""
+    out = out.to(torch.float32)
+    n_rays = dist.shape[-1]
+    prob_bce = losses.sigmoid_bce_with_logits(out[..., 0], prob)
+    d_pred = out[..., 1:]
+    fg = (prob > 0).to(torch.float32)[..., None]
+    dist_mae = torch.sum(fg * torch.abs(d_pred - dist)) / (torch.sum(fg) * n_rays + 1e-8)
+    bg = 1.0 - fg
+    bg_reg = torch.sum(bg * torch.abs(d_pred)) / (torch.sum(bg) * n_rays + 1e-8)
+    return prob_bce + STARS_DIST_WEIGHT * dist_mae + STARS_BG_REG * bg_reg, dist_mae, prob_bce
+
+
+def make_stars_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+    """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
+
+    The JAX package's star-convex step (2D): flips (ray-permuting) and the
+    photometric jitter when ``tc.augment``, the train forward,
+    ``stars_loss`` (distances weighted by ``prob > 0``), then the
+    optimizer. ``batch``: ``image`` (B, H, W, C), ``dist`` (B, H, W,
+    n_rays), ``prob`` (B, H, W). Metrics ``loss``, ``dist_mae``,
+    ``prob_bce``, ``grad_norm``.
+    """
+    from sequitr_tpu_torch.ops import stardist as sd
+
+    if cfg.dims != 2:
+        raise ValueError(
+            f"star-convex training is 2D only (got dims={cfg.dims}); "
+            f"volumetric instances are served by the flows family"
+        )
+    n_rays = cfg.num_classes - 1
+    if n_rays < 4 or n_rays % 4:
+        raise ValueError(
+            f"stars training needs num_classes == 1 + n_rays with n_rays "
+            f"a positive multiple of 4, got num_classes={cfg.num_classes}"
+        )
+    perms = torch.stack([torch.as_tensor(sd.ray_flip_perm(n_rays, ax), dtype=torch.int64) for ax in (0, 1)])
+    optimizer = tc.make_optimizer()
+    forward = _train_forward(cfg, tc)
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[FlipDraws] = None):
+        images, dist, prob = batch["image"], batch["dist"], batch["prob"]
+        with ieee_f32(cfg.compute_dtype == "float32"):
+            if tc.augment:
+                if draws is None:
+                    draws = draw_flips(generator, images.shape, 2, tc)
+                images, dist, prob = stars_flip_batch(images, dist, prob, draws.flips, perms)
+                images = _photometric(images, draws.photometric)
+            out, stats = forward(state.model, images)
+            loss, dist_mae, prob_bce = stars_loss(out, dist, prob)
+            grad_norm = _update(state, optimizer, loss, stats)
+        return state, {
+            "loss": loss.detach(), "dist_mae": dist_mae.detach(),
+            "prob_bce": prob_bce.detach(), "grad_norm": grad_norm,
+        }
 
     return step
 

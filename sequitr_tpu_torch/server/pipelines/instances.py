@@ -14,12 +14,16 @@ package: the sink grouping (``ops.flows.group_sinks``) and the polygon NMS
 (``ops.stardist.instances_from_rays``). The evaluators serve exactly as
 their serving twins and score on the host: truth ids renumbered densely,
 Hungarian IoU matching (``ops.flows.match_instances``), AP pooled over the
-whole stack. The training jobs of the two families (``train_flows``,
-``train_stars``) are a later slice of the port.
+whole stack. The training jobs ``train_flows`` (2D and volumetric) and
+``train_stars`` build their shards on the host (targets per full frame or
+volume, foreground-biased crops, the JAX jobs' bytes) and train on
+``config.device`` (``pipeline.fit.fit_flows`` / ``fit_stars``),
+registering kinds ``flows`` and ``stars``.
 """
 
 from __future__ import annotations
 
+import glob as glob_lib
 import json
 import os
 import time
@@ -653,3 +657,274 @@ def evaluate_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     paths = _resolve_inputs(job)
     _need_truth(job, paths)
     return _evaluate_frames(job, config, paths, device, _stars_serving)
+
+
+# ---------------------------------------------------------------------------
+# training: train_flows (2D and volumes) and train_stars
+# ---------------------------------------------------------------------------
+
+
+def _foreground_crop(rng, shape, patch, prob, has_fg):
+    """A random ``patch`` window, retried up to 8 times until it holds
+    foreground (when the frame has any)."""
+    from sequitr_tpu_torch.server.pipelines.training import _crop
+
+    for _try in range(8):
+        sl = _crop(rng, shape, patch)
+        if not has_fg or prob[sl].any():
+            break
+    return sl
+
+
+def _instance_sources(job: Job, dims: int):
+    """``(source, labels_src, read_img, read_lab)`` of a train_flows /
+    train_stars job's [image(s)..., instance labels] inputs (``dims`` 3:
+    two volume-sequence entries, ``z`` pages a volume)."""
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.data.source import FrameSource, VolumeSequence
+
+    paths = _resolve_inputs(job)
+    if len(paths) < 2:
+        raise jobs_lib.JobError(
+            f"job {job.id}: need [image(s)..., instance labels], "
+            f"got {len(paths)} input(s)"
+        )
+    if dims == 3:
+        if len(paths) != 2:
+            raise jobs_lib.JobError(
+                "train_flows dims=3 takes [image volumes, label "
+                f"volumes] (2 entries), got {len(paths)}"
+            )
+        z = _parse_z_pages(job)
+        try:
+            source = VolumeSequence(paths[0], z=z)
+            labels_src = VolumeSequence(paths[1], z=z)
+        except ValueError as e:
+            raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+        if labels_src.spatial != source.spatial or len(labels_src) < len(source):
+            source.close()
+            labels_src.close()
+            raise jobs_lib.JobError(
+                f"image/label volume mismatch: images "
+                f"{(len(source),) + source.spatial}, labels "
+                f"{(len(labels_src),) + labels_src.spatial}"
+            )
+        return source, labels_src, source.volume, lambda t: np.asarray(labels_src.volume(t), np.int64)
+    try:
+        source = FrameSource(paths=paths[:-1])
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+    try:
+        lab_stack = np.asarray(tiff.read_stack(paths[-1]))
+    except (ValueError, OSError) as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read labels: {e}")
+    if lab_stack.ndim == 2:
+        lab_stack = lab_stack[None]
+    if lab_stack.shape[0] < len(source) or tuple(lab_stack.shape[1:]) != source.spatial:
+        raise jobs_lib.JobError(
+            f"image/label shape mismatch: images "
+            f"{(len(source),) + source.spatial},"
+            f" labels {tuple(lab_stack.shape)}"
+        )
+    return source, None, source.frame, lambda t: lab_stack[t].astype(np.int64)
+
+
+def _instance_records(job: Job, dims: int, default_patch, targets, encode) -> int:
+    """Write the job's ``records/train-*`` shards: each frame or volume
+    normalized on the host, its targets (``targets(labels)`` -> (target,
+    prob)) computed whole, then ``patches_per_frame`` foreground-biased
+    ``patch`` crops encoded by ``encode(img, target, prob)``. Returns the
+    channel count."""
+    from sequitr_tpu_torch.data import records as records_lib
+    from sequitr_tpu_torch.server.pipelines.training import _normalize_frame, _record_normalize
+
+    p = job.params
+    source, labels_src, read_img, read_lab = _instance_sources(job, dims)
+    patch = tuple(int(v) for v in p.get("patch", default_patch))
+    if len(patch) != dims or any(ps > s for s, ps in zip(source.spatial, patch)):
+        source.close()
+        if labels_src is not None:
+            labels_src.close()
+        raise jobs_lib.JobError(
+            f"patch {patch} must be {dims} axes and fit the "
+            f"{'volumes' if dims == 3 else 'frames'} {source.spatial}"
+        )
+    n_crops = int(p.get("patches_per_frame", 4))
+    p_lo, p_hi = float(p.get("p_lo", 5.0)), float(p.get("p_hi", 99.5))
+    norm_rec = _record_normalize(p)
+    rng = np.random.default_rng(int(p.get("seed", 0)))
+    n_frames = len(source)
+
+    def gen_payloads():
+        # the label volumes' handles are released however generation ends
+        try:
+            with source:
+                for t in jobs_lib.track(job, range(n_frames), total=n_frames, phase="records"):
+                    img = np.asarray(read_img(t), dtype=np.float32)
+                    if norm_rec:
+                        img = _normalize_frame(img, dims, p_lo, p_hi)
+                    if dims == 3:
+                        img = img[..., None]
+                    target, prob = targets(read_lab(t))
+                    has_fg = bool(prob.any())
+                    for _ in range(n_crops):
+                        sl = _foreground_crop(rng, img.shape[:dims], patch, prob, has_fg)
+                        yield encode(img[sl], target[sl], prob[sl])
+        finally:
+            if labels_src is not None:
+                labels_src.close()
+
+    rec_dir = os.path.join(job.output, "records")
+    os.makedirs(rec_dir, exist_ok=True)
+    records_lib.write_shards(
+        os.path.join(rec_dir, "train"), gen_payloads(), shard_size=int(p.get("shard_size", 128)),
+    )
+    return 1 if dims == 3 else source.n_channels
+
+
+@register("train_flows")
+def train_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train a flow-field instance segmenter (Cellpose-style).
+
+    input: [image.tif, ..., instances.tif], the last the instance label
+    stack; ``dims: 3``: [image volumes, label volumes] (volume-sequence
+    entries, ``z`` pages a volume, single-channel). Flow targets are
+    computed per full frame or volume on the host
+    (``ops.flows.flow_targets``), then random foreground-biased ``patch``
+    crops (default [64, 64], [8, 64, 64] for volumes;
+    ``patches_per_frame`` 4) go into shards written once and reused on
+    resume. Trains (``fit_flows``) a ``dims + 1``-channel regression head
+    over the ``flows_cells`` preset (depth 3 for volumes) on
+    ``config.device``. params: ``model`` (required), ``normalize``,
+    ``p_lo``/``p_hi``, ``depth``, ``base_features``, ``norm``,
+    ``compute_dtype``, ``polyphase``, the photometric jitters, the
+    training and observability params of ``train_unet2d`` (keep_best on
+    ``eval_loss``), ``ema_decay``, ``resume``, ``seed``. Registers kind
+    ``flows``, served by ``segment_flows``, ``evaluate_flows`` and
+    ``parity_check``.
+    """
+    import dataclasses
+
+    from sequitr_tpu_torch.data import records as records_lib
+    from sequitr_tpu_torch.models import zoo
+    from sequitr_tpu_torch.ops import flows as flows_ops
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.server.pipelines.training import (
+        _family_train_config, _fit_and_register, _fit_config, _resume_state,
+    )
+
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    p = job.params
+    dims = int(p.get("dims", 2))
+    if dims not in (2, 3):
+        raise jobs_lib.JobError(f"train_flows needs dims 2 or 3, got {dims}")
+    rec_dir = os.path.join(job.output, "records")
+    shard_paths = sorted(glob_lib.glob(os.path.join(rec_dir, "*.tfrecord")))
+    if not shard_paths:
+        n_channels = _instance_records(
+            job, dims, (64, 64) if dims == 2 else (8, 64, 64), flows_ops.flow_targets,
+            fit_lib.encode_flow_example,
+        )
+        shard_paths = sorted(glob_lib.glob(os.path.join(rec_dir, "*.tfrecord")))
+    else:
+        first = next(records_lib.read_records(shard_paths[0]), None)
+        if first is None:
+            raise jobs_lib.JobError(f"job {job.id}: empty record shards in {rec_dir}")
+        n_channels = fit_lib._decode_flow(first)["image"].shape[-1]
+
+    base = zoo.get("flows_cells")
+    cfg = dataclasses.replace(
+        base,
+        in_channels=n_channels,
+        num_classes=dims + 1,  # (dy, dx[, dz]) x FLOW_SCALE + prob logit
+        dims=dims,
+        depth=int(p.get("depth", base.depth if dims == 2 else 3)),
+        base_features=int(p.get("base_features", base.base_features)),
+        norm=p.get("norm", base.norm),
+        compute_dtype=str(p.get("compute_dtype", "bfloat16")),
+    )
+    tc = _family_train_config(p, cfg, 3e-4, jitter=True)
+    fc = _fit_config(job, "eval_loss", 16, dump=False)
+    init_state = _resume_state(job, cfg, tc, device)
+    return _fit_and_register(
+        job, config, device, "flows", cfg, tc, fc, init_state, fit_lib.fit_flows, shard_paths, rec_dir,
+    )
+
+
+@register("train_stars")
+def train_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train a star-convex instance segmenter (StarDist-style, 2D).
+
+    input: [image.tif, ..., instances.tif], the last the instance label
+    stack. Ray-distance and normalized-EDT targets are computed per full
+    frame on the host (``ops.stardist.star_targets``, ``n_rays`` 32, a
+    multiple of 4; ``max_dist`` caps the march), then random
+    foreground-biased ``patch`` crops (default [64, 64];
+    ``patches_per_frame`` 4) go into shards written once and reused on
+    resume. Trains (``fit_stars``) a ``1 + n_rays``-channel head over the
+    ``stars_cells`` preset on ``config.device``. params as
+    ``train_flows`` (2D only). Registers kind ``stars``, served by
+    ``segment_stars``, ``evaluate_stars`` and ``parity_check``.
+    """
+    import dataclasses
+    import logging
+
+    from sequitr_tpu_torch.data import records as records_lib
+    from sequitr_tpu_torch.models import zoo
+    from sequitr_tpu_torch.ops import stardist as sd
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.server.pipelines.training import (
+        _family_train_config, _fit_and_register, _fit_config, _resume_state,
+    )
+
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    p = job.params
+    if int(p.get("dims", 2)) != 2:
+        raise jobs_lib.JobError(
+            "train_stars is 2D only (star-convex rays); volumetric "
+            "instances train via train_flows dims: 3"
+        )
+    n_rays = int(p.get("n_rays", 32))
+    if n_rays < 4 or n_rays % 4:
+        raise jobs_lib.JobError(f"n_rays must be a positive multiple of 4, got {n_rays}")
+    rec_dir = os.path.join(job.output, "records")
+    shard_paths = sorted(glob_lib.glob(os.path.join(rec_dir, "*.tfrecord")))
+    if not shard_paths:
+        max_dist = p.get("max_dist")
+        max_dist = None if max_dist is None else float(max_dist)
+        logging.getLogger("sequitr_tpu_torch.server").info(
+            "train_stars %s: ray march budget = %s (n_rays=%d)", job.id,
+            "auto (largest instance bbox diagonal)" if max_dist is None else f"{max_dist:g} px", n_rays,
+        )
+        n_channels = _instance_records(
+            job, 2, (64, 64),
+            lambda lab: sd.star_targets(lab, n_rays=n_rays, max_dist=max_dist),
+            fit_lib.encode_stars_example,
+        )
+        shard_paths = sorted(glob_lib.glob(os.path.join(rec_dir, "*.tfrecord")))
+    else:
+        first = next(records_lib.read_records(shard_paths[0]), None)
+        if first is None:
+            raise jobs_lib.JobError(f"job {job.id}: empty record shards in {rec_dir}")
+        decoded = fit_lib._decode_stars(first)
+        n_channels = decoded["image"].shape[-1]
+        n_rays = decoded["dist"].shape[-1]
+
+    base = zoo.get("stars_cells")
+    cfg = dataclasses.replace(
+        base,
+        in_channels=n_channels,
+        num_classes=1 + n_rays,  # prob logit + per-ray distances
+        depth=int(p.get("depth", base.depth)),
+        base_features=int(p.get("base_features", base.base_features)),
+        norm=p.get("norm", base.norm),
+        compute_dtype=str(p.get("compute_dtype", "bfloat16")),
+    )
+    tc = _family_train_config(p, cfg, 3e-4, jitter=True)
+    fc = _fit_config(job, "eval_loss", 16, dump=False)
+    init_state = _resume_state(job, cfg, tc, device)
+    return _fit_and_register(
+        job, config, device, "stars", cfg, tc, fc, init_state, fit_lib.fit_stars, shard_paths, rec_dir,
+    )

@@ -10,8 +10,12 @@ card). ``train_unet2d`` / ``train_unet3d`` (``pipeline.fit.fit_unet``) and
 card unless the server runs on the CPU) and register the model in the
 port's store (kind ``unet`` or ``gan``); ``polyphase: true`` trains
 through ``models.polyphase.apply_train`` (``apply3d_train``).
-``train_n2v`` and ``finetune_spatial`` are a later slice of the port; so
-is ``data_parallel`` across more than one card (a JobError).
+``train_n2v`` (2D and volumes, ``pipeline.fit.fit_n2v``) builds its own
+image-only shards on the host and registers kind ``n2v``; its helpers
+(``_family_train_config``, ``_fit_config``, ``_fit_and_register``)
+also serve ``train_flows`` and ``train_stars``. ``finetune_spatial`` (the
+halo-exchanged whole-frame trainer) and ``data_parallel`` across more
+than one card (a JobError) belong to the multi-card slice of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from sequitr_tpu_torch.server.server import (
     _parse_ema_decay,
     _parse_ignore_label,
     _parse_patience,
+    _parse_z_pages,
     _require_one_card,
     _require_param,
     _resolve_globs,
@@ -178,12 +183,7 @@ def build_records(job: Job, config: ServerConfiguration) -> Dict[str, str]:
                 # records store normalized intensities so training sees the
                 # same distribution tiled inference feeds the net (SURVEY.md
                 # §3.2/3.3); multi-channel normalizes per channel
-                axes = tuple(range(lab.ndim))  # spatial axes only
-                lo = np.percentile(img, p_lo, axis=axes, keepdims=True)
-                hi = np.percentile(img, p_hi, axis=axes, keepdims=True)
-                img = np.clip(
-                    (img - lo) / np.maximum(hi - lo, 1e-8), 0.0, 1.0
-                ).astype(np.float32)
+                img = _normalize_frame(img, lab.ndim, p_lo, p_hi)
             if patch is not None:
                 if any(ps > s for s, ps in zip(lab.shape, patch)):
                     raise jobs_lib.JobError(
@@ -191,13 +191,7 @@ def build_records(job: Job, config: ServerConfiguration) -> Dict[str, str]:
                     )
                 crops = []
                 for _ in range(n_crops):
-                    starts = [
-                        int(rng.integers(0, s - ps + 1))
-                        for s, ps in zip(lab.shape, patch)
-                    ]
-                    sl = tuple(
-                        slice(st, st + ps) for st, ps in zip(starts, patch)
-                    )
+                    sl = _crop(rng, lab.shape, patch)
                     img_sl = sl + (slice(None),) if multi_channel else sl
                     crops.append((img[img_sl], lab[sl]))
             else:
@@ -309,37 +303,9 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         ),
         lr_end_factor=float(p.get("lr_end_factor", 0.01)),
     )
-    fc = fit_lib.FitConfig(
-        steps=steps,
-        batch_size=int(p.get("batch_size", 8)),
-        checkpoint_every=int(p.get("checkpoint_every", 500)),
-        log_every=int(p.get("log_every", 50)),
-        holdout_every=int(p.get("holdout_every", 0)),
-        eval_every=int(p.get("eval_every", 0)),
-        metrics_path=os.path.join(job.output, "metrics.jsonl"),
-        dump_eval_images=bool(p.get("dump_eval_images", False)),
-        seed=int(p.get("seed", 0)),
-        keep_checkpoints=int(p.get("keep_checkpoints", 3)),
-        keep_best_metric=(
-            str(p.get("keep_best_metric", "eval_miou"))
-            if p.get("keep_best") or _parse_patience(p)
-            else ""
-        ),
-        early_stop_patience=_parse_patience(p),
-        ema_decay=_parse_ema_decay(p),
-    )
-    if fc.keep_best_metric and not fc.holdout_every:
-        raise jobs_lib.JobError(
-            "keep_best/early_stop_patience requires holdout_every > 0 "
-            "(no eval metric to track)"
-        )
+    fc = _fit_config(job, "eval_miou", 8)
     ckpt_dir = os.path.join(job.output, "ckpts")
-    init_state = None
-    ckpt = fit_lib.latest_checkpoint(ckpt_dir) if p.get("resume", True) else None
-    if ckpt:
-        # resume from the newest checkpoint; the loop runs the rest
-        template = train_lib.create_unet_state(cfg, tc, device=device)
-        init_state = train_lib.restore_checkpoint(ckpt, template)
+    init_state = _resume_state(job, cfg, tc, device)
     distill = None
     if p.get("distill_from"):
         t_kind, _, teacher = load_model_cached(config.models_dir, p["distill_from"], device=device)
@@ -464,30 +430,7 @@ def train_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         ),
         lr_end_factor=float(p.get("lr_end_factor", 0.01)),
     )
-    fc = fit_lib.FitConfig(
-        steps=steps,
-        batch_size=int(p.get("batch_size", 4)),
-        checkpoint_every=int(p.get("checkpoint_every", 500)),
-        log_every=int(p.get("log_every", 50)),
-        holdout_every=int(p.get("holdout_every", 0)),
-        eval_every=int(p.get("eval_every", 0)),
-        metrics_path=os.path.join(job.output, "metrics.jsonl"),
-        dump_eval_images=bool(p.get("dump_eval_images", False)),
-        seed=int(p.get("seed", 0)),
-        keep_checkpoints=int(p.get("keep_checkpoints", 3)),
-        keep_best_metric=(
-            str(p.get("keep_best_metric", "eval_psnr"))
-            if p.get("keep_best") or _parse_patience(p)
-            else ""
-        ),
-        early_stop_patience=_parse_patience(p),
-        ema_decay=_parse_ema_decay(p),
-    )
-    if fc.keep_best_metric and not fc.holdout_every:
-        raise jobs_lib.JobError(
-            "keep_best/early_stop_patience requires holdout_every > 0 "
-            "(no eval metric to track)"
-        )
+    fc = _fit_config(job, "eval_psnr", 4)
     ckpt_dir = os.path.join(job.output, "ckpts")
     init_state = None
     ckpt = fit_lib.latest_checkpoint(ckpt_dir) if p.get("resume", True) else None
@@ -515,3 +458,294 @@ def train_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     model = _ema_or_raw_params(ckpt_dir, fc, state, used_best, subtree="gen")
     model_dir = save_model(config.models_dir, _require_param(job, "model"), "gan", cfg, model)
     return {"model": model_dir, "metrics_file": fc.metrics_path}
+
+
+def _crop(rng, shape, patch):
+    """A random ``patch`` window of ``shape`` (``rng.integers`` a start an
+    axis, in order)."""
+    sl = []
+    for s, ps in zip(shape, patch):
+        st = int(rng.integers(0, s - ps + 1))
+        sl.append(slice(st, st + ps))
+    return tuple(sl)
+
+
+def _normalize_frame(img: np.ndarray, dims: int, p_lo: float, p_hi: float) -> np.ndarray:
+    """Percentile-normalize over the spatial axes only (a 2D multi-channel
+    frame per channel), on the host, to [0, 1]."""
+    axes = tuple(range(dims))
+    lo = np.percentile(img, p_lo, axis=axes, keepdims=True)
+    hi = np.percentile(img, p_hi, axis=axes, keepdims=True)
+    return np.clip((img - lo) / np.maximum(hi - lo, 1e-8), 0.0, 1.0).astype(np.float32)
+
+
+def _record_normalize(p: dict) -> bool:
+    """The family jobs' ``normalize`` record param: records and serving
+    share one intensity space (false or "none" trains in the raw scale)."""
+    norm = p.get("normalize", True)
+    return bool(norm) and norm != "none"
+
+
+def _family_train_config(p: dict, cfg, learning_rate: float, jitter: bool):
+    """The ``TrainConfig`` of a train_n2v / train_flows / train_stars job
+    (``jitter``: the photometric knobs are read)."""
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    steps = int(p.get("steps", 1000))
+    kw = dict(
+        learning_rate=float(p.get("learning_rate", learning_rate)),
+        augment=bool(p.get("augment", True)),
+        grad_accum=int(p.get("grad_accum", 1)),
+        remat=bool(p.get("remat", False)),
+        lr_schedule=str(p.get("lr_schedule", "constant")),
+        lr_warmup_steps=int(p.get("lr_warmup_steps", 0)),
+        lr_decay_steps=int(
+            p.get("lr_decay_steps", max(1, steps - int(p.get("lr_warmup_steps", 0))))
+        ),
+        lr_end_factor=float(p.get("lr_end_factor", 0.01)),
+    )
+    if jitter:
+        kw.update(
+            gain_jitter=float(p.get("gain_jitter", 0.0)),
+            offset_jitter=float(p.get("offset_jitter", 0.0)),
+            noise_std=float(p.get("noise_std", 0.0)),
+        )
+    return train_lib.TrainConfig(polyphase=_polyphase_train_param(p, cfg), **kw)
+
+
+def _fit_config(job: Job, keep_best: str, batch_size: int, dump: bool = True):
+    """The ``FitConfig`` of a train job's params (``keep_best``: the default
+    keep_best metric; ``batch_size``: the default batch; ``dump``: the
+    ``dump_eval_images`` param is read), with the keep_best check."""
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+
+    p = job.params
+    fc = fit_lib.FitConfig(
+        steps=int(p.get("steps", 1000)),
+        batch_size=int(p.get("batch_size", batch_size)),
+        checkpoint_every=int(p.get("checkpoint_every", 500)),
+        log_every=int(p.get("log_every", 50)),
+        holdout_every=int(p.get("holdout_every", 0)),
+        eval_every=int(p.get("eval_every", 0)),
+        metrics_path=os.path.join(job.output, "metrics.jsonl"),
+        dump_eval_images=bool(p.get("dump_eval_images", False)) if dump else False,
+        seed=int(p.get("seed", 0)),
+        keep_checkpoints=int(p.get("keep_checkpoints", 3)),
+        keep_best_metric=(
+            str(p.get("keep_best_metric", keep_best))
+            if p.get("keep_best") or _parse_patience(p)
+            else ""
+        ),
+        early_stop_patience=_parse_patience(p),
+        ema_decay=_parse_ema_decay(p),
+    )
+    if fc.keep_best_metric and not fc.holdout_every:
+        raise jobs_lib.JobError(
+            "keep_best/early_stop_patience requires holdout_every > 0 "
+            "(no eval metric to track)"
+        )
+    return fc
+
+
+def _resume_state(job: Job, cfg, tc, device):
+    """The newest checkpoint of the job's ``ckpts`` (unless ``resume`` is
+    false) restored into a fresh state, or None."""
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    ckpt_dir = os.path.join(job.output, "ckpts")
+    ckpt = fit_lib.latest_checkpoint(ckpt_dir) if job.params.get("resume", True) else None
+    if not ckpt:
+        return None
+    return train_lib.restore_checkpoint(ckpt, train_lib.create_unet_state(cfg, tc, device=device))
+
+
+def _fit_and_register(job: Job, config: ServerConfiguration, device, kind: str, cfg, tc, fc,
+                      init_state, fit, shard_paths, rec_dir: str, **fit_kw) -> Dict[str, str]:
+    """Run a family fit loop (cancel -> JobCancelled, a ValueError of the
+    step or loop -> JobError), take the best checkpoint when keep_best
+    kept one, and register the EMA or raw weights as ``kind``."""
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    ckpt_dir = os.path.join(job.output, "ckpts")
+    rep = jobs_lib.ProgressReporter(job, fc.steps, phase="steps", raise_on_cancel=False)
+    try:
+        state = fit(
+            cfg, tc, fc, shard_paths, ckpt_dir=ckpt_dir, init_state=init_state,
+            should_stop=lambda: jobs_lib.cancel_requested(job),
+            progress=lambda s, _t: rep.step(s), device=device, **fit_kw,
+        )
+    except fit_lib.TrainingCancelled as e:
+        raise jobs_lib.JobCancelled(str(e))
+    except ValueError as e:
+        # bad mask/radius/struct/keep_best_metric values are deterministic
+        raise jobs_lib.JobError(str(e))
+    rep.finish()
+    best_path = os.path.join(ckpt_dir, "best")
+    used_best = bool(fc.keep_best_metric) and os.path.isdir(best_path)
+    if used_best:
+        state = train_lib.restore_checkpoint(best_path, state)
+    model = _ema_or_raw_params(ckpt_dir, fc, state, used_best)
+    model_dir = save_model(config.models_dir, _require_param(job, "model"), kind, cfg, model)
+    return {"model": model_dir, "metrics_file": fc.metrics_path,
+            "shards": os.path.join(rec_dir, "train-*.tfrecord")}
+
+
+@register("train_n2v")
+def train_n2v(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Train a Noise2Void self-supervised denoiser from noisy stacks alone.
+
+    input: noisy TIFF stacks, one per channel (2D), or ONE volume-sequence
+    entry (``dims: 3``: a dir/glob of per-timepoint z-stacks or a file,
+    ``z`` pages a volume; single-channel). The job writes image-only
+    shards of random ``patch`` crops (default [64, 64], [8, 64, 64] for
+    volumes; ``patches_per_frame`` 4) of each frame or volume,
+    percentile-normalized on the host (``normalize``, ``p_lo``/``p_hi``),
+    once under the job output, reused on resume; then trains
+    (``fit_n2v``) on ``config.device``. params: ``model`` (required),
+    ``mask_frac`` (0.005), ``radius`` (5) and ``radius_z`` (2, volumes),
+    ``mask_mode`` ("uniform" or the N2V2 "median"), ``struct_axis`` ("x",
+    "y", "z" for volumes) with ``struct_span`` (4) for structN2V,
+    ``space_to_depth`` (2D; base 64 above 1), ``depth``,
+    ``base_features``, ``norm``, ``compute_dtype`` over the
+    ``n2v_denoise`` preset, ``polyphase``, the training and observability
+    params of ``train_unet2d`` (keep_best on ``eval_psnr_masked``),
+    ``ema_decay``, ``resume``, ``seed``. Registers kind ``n2v``, served by
+    ``denoise``, ``evaluate_denoise`` and ``parity_check``.
+    """
+    import dataclasses
+
+    from sequitr_tpu_torch.data import records as records_lib
+    from sequitr_tpu_torch.data.source import FrameSource, VolumeSequence
+    from sequitr_tpu_torch.models import zoo
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+
+    device = resolve_device(config.device)
+    _require_one_card(job, device, "data_parallel")
+    p = job.params
+    dims = int(p.get("dims", 2))
+    if dims not in (2, 3):
+        raise jobs_lib.JobError(f"train_n2v needs dims 2 or 3, got {dims}")
+    s2d = int(p.get("space_to_depth", 1))
+    if dims == 3 and s2d != 1:
+        raise jobs_lib.JobError(
+            "space_to_depth is a 2D-only rearrangement (volumes train "
+            "without it)"
+        )
+
+    # record shards: built once, reused on resume
+    rec_dir = os.path.join(job.output, "records")
+    shard_paths = sorted(glob_lib.glob(os.path.join(rec_dir, "*.tfrecord")))
+    if not shard_paths:
+        paths = _resolve_inputs(job)
+        if dims == 3:
+            if len(paths) != 1:
+                raise jobs_lib.JobError(
+                    "train_n2v dims=3 takes ONE volume-sequence entry "
+                    f"(got {len(paths)}); denoise channels as separate jobs"
+                )
+            try:
+                source = VolumeSequence(paths[0], z=_parse_z_pages(job))
+            except ValueError as e:
+                raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+        else:
+            try:
+                source = FrameSource(paths=paths)
+            except ValueError as e:
+                raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+        default_patch = (64, 64) if dims == 2 else (8, 64, 64)
+        patch = tuple(int(v) for v in p.get("patch", default_patch))
+        if len(patch) != dims or any(ps > s for s, ps in zip(source.spatial, patch)):
+            source.close()
+            raise jobs_lib.JobError(
+                f"patch {patch} must be {dims} axes and fit the "
+                f"{'volumes' if dims == 3 else 'frames'} {source.spatial}"
+            )
+        n_crops = int(p.get("patches_per_frame", 4))
+        p_lo, p_hi = float(p.get("p_lo", 5.0)), float(p.get("p_hi", 99.5))
+        norm_rec = _record_normalize(p)
+        rng = np.random.default_rng(int(p.get("seed", 0)))
+        n_frames = len(source)
+        read = source.volume if dims == 3 else source.frame
+
+        def gen_payloads():
+            with source:
+                for t in jobs_lib.track(job, range(n_frames), total=n_frames, phase="records"):
+                    img = np.asarray(read(t), dtype=np.float32)
+                    if norm_rec:
+                        img = _normalize_frame(img, dims, p_lo, p_hi)
+                    if dims == 3:
+                        # the channel axis, so a volume does not decode as
+                        # a 2D multi-channel frame
+                        img = img[..., None]
+                    for _ in range(n_crops):
+                        yield fit_lib.encode_image_example(img[_crop(rng, img.shape[:dims], patch)])
+
+        os.makedirs(rec_dir, exist_ok=True)
+        shard_paths = records_lib.write_shards(
+            os.path.join(rec_dir, "train"), gen_payloads(), shard_size=int(p.get("shard_size", 128)),
+        )
+        n_channels = 1 if dims == 3 else source.n_channels
+    else:
+        # resumed: the channel count from the shards
+        first = next(records_lib.read_records(shard_paths[0]), None)
+        if first is None:
+            raise jobs_lib.JobError(f"job {job.id}: empty record shards in {rec_dir}")
+        n_channels = fit_lib._decode_image(first)["image"].shape[-1]
+
+    # the n2v preset resized to the data's channels
+    base = zoo.get("n2v_denoise")
+    cfg = dataclasses.replace(
+        base,
+        in_channels=n_channels,
+        num_classes=n_channels,  # regression: every input channel
+        dims=dims,
+        depth=int(p.get("depth", base.depth)),
+        # space_to_depth 2 doubles the base width (n2v_denoise_fast's shape)
+        base_features=int(p.get("base_features", 64 if s2d > 1 else base.base_features)),
+        space_to_depth=s2d,
+        norm=p.get("norm", base.norm),
+        compute_dtype=str(p.get("compute_dtype", "bfloat16")),
+    )
+    tc = _family_train_config(p, cfg, 4e-4, jitter=False)
+    fc = _fit_config(job, "eval_psnr_masked", 16)
+    init_state = _resume_state(job, cfg, tc, device)
+    radius = int(p.get("radius", 5))
+    if dims == 3:
+        # z is sampled more coarsely than the plane: a small z radius
+        radius = (int(p.get("radius_z", 2)), radius, radius)
+    mask_mode = str(p.get("mask_mode", "uniform"))
+    if mask_mode not in ("uniform", "median"):
+        raise jobs_lib.JobError(
+            f"mask_mode={mask_mode!r} must be 'uniform' (Noise2Void "
+            "random-neighbor) or 'median' (the N2V2 manipulation)"
+        )
+    struct = None
+    if p.get("struct_axis") is not None:
+        axes = {"y": dims - 2, "x": dims - 1}
+        if dims == 3:
+            axes["z"] = 0
+        sa = str(p.get("struct_axis"))
+        if sa not in axes:
+            raise jobs_lib.JobError(
+                f"struct_axis={sa!r} must be one of {sorted(axes)} "
+                f"for dims={dims}"
+            )
+        span = int(p.get("struct_span", 4))
+        if span < 1:
+            raise jobs_lib.JobError(
+                f"struct_span={span} must be >= 1 (pixels each side of "
+                "the masked center along the correlated axis)"
+            )
+        struct = (axes[sa], span)
+    elif p.get("struct_span") is not None:
+        raise jobs_lib.JobError(
+            "struct_span without struct_axis: say WHICH axis the noise "
+            "is correlated along ('x', 'y'" + (", 'z'" if dims == 3 else "")
+            + ")"
+        )
+    return _fit_and_register(
+        job, config, device, "n2v", cfg, tc, fc, init_state, fit_lib.fit_n2v, shard_paths, rec_dir,
+        mask_frac=float(p.get("mask_frac", 0.005)), radius=radius, mask_mode=mask_mode, struct=struct,
+    )

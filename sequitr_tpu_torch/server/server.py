@@ -902,36 +902,41 @@ def _reads_fail_fast(job: Job, it):
 
 
 def config_from_arch(kind: str, p: dict):
-    """The configuration of a ``kind`` model from its architecture JSON: a
-    ``GANConfig`` from its fields for ``gan`` (unknown keys such as
-    ``__kind__`` ignored), else ``unet_config_from_params``."""
-    from sequitr_tpu_torch.models import fixtures
+    """The configuration of a ``kind`` model from its architecture JSON, as
+    the JAX package's ``import-model`` builds it: for ``gan`` a
+    ``GANConfig`` of its seven keys (the rest at their defaults, every
+    other key ignored), else ``unet_config_from_params``."""
+    from sequitr_tpu_torch.models import gan
 
-    cls = fixtures.config_class(kind)
     if kind != "gan":
         return unet_config_from_params(p)
-    known = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in p.items() if k in known})
+    return gan.GANConfig(
+        in_channels=int(p.get("in_channels", 1)),
+        out_channels=int(p.get("out_channels", 1)),
+        gen_depth=int(p.get("gen_depth", 4)),
+        gen_base_features=int(p.get("gen_base_features", 32)),
+        disc_layers=int(p.get("disc_layers", 3)),
+        disc_base_features=int(p.get("disc_base_features", 64)),
+        compute_dtype=p.get("compute_dtype", "bfloat16"),
+    )
 
 
 def unet_config_from_params(p: dict):
-    """A ``UNetConfig`` from architecture params (the JAX server's fields)."""
-    from sequitr_tpu_torch.models import unet
+    """A ``UNetConfig`` from architecture params: the JAX server's fields
+    and defaults, and nothing else (``features_cap`` and ``upsample`` stay
+    at 512 and ``"transpose"``); ``preset`` returns ``zoo.get(preset)``
+    and ignores every other field."""
+    from sequitr_tpu_torch.models import unet, zoo
 
     if "preset" in p:
-        raise jobs_lib.JobError(
-            "model presets are not ported yet (a later slice of the port); "
-            "give the architecture fields"
-        )
+        return zoo.get(p["preset"])
     return unet.UNetConfig(
         in_channels=int(p.get("in_channels", 1)),
         num_classes=int(p.get("num_classes", 3)),
         depth=int(p.get("depth", 4)),
         base_features=int(p.get("base_features", 32)),
-        features_cap=int(p.get("features_cap", 512)),
         dims=int(p.get("dims", 2)),
         norm=p.get("norm", "batch"),
-        upsample=p.get("upsample", "transpose"),
         compute_dtype=p.get("compute_dtype", "bfloat16"),
         space_to_depth=int(p.get("space_to_depth", 1)),
     )

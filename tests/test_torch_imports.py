@@ -32,6 +32,7 @@ MODULES = [
     "sequitr_tpu_torch.models.polyphase",
     "sequitr_tpu_torch.models.torch_reference",
     "sequitr_tpu_torch.models.tf_reference",
+    "sequitr_tpu_torch.models.zoo",
     "sequitr_tpu_torch.ops",
     "sequitr_tpu_torch.ops.normalize",
     "sequitr_tpu_torch.ops.tiling",
@@ -83,7 +84,7 @@ from sequitr_tpu_torch.server.server import REGISTRY
 for job in (
     "evaluate_unet2d", "evaluate_unet3d", "parity_check", "evaluate_gan",
     "evaluate_denoise", "evaluate_flows", "evaluate_stars", "build_gan_pairs",
-    "train_gan",
+    "train_gan", "train_n2v", "train_flows", "train_stars",
 ):
     assert job in REGISTRY.names(), job
 
@@ -91,7 +92,7 @@ import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
 from sequitr_tpu_torch import fidelity, utils
 from sequitr_tpu_torch.config import ServerConfiguration
-from sequitr_tpu_torch.models import convert, gan, unet
+from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
 from sequitr_tpu_torch.pipeline import fit, infer, train
 from sequitr_tpu_torch.studies import flow_gather, polyphase_conv
@@ -128,6 +129,11 @@ calls = [
     lambda: gan.init(gcfg),
     lambda: train.create_gan_state(gcfg, train.TrainConfig()),
     lambda: fit.fit_gan(gcfg, train.TrainConfig(), fit.FitConfig(), []),
+    lambda: zoo.create("n2v_denoise"),
+    lambda: zoo.create("gan_enhance"),
+    lambda: fit.fit_n2v(unet.UNetConfig(depth=2, num_classes=1), train.TrainConfig(), fit.FitConfig(), []),
+    lambda: fit.fit_flows(unet.UNetConfig(depth=2, num_classes=3), train.TrainConfig(), fit.FitConfig(), []),
+    lambda: fit.fit_stars(unet.UNetConfig(depth=2, num_classes=9), train.TrainConfig(), fit.FitConfig(), []),
     lambda: fidelity.seg_fidelity("unet2d_cells", (64, 64), n=1),
     lambda: fidelity.gan_fidelity(frame_shape=(64, 64), n=1),
     lambda: fidelity.n2v_fidelity(frame_shape=(64, 64), n=1),
@@ -150,6 +156,15 @@ infer.make_gan_enhancer(gcfg, tc, (16, 16), device="cpu")
 train.create_unet_state(cfg, train.TrainConfig(), device="cpu")
 train.create_gan_state(gcfg, train.TrainConfig(), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
+zoo.create("stars_cells", device="cpu")
+# the N2V masking's draw and apply, and the flips, run where their tensors lie
+img = torch.zeros(2, 16, 16, 1)
+draws = train.n2v_draw_mask(None, img.shape, 8, (5, 5), "median")
+train.n2v_mask_apply(img, draws, (5, 5), "median")
+train.n2v_flip_batch(img, train.n2v_draw_flip(None, img.shape))
+train.flows_flip_batch(img, torch.zeros(2, 16, 16, 2), torch.zeros(2, 16, 16), torch.zeros(2, 2, dtype=torch.bool))
+for make, n in ((train.make_n2v_train_step, 1), (train.make_flows_train_step, 3), (train.make_stars_train_step, 9)):
+    make(unet.UNetConfig(depth=2, num_classes=n), train.TrainConfig())
 print("ok")
 """
 

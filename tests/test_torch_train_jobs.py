@@ -3,7 +3,9 @@
 job JSON; ``train_unet2d`` trains and registers a model that
 ``segmentation_unet2d`` serves in the same server process, that loads in
 the JAX server (through its ``import-model``) and that both servers serve
-to equal labels at f32; ``train_unet3d``; the JobErrors.
+to equal labels at f32; ``train_unet3d``; the JobErrors; the architecture
+fields the JAX server reads (no ``features_cap``, no ``upsample``;
+``preset``), registered alike by both servers.
 """
 
 import json
@@ -176,7 +178,9 @@ def test_train_unet3d(env):
 
 @pytest.mark.parametrize("params,message", [
     ({"polyphase": True, "space_to_depth": 2}, "polyphase training requires"),
-    ({"polyphase": True, "upsample": "resize"}, "polyphase training requires"),
+    # the JAX server reads no ``upsample``: the model is a transpose-upsample
+    # one and the polyphase job trains (message None: the job completes)
+    pytest.param({"polyphase": True, "upsample": "resize"}, None, id="params1-polyphase training requires"),
     ({"keep_best": True}, "requires holdout_every"),
     ({"ema_decay": 1.5}, "ema_decay"),
     ({"early_stop_patience": "x"}, "early_stop_patience"),
@@ -184,4 +188,34 @@ def test_train_unet3d(env):
 def test_train_job_errors(env, shards, params, message):
     spec = dict(ARCH, model="bad", steps=1, **params)
     st = _run(env, "torch", "bad_" + "_".join(sorted(params)), "train_unet2d", [str(env["tmp"] / "torch_records")], spec)
+    if message is None:
+        assert st["state"] == "complete", st.get("error")
+        return
     assert st["state"] == "failed" and "JobError" in st["error"] and message in st["error"], st["error"]
+
+
+def _registered(env, which, model):
+    where = env["models"] if which == "torch" else str(env["tmp"] / "jax_models")
+    with open(os.path.join(where, model, "config.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("case,params", [
+    ("unread_fields", dict(ARCH, polyphase=True, upsample="resize", features_cap=16)),
+    ("preset", {"preset": "unet2d_3class", "depth": 2, "compute_dtype": "float32"}),
+])
+def test_train_unet2d_reads_the_reference_arch_fields(env, shards, case, params):
+    """The same job JSON through both servers registers the same config:
+    ``features_cap`` and ``upsample`` are not read (512 and "transpose", so
+    the polyphase job trains), and ``preset`` is the preset whole, every
+    other field ignored."""
+    spec = dict(params, model=f"arch_{case}", steps=1, batch_size=2)
+    for which in ("torch", "jax"):
+        st = _run(env, which, f"arch_{case}", "train_unet2d", [str(env["tmp"] / f"{which}_records")], dict(spec))
+        assert st["state"] == "complete", (which, st.get("error"))
+    ours, theirs = _registered(env, "torch", f"arch_{case}"), _registered(env, "jax", f"arch_{case}")
+    assert ours == theirs
+    if case == "unread_fields":
+        assert (ours["features_cap"], ours["upsample"]) == (512, "transpose")
+    else:
+        assert (ours["depth"], ours["base_features"], ours["compute_dtype"]) == (4, 32, "bfloat16")
