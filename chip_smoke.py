@@ -962,7 +962,8 @@ def _profile_stream(torch, label, run, n, unit, top=10):
     kernels' spans), device ops an item, peak memory, and the costliest
     kernels; and the wall time of a run without the profiler, over which
     the busy share is taken (the profiler's own host work once tripled a
-    stream's wall time)."""
+    stream's wall time). Returns the plain wall (s), the busy time (us),
+    device ops an item and the kernels' device time by name (us)."""
     run()  # warm up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -998,6 +999,7 @@ def _profile_stream(torch, label, run, n, unit, top=10):
     )
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile {us / 1e3 / n:.4f} ms/{unit} {name[:110]}")
+    return plain_wall, busy, len(kernels) / n, by_name
 
 
 def profile_phase(torch, fixtures, unet):
@@ -3008,13 +3010,346 @@ def family_train_phase(torch, hist, conv, smi_line):
         return counts
 
 
+GEOM_FRAME = (1024, 1024)  # (u), (x): the serving phases' frame
+GEOM_FRAMES = 64
+GEOM_SEED = 555_100
+GEOM_VOLUME = VOLUME  # (v): the 3D serving phase's z-stack
+GEOM_TILE = (1024, 1024)  # (w): 4x4 grid, 102 px (10%) overlap, +-2.5 px jitter
+GEOM_OVERLAP = 102
+GEOM_JITTER = 2.5
+GEOM_CARD_CPU_PX = 1e-3  # shifts, positions and meter errors, card against the port on the CPU
+GEOM_ILLUM_RTOL = 1e-5  # correct_illumination's output, card against CPU (relative)
+GEOM_ILLUM_METER = 1e-4  # illum_fidelity's numbers, card against CPU
+GEOM_TRUTH_PX = 0.1  # (u)/(v) trajectory RMSE against the known drift
+MOSAIC_POSITION_BAR = 0.05  # tests/test_fidelity.py: position_rmse_px, seam_rms_residual_px
+MOSAIC_PHOTOMETRIC_BAR = 0.08  # tests/test_fidelity.py: photometric_residual_frac
+
+
+def _fourier_moved(torch, spec, shift):
+    """The scene of spectrum ``spec`` (complex128 on the card) moved by
+    ``shift``: an f64 Fourier shift, independent of the port's f32 code."""
+    import math
+
+    nd = len(shift)
+    phase = 0
+    for ax, (n, s) in enumerate(zip(spec.shape, shift)):
+        f = torch.fft.fftfreq(n, dtype=torch.float64, device=spec.device)
+        phase = phase + f.reshape([-1 if i == ax else 1 for i in range(nd)]) * float(s)
+    ramp = torch.polar(torch.ones_like(phase), -2.0 * math.pi * phase)
+    return torch.fft.ifftn(spec * ramp).real
+
+
+def _shifts_csv(np, path):
+    """shifts.csv -> (cumulative shifts, step shifts, responses) as arrays."""
+    with open(path) as f:
+        lines = f.read().strip().splitlines()[1:]
+    # the reference row has no response
+    rows = np.array([[float(v) if v else np.nan for v in line.split(",")] for line in lines])
+    nd = (rows.shape[1] - 2) // 2
+    return rows[:, 1 : 1 + nd], rows[:, 1 + nd : 1 + 2 * nd], rows[:, -1]
+
+
+def _fft_split(by_name, n):
+    """Device ms an item by kind: cuFFT, copies, and everything else
+    (elementwise, reductions, sort, argmax)."""
+    fft = sum(us for k, us in by_name.items() if "fft" in k.lower())
+    copy = sum(us for k, us in by_name.items() if "memcpy" in k.lower() or "memset" in k.lower())
+    other = sum(by_name.values()) - fft - copy
+    return fft / 1e3 / n, copy / 1e3 / n, other / 1e3 / n
+
+
+def geometry_phase(torch, hist, conv, smi_line):
+    """register_stack (2D, first mode + frame_batch, integer mode, dims 3),
+    stitch_mosaic (device and cpu backends, 4x4 and 3x3, timelapse) and
+    correct_illumination (exp, ratio) through ImageServer on the card, held
+    to the known truth, to the port on the CPU and to each other; the
+    geometry meters on the card and the CPU. Returns {job: (histogram_2d
+    launches, quantile passes)}: 0 for every job (no kernel of the four
+    lies on these paths)."""
+    import numpy as np
+
+    from sequitr_tpu_torch import fidelity
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.data.synthetic import bandlimited_scene
+    from sequitr_tpu_torch.ops import registration as reg
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        servers = {
+            dev: ImageServer(ServerConfiguration(
+                jobs_dir=os.path.join(tmp, f"jobs_{dev}"), models_dir=os.path.join(tmp, "models"), device=dev,
+            ))
+            for dev in ("cuda", "cpu")
+        }
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        def serve(name, module, params, inputs, dev="cuda", count=True):
+            """One job; returns (outputs, metrics, wall s). Card jobs run
+            with every kernel's launch count reset just before and read
+            just after."""
+            out = os.path.join(tmp, f"out_{name}")
+            submit_job(servers[dev].config.jobs_dir, {
+                "module": module, "params": params, "input": inputs, "output": out,
+            })
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not servers[dev].poll_once():
+                raise AssertionError(f"geometry job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = (hist.histogram_2d.launches, hist.quantile_pass.launches,
+                        conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches)
+            with open(os.path.join(out, "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"geometry job {name}: {status.get('error')}")
+            if dev == "cuda" and count:
+                if any(launched):
+                    raise AssertionError(f"geometry job {name} launched a kernel of the four: {launched}")
+                counts[f"geom_{name}"] = launched[:2]
+            metrics = json.loads(status["outputs"]["metrics"])
+            shown = {k: v for k, v in metrics.items() if k != "chromatic_offsets_px"}
+            print(f"geometry job {name} ({dev}) {module} {json.dumps(params)}: wall {wall:.4f} s, "
+                  f"metrics {json.dumps(shown)} on {smi_line}")
+            return status["outputs"], metrics, wall
+
+        # (u) register_stack 2D: 64 uint16 frames of 1024x1024 along a
+        # known sub-pixel trajectory (~1 px/frame)
+        rng = np.random.default_rng(GEOM_SEED)
+        base = bandlimited_scene(GEOM_FRAME, rng, amp=1500.0, offset=6000.0)
+        truth = np.vstack([[0.0, 0.0], np.cumsum(rng.normal((0.8, -0.6), 0.3, (GEOM_FRAMES - 1, 2)), 0)])
+        spec = torch.fft.fftn(torch.from_numpy(base).double().cuda())
+        frames = np.stack([
+            _fourier_moved(torch, spec, s).round().clamp(0, 65535).cpu().numpy() for s in truth
+        ]).astype(np.uint16)
+        stack = write("drift.tif", frames)
+        # a warm-up job first: cuFFT's plans and the first use of each op
+        # on the card would otherwise land in (u)'s frames/s
+        serve("u_warmup", "register_stack", {"frame_range": [0, 8]}, [stack])
+        out_u, m_u, wall_u = serve("u_previous", "register_stack", {}, [stack])
+        cum_u, step_u, _ = _shifts_csv(np, out_u["shifts"])
+        err_u = cum_u + truth  # the correction aligns back: -truth
+        rmse_u = float(np.sqrt(np.mean(err_u**2)))
+        print(f"geometry (u) previous: trajectory RMSE {rmse_u:.6f} px (max {np.abs(err_u).max():.6f}) over "
+              f"{GEOM_FRAMES} frames of {GEOM_FRAME}, {m_u['frames_per_sec']} frames/s on {smi_line}")
+        if rmse_u > GEOM_TRUTH_PX:
+            raise AssertionError(f"(u) trajectory RMSE {rmse_u} px > {GEOM_TRUTH_PX}")
+        out_c, _, _ = serve("u_previous_cpu", "register_stack", {"frame_range": [0, 8]}, [stack], dev="cpu")
+        cum_c, step_c, _ = _shifts_csv(np, out_c["shifts"])
+        gap = max(np.abs(cum_c - cum_u[:8]).max(), np.abs(step_c - step_u[:8]).max())
+        print(f"geometry (u) card vs CPU port, first 8 frames: max shift gap {gap:.6f} px")
+        if gap > GEOM_CARD_CPU_PX:
+            raise AssertionError(f"(u) card and CPU shifts differ by {gap} px")
+        out_s, _, _ = serve("u_first", "register_stack", {"mode": "first"}, [stack])
+        out_b, m_b, _ = serve("u_first_batch8", "register_stack", {"mode": "first", "frame_batch": 8}, [stack])
+        gap = np.abs(_shifts_csv(np, out_b["shifts"])[0] - _shifts_csv(np, out_s["shifts"])[0]).max()
+        reg_s = tiff.read_stack(out_s["registered"])
+        reg_b = tiff.read_stack(out_b["registered"])
+        # test_registration.py's 1e-3 is on values ~120; these are ~6000
+        pix = float(np.abs(reg_b - reg_s).max()) / float(np.abs(reg_s).mean()) * 120.0
+        print(f"geometry (u) first mode, frame_batch 8 against streaming: shifts {gap:.6f} px, "
+              f"registered {pix:.6f} at the JAX test's scale; {m_b['frames_per_sec']} frames/s")
+        if gap > 1e-3 or pix > 1e-3:
+            raise AssertionError(f"(u) frame_batch 8 differs from streaming: {gap} px, {pix}")
+        del reg_s, reg_b
+        out_i, m_i, _ = serve("u_integer", "register_stack", {"subpixel": False}, [stack])
+        reg_i = tiff.read_stack(out_i["registered"])
+        if reg_i.dtype != np.uint16:
+            raise AssertionError(f"(u) integer mode wrote {reg_i.dtype}")
+        cum_i = _shifts_csv(np, out_i["shifts"])[0]
+        bad = [
+            t for t in range(GEOM_FRAMES)
+            if not np.array_equal(reg_i[t], np.roll(frames[t], tuple(np.round(cum_i[t]).astype(int)), axis=(0, 1)))
+            and np.abs(np.abs(cum_i[t] % 1.0) - 0.5).min() > 1e-3  # a printed .5 may round either way
+        ]
+        if bad:
+            raise AssertionError(f"(u) integer mode: frames {bad} are not host rolls by the reported shifts")
+        print(f"geometry (u) integer mode: {GEOM_FRAMES} frames byte-equal to np.roll by the reported shifts, "
+              f"{m_i['frames_per_sec']} frames/s")
+        del reg_i
+
+        # where a frame's time goes: the job's step, streamed with the
+        # host fetch of each corrected frame as the job does
+        dev_frames = [torch.from_numpy(f).cuda() for f in frames[:16]]
+
+        def stream(subpixel=True, resample=True, fetch=True):
+            anchor = torch.fft.fftn(dev_frames[0].float() * reg.hann_window(GEOM_FRAME, "cuda"))
+            cum = torch.zeros(2, device="cuda")
+            for f in dev_frames[1:]:
+                anchor, cum, corr, _, _ = reg.register_step(
+                    anchor, f, cum, subpixel=subpixel, resample=resample
+                )
+                if fetch:
+                    corr.cpu()
+                    cum.cpu()
+
+        wall, busy, ops, by_name = _profile_stream(torch, "register_step 1024x1024", stream, 15, "frame")
+        fft_ms, copy_ms, other_ms = _fft_split(by_name, 15)
+        print(f"geometry (u) a frame: {wall / 15 * 1e3:.4f} ms wall, busy {busy / (wall * 1e6):.3f}, {ops:.1f} "
+              f"device ops; device ms cuFFT {fft_ms:.4f}, copies {copy_ms:.4f}, elementwise and reductions "
+              f"{other_ms:.4f}; host idle {(wall * 1e6 - busy) / 1e3 / 15:.4f} ms on {smi_line}")
+        timings = {}
+        for label, kw in (("sub-pixel, fetch each frame", dict()),
+                          ("sub-pixel estimate only, queued", dict(resample=False, fetch=False)),
+                          ("integer estimate only, queued", dict(subpixel=False, resample=False, fetch=False)),
+                          ("integer roll (one sync)", dict(subpixel=False, fetch=False))):
+            stream(**kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream(**kw)
+            torch.cuda.synchronize()
+            timings[label] = (time.perf_counter() - t0) / 15 * 1e3
+        print("geometry (u) ms a frame: " + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+              + f"; the integer roll and its sync cost "
+              f"{timings['integer roll (one sync)'] - timings['integer estimate only, queued']:.4f}"
+              f" ms a frame on {smi_line}")
+        del dev_frames, spec
+
+        # (v) register_stack dims 3: 4 timepoints of 32x512x512
+        vbase = bandlimited_scene(GEOM_VOLUME, rng, sigma=0.12, amp=1500.0, offset=6000.0)
+        vtruth = np.vstack([[0.0] * 3, np.cumsum(rng.normal((0.3, 0.9, -0.7), 0.2, (3, 3)), 0)])
+        vspec = torch.fft.fftn(torch.from_numpy(vbase).double().cuda())
+        vdir = os.path.join(tmp, "volumes")
+        os.makedirs(vdir)
+        for t, s in enumerate(vtruth):
+            tiff.write_stack(os.path.join(vdir, f"vol_t{t:04d}.tif"),
+                             _fourier_moved(torch, vspec, s).round().clamp(0, 65535).cpu().numpy().astype(np.uint16))
+        del vspec
+        out_v, m_v, _ = serve("v_dims3", "register_stack", {"dims": 3}, [vdir])
+        err_v = _shifts_csv(np, out_v["shifts"])[0] + vtruth
+        rmse_v = float(np.sqrt(np.mean(err_v**2)))
+        print(f"geometry (v) dims 3: (dz, dy, dx) RMSE {rmse_v:.6f} px (max {np.abs(err_v).max():.6f}) over 4 "
+              f"volumes of {GEOM_VOLUME}, {m_v['volumes_per_sec']} volumes/s on {smi_line}")
+        if rmse_v > GEOM_TRUTH_PX:
+            raise AssertionError(f"(v) RMSE {rmse_v} px > {GEOM_TRUTH_PX}")
+
+        # (w) stitch_mosaic: 4x4 tiles of 1024x1024, 102 px overlap, +-2.5 px
+        # jitter, a vignette and a fade across the scan
+        r = c = 4
+        h, w = GEOM_TILE
+        step = h - GEOM_OVERLAP
+        scene = bandlimited_scene(((r - 1) * step + h + 16,) * 2, rng, amp=1500.0, offset=6000.0)
+        sspec = torch.fft.fftn(torch.from_numpy(scene).double().cuda())
+        yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+        vig = 1.0 - 0.3 * (yy**2 + xx**2)
+        fade = np.linspace(1.0, 0.7, r * c)
+        tiles, pos = [], []
+        for k in range(r * c):
+            jy, jx = rng.uniform(-GEOM_JITTER, GEOM_JITTER, 2) if k else (0.0, 0.0)
+            y0, x0 = (k // c) * step + 8 + jy, (k % c) * step + 8 + jx
+            iy, ix = int(np.floor(y0)), int(np.floor(x0))
+            cut = _fourier_moved(torch, sspec, (iy - y0, ix - x0))[iy : iy + h, ix : ix + w].cpu().numpy()
+            tiles.append((cut * vig * fade[k]).astype(np.float32))
+            pos.append((y0, x0))
+        del sspec
+        tiles = np.stack(tiles)
+        pos = np.asarray(pos)
+        grid4 = write("tiles4.tif", tiles)
+        sub = [y * c + x for y in range(3) for x in range(3)]
+        grid3 = write("tiles3.tif", tiles[sub])
+        params = {"grid": [4, 4], "overlap": GEOM_OVERLAP, "flatfield": True, "match_gains": True}
+        out_w, m_w, _ = serve("w_4x4", "stitch_mosaic", dict(params, backend="device"), [grid4])
+        got = np.loadtxt(out_w["positions"], delimiter=",", skiprows=1, ndmin=2)[:, 3:5]
+        err_w = got - (pos - pos.min(axis=0))
+        rmse_w = float(np.sqrt(np.mean(err_w**2)))
+        print(f"geometry (w) 4x4: position RMSE {rmse_w:.6f} px (max {np.abs(err_w).max():.6f}), rms_residual "
+              f"{m_w['rms_residual_px']} px, gains {m_w['gain_min']}-{m_w['gain_max']}, flatfield "
+              f"{m_w['flatfield_min']}-{m_w['flatfield_max']}")
+        if rmse_w > MOSAIC_POSITION_BAR:
+            raise AssertionError(f"(w) position RMSE {rmse_w} px > {MOSAIC_POSITION_BAR}")
+        walls = {}
+        for grid, path, g in (("4x4", grid4, [4, 4]), ("3x3", grid3, [3, 3])):
+            for rep in (1, 2):
+                for backend in ("device", "cpu"):
+                    name = f"w_{grid}_{backend}_{rep}"
+                    outs, m, wall = serve(name, "stitch_mosaic", dict(params, grid=g, backend=backend), [path])
+                    walls[(grid, backend, rep)] = (wall, m["total_s"])
+                    if rep == 2 and backend == "cpu":
+                        card = os.path.join(tmp, f"out_w_{grid}_device_2")
+                        pc = np.loadtxt(outs["positions"], delimiter=",", skiprows=1, ndmin=2)[:, 3:5]
+                        pd = np.loadtxt(os.path.join(card, "positions.csv"), delimiter=",", skiprows=1, ndmin=2)[:, 3:5]
+                        mc = tiff.read_stack(outs["mosaic"])
+                        md = tiff.read_stack(os.path.join(card, "mosaic.tif"))
+                        rel = float(np.abs(md - mc).max() / np.abs(mc).mean())
+                        print(f"geometry (w) {grid} card vs cpu backend: positions {np.abs(pd - pc).max():.6f} px, "
+                              f"mosaic {rel:.3e} of its mean")
+                        if np.abs(pd - pc).max() > GEOM_CARD_CPU_PX or rel > GEOM_ILLUM_RTOL:
+                            raise AssertionError(f"(w) {grid}: the card and cpu backends disagree")
+        for grid in ("4x4", "3x3"):
+            d, cp = walls[(grid, "device", 2)], walls[(grid, "cpu", 2)]
+            print(f"geometry (w) {grid} backend device {d[0]:.4f} s (job total_s {d[1]}), cpu {cp[0]:.4f} s "
+                  f"({cp[1]}); first runs device {walls[(grid, 'device', 1)][0]:.4f} s, cpu "
+                  f"{walls[(grid, 'cpu', 1)][0]:.4f} s; cpu/device {cp[0] / d[0]:.3f} on {smi_line}")
+        ldir = os.path.join(tmp, "lapse")
+        os.makedirs(ldir)
+        for k in range(r * c):
+            tiff.write_stack(os.path.join(ldir, f"pos_{k:02d}.tif"), np.stack([tiles[k], tiles[k] * 0.9]))
+        out_l, m_l, _ = serve("w_timelapse", "stitch_mosaic", dict(params, timelapse=True), [ldir])
+        lapse = tiff.read_stack(out_l["mosaic"])
+        if lapse.shape[0] != 2 or not np.isfinite(lapse).all():
+            raise AssertionError(f"(w) timelapse mosaic {lapse.shape}")
+        print(f"geometry (w) timelapse: 2 timepoints of {lapse.shape[1:]}, {m_l['timepoints_per_sec']} "
+              f"timepoints/s")
+        del tiles, lapse
+
+        # (x) correct_illumination: 64 frames of 1024x1024, vignette, bleach 0.03
+        big = bandlimited_scene((h + GEOM_FRAMES, w + GEOM_FRAMES), rng, amp=1500.0, offset=6000.0)
+        ill = np.stack([
+            big[k : k + h, k : k + w] * vig * np.exp(-0.03 * k) for k in range(GEOM_FRAMES)
+        ]).round().astype(np.uint16)
+        ill_path = write("illum.tif", ill)
+        for mode in ("exp", "ratio"):
+            out_x, m_x, _ = serve(f"x_{mode}", "correct_illumination", {"bleach": mode}, [ill_path])
+            out_xc, _, _ = serve(f"x_{mode}_cpu", "correct_illumination", {"bleach": mode}, [ill_path], dev="cpu")
+            a = tiff.read_stack(out_x["corrected"])
+            b = tiff.read_stack(out_xc["corrected"])
+            rel = float(np.abs(a - b).max() / np.abs(b).max())
+            same_gains = open(out_x["gains"]).read() == open(out_xc["gains"]).read()
+            stream_fps = GEOM_FRAMES / (m_x["total_s"] - m_x["estimate_s"])
+            print(f"geometry (x) {mode}: card vs CPU port max rel {rel:.3e} (bit-equal {a.tobytes() == b.tobytes()}, "
+                  f"gains.csv equal {same_gains}), {m_x['frames_per_sec']} frames/s ({stream_fps:.3f} frames/s "
+                  f"after the host estimate's {m_x['estimate_s']} s), bleach_rate_c0 "
+                  f"{m_x['bleach_rate_c0']} on {smi_line}")
+            if rel > GEOM_ILLUM_RTOL or not same_gains:
+                raise AssertionError(f"(x) {mode}: card and CPU disagree ({rel})")
+
+        # the meters, card against the port on the CPU
+        for name, px_keys, tol in (
+            ("register_fidelity", ("trajectory_rmse_px", "max_err_px"), GEOM_CARD_CPU_PX),
+            ("mosaic_fidelity", ("position_rmse_px", "max_err_px", "seam_rms_residual_px"), GEOM_CARD_CPU_PX),
+            ("illum_fidelity", ("bleach_rate_err", "drift_ratio", "shading_rmse", "rel_err_p99"), GEOM_ILLUM_METER),
+        ):
+            card = getattr(fidelity, name)(device="cuda")
+            cpu = getattr(fidelity, name)(device="cpu")
+            print(f"geometry meter {name}: card {json.dumps(card)} cpu {json.dumps(cpu)} on {smi_line}")
+            for k in px_keys:
+                if abs(card[k] - cpu[k]) > tol:
+                    raise AssertionError(f"{name}.{k}: card {card[k]} vs CPU {cpu[k]}")
+            if name == "mosaic_fidelity" and not (
+                card["position_rmse_px"] < MOSAIC_POSITION_BAR and card["seam_rms_residual_px"] < MOSAIC_POSITION_BAR
+                and card["photometric_residual_frac"] < MOSAIC_PHOTOMETRIC_BAR
+            ):
+                raise AssertionError(f"mosaic_fidelity misses the JAX tests' bars: {card}")
+    return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "evaluate", "train", "gan_train", "family_train",
+    "serve", "evaluate", "train", "gan_train", "family_train", "geometry",
 )
 
 
@@ -3080,6 +3415,7 @@ def main(argv=None) -> int:
             "train": lambda: train_phase(torch, hist, conv, smi_line),
             "gan_train": lambda: gan_train_phase(torch, hist, conv, smi_line),
             "family_train": lambda: family_train_phase(torch, hist, conv, smi_line),
+            "geometry": lambda: geometry_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -3107,6 +3443,7 @@ def main(argv=None) -> int:
     counts.update(timed("train", train_phase, hist, conv, smi_line))
     counts.update(timed("gan_train", gan_train_phase, hist, conv, smi_line))
     counts.update(timed("family_train", family_train_phase, hist, conv, smi_line))
+    counts.update(timed("geometry", geometry_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -3126,7 +3463,9 @@ def main(argv=None) -> int:
         "train_gan run none, the trained GAN's serve and evaluation one a batch of 8 frames a side; "
         "train_n2v (2D, 3D), train_flows (2D, 3D) and train_stars run none, the trained models' "
         "serves one a frame or volume, evaluate_denoise two a frame, evaluate_flows and "
-        "evaluate_stars one a frame); the conv3x3 "
+        "evaluate_stars one a frame); geom_* are the geometry phase's register_stack, "
+        "stitch_mosaic and correct_illumination jobs on the card, which run cuFFT and torch ops and "
+        "launch none of the four kernels; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

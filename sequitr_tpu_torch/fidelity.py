@@ -15,7 +15,12 @@ JAX package's fixtures, seeds, frame shapes and return keys:
 * ``flows_fidelity`` / ``stars_fidelity``: Hungarian ap50 of the device
   instances against the reference's, and against the truth;
 * ``train_fidelity``: relative loss deviation of the bf16 train step from
-  the f32 step over a few steps from one init on the same batches.
+  the f32 step over a few steps from one init on the same batches;
+* ``register_fidelity``, ``mosaic_fidelity``, ``illum_fidelity``: the
+  geometry and illumination paths against the analytic truth of a
+  band-limited synthetic scene (trajectory and position errors in px, the
+  correction's residuals). These carry no model and no reference path:
+  the port's readings on the card are held to its readings on the CPU.
 
 The one deliberate difference from the JAX module: the reference runs on
 the SAME device as the served path (IEEE f32, TF32 off: ``utils.ieee_f32``),
@@ -41,7 +46,8 @@ from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
     "miou", "ap50", "psnr_db", "seg_fidelity", "gan_fidelity", "n2v_fidelity",
-    "flows_fidelity", "stars_fidelity", "train_fidelity",
+    "flows_fidelity", "stars_fidelity", "train_fidelity", "register_fidelity",
+    "mosaic_fidelity", "illum_fidelity",
 ]
 
 
@@ -441,4 +447,164 @@ def train_fidelity(
         "loss_final_dev": _round(dev[-1], 4),
         "loss_final_ref": _round(ref[-1], 4),
         "steps": steps,
+    }
+
+
+# ---------------------------------------------------------------------------
+# geometry and illumination: errors against the synthetic truth
+# ---------------------------------------------------------------------------
+
+
+def register_fidelity(
+    n: int = 8, shape: Tuple[int, int] = (256, 256), seed: int = 555_000, device=None,
+) -> Dict[str, float]:
+    """Trajectory accuracy of the drift-registration path.
+
+    A band-limited synthetic scene drifts along a known sub-pixel
+    trajectory (~1.1 px/frame, Fourier-exact ground truth); the
+    ``register_step`` chain (previous mode, default refine) on ``device``
+    estimates it back. Reports the per-frame trajectory RMSE and worst
+    error in pixels.
+    """
+    from sequitr_tpu_torch.data.synthetic import bandlimited_scene
+    from sequitr_tpu_torch.ops import registration as reg
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(bandlimited_scene(shape, rng)).to(device)
+    steps = rng.normal(0, 0.8, (n - 1, 2))
+    truth = np.vstack([[0.0, 0.0], np.cumsum(steps, 0)])
+    anchor = torch.fft.fftn(base * reg.hann_window(shape, device))
+    cum = torch.zeros(2, dtype=torch.float32, device=device)
+    errs = []
+    for t in range(1, n):
+        moved = reg.apply_shift(base, torch.tensor(truth[t], dtype=torch.float32))
+        anchor, cum, _, _, _ = reg.register_step(anchor, moved, cum, resample=False)
+        errs.append(cum.cpu().numpy() + truth[t])  # the estimate aligns back: -truth
+    errs = np.stack(errs)
+    return {
+        "trajectory_rmse_px": _round(float(np.sqrt(np.mean(errs**2)))),
+        "max_err_px": _round(float(np.abs(errs).max())),
+        "n_frames": n,
+    }
+
+
+def mosaic_fidelity(
+    grid: Tuple[int, int] = (3, 3),
+    tile: Tuple[int, int] = (256, 256),
+    overlap: int = 48,
+    jitter: float = 2.5,
+    seed: int = 565_000,
+    device=None,
+) -> Dict[str, float]:
+    """Position accuracy of the mosaic-stitching path.
+
+    Tiles are cut from one band-limited synthetic scene at grid spacing
+    plus known sub-pixel jitter (Fourier-exact cuts), stitched with the
+    default settings on ``device``, and the recovered tile origins are
+    compared to truth; also the post-solve seam consistency
+    (``rms_residual``) and the photometric residual of flat-field + gain
+    matching on the same tiles under a known vignette and fade.
+    """
+    from sequitr_tpu_torch import mosaic as mosaic_lib
+    from sequitr_tpu_torch.data.synthetic import bandlimited_scene
+    from sequitr_tpu_torch.ops import registration as reg
+
+    device = resolve_device(device)
+    r, c = grid
+    h, w = tile
+    step_y, step_x = h - overlap, w - overlap
+    scene_shape = ((r - 1) * step_y + h + 16, (c - 1) * step_x + w + 16)
+    rng = np.random.default_rng(seed)
+    scene = torch.from_numpy(bandlimited_scene(scene_shape, rng)).to(device)
+    tiles, pos = [], []
+    for ri in range(r):
+        for ci in range(c):
+            jy = jx = 0.0
+            if (ri, ci) != (0, 0):
+                jy, jx = rng.uniform(-jitter, jitter, 2)
+            y0, x0 = ri * step_y + 8 + jy, ci * step_x + 8 + jx
+            iy, ix = int(np.floor(y0)), int(np.floor(x0))
+            shifted = reg.apply_shift(
+                scene, torch.tensor([iy - y0, ix - x0], dtype=torch.float32)
+            ).cpu().numpy()
+            tiles.append(shifted[iy : iy + h, ix : ix + w])
+            pos.append((y0, x0))
+    pos = np.asarray(pos)
+    tiles = np.stack(tiles)
+    res = mosaic_lib.stitch_grid(tiles, grid, overlap=overlap, blend=False, device=device)
+    rel = pos - pos.min(axis=0, keepdims=True)
+    err = res.positions - rel
+
+    yy = np.linspace(-1, 1, h)[:, None]
+    xx = np.linspace(-1, 1, w)[None, :]
+    vig = (1.0 - 0.35 * (yy**2 + xx**2)).astype(np.float32)
+    fade = np.linspace(1.0, 0.65, r * c).astype(np.float32)
+    damaged = tiles * vig[None] * fade[:, None, None]
+    prof = mosaic_lib.estimate_flatfield(damaged)
+    fixed = damaged / prof
+    gains = mosaic_lib.solve_tile_gains(fixed, grid, (overlap, overlap))
+    fixed = fixed * gains[:, None, None]
+    clean_m = mosaic_lib.blend_mosaic(tiles, res.positions, (overlap, overlap), device=device)
+    fixed_m = mosaic_lib.blend_mosaic(fixed, res.positions, (overlap, overlap), device=device)
+    g = fixed_m.mean() / max(clean_m.mean(), 1e-9)  # global scale free
+    resid = float(np.abs(fixed_m - g * clean_m).mean() / max(clean_m.std(), 1e-9))
+    return {
+        "position_rmse_px": _round(float(np.sqrt(np.mean(err**2)))),
+        "max_err_px": _round(float(np.abs(err).max())),
+        "seam_rms_residual_px": _round(res.rms_residual),
+        "photometric_residual_frac": _round(resid),
+        "n_tiles": r * c,
+    }
+
+
+def illum_fidelity(
+    t: int = 24, shape: Tuple[int, int] = (256, 256), rate: float = 0.03, seed: int = 777_000, device=None,
+) -> Dict[str, float]:
+    """Correction accuracy of the illumination path.
+
+    A moving band-limited scene is corrupted by a known radial vignette
+    and a known exponential photobleach; the estimate -> correct chain
+    (sampled ``fit_shading`` + ``estimate_bleach_exp`` on the host, the
+    corrector on ``device``: what ``correct_illumination`` runs) takes it
+    back. Reports the bleach-rate error, the temporal drift of the
+    corrected stack (max/min frame median), the shading-profile RMSE
+    against the true mean-1 profile, and the 99th-percentile relative
+    error against the clean scene after one global rescale.
+    """
+    from sequitr_tpu_torch.data.synthetic import bandlimited_scene
+    from sequitr_tpu_torch.ops import illumination as illum
+
+    device = resolve_device(device)
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    big = bandlimited_scene((h + t, w + t), rng, sigma=0.08, amp=50.0) + 100.0
+    yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+    vig = (1.0 - 0.35 * (yy**2 + xx**2)).astype(np.float64)
+    truth = np.stack([big[k : k + h, k : k + w] for k in range(t)])
+    stack = (truth * vig[None] * np.exp(-rate * np.arange(t))[:, None, None]).astype(np.float32)
+
+    idx = np.unique(np.linspace(0, t - 1, min(16, t)).round().astype(int))
+    prof = illum.fit_shading(stack[idx])
+    meds = np.median(stack[idx] / prof[None], axis=(1, 2))
+    gains, got_rate = illum.estimate_bleach_exp(idx, meds, t)
+    run = illum.make_corrector("exp")
+    shading_dev = torch.from_numpy(prof[..., None]).to(device)
+    gains_dev = torch.from_numpy(gains).to(device)
+    ones = torch.ones(1, dtype=torch.float32, device=device)
+    corrected = np.stack([
+        run(torch.from_numpy(stack[k][..., None]).to(device), shading_dev, gains_dev[k : k + 1], ones)[0]
+        .cpu().numpy()[..., 0]
+        for k in range(t)
+    ])
+    cmeds = np.median(corrected, axis=(1, 2))
+    scale = float(np.median(truth) / np.median(corrected))
+    rel = np.abs(corrected * scale - truth) / truth
+    want = vig / vig.mean()
+    return {
+        "bleach_rate_err": _round(abs(got_rate - rate), 6),
+        "drift_ratio": _round(float(cmeds.max() / cmeds.min())),
+        "shading_rmse": _round(float(np.sqrt(np.mean((prof - want) ** 2)))),
+        "rel_err_p99": _round(float(np.percentile(rel, 99))),
+        "n_frames": t,
     }

@@ -3,8 +3,17 @@
 Importing a module registers its pipelines with the shared registry in
 ``sequitr_tpu_torch.server.server``; ``server.py`` imports all of them at
 the bottom, so constructing an ``ImageServer`` always sees the full
-registry. Ported so far: ``segmentation`` (``segmentation_unet2d``,
-``segmentation_unet3d``), ``gan_denoise`` (``enhancement_gan``,
-``denoise``), ``training`` (``build_records``, ``train_unet2d``,
-``train_unet3d``) and ``instances`` (``segment_flows``, ``segment_stars``).
+registry. Ported so far:
+
+- ``segmentation``: ``segmentation_unet2d``, ``segmentation_unet3d``,
+  ``evaluate_unet2d``, ``evaluate_unet3d``, ``parity_check``;
+- ``gan_denoise``: ``enhancement_gan``, ``denoise``, ``evaluate_gan``,
+  ``evaluate_denoise``;
+- ``training``: ``build_records``, ``train_unet2d``, ``train_unet3d``,
+  ``build_gan_pairs``, ``train_gan``, ``train_n2v``;
+- ``instances``: ``segment_flows``, ``segment_stars``, ``evaluate_flows``,
+  ``evaluate_stars``, ``train_flows``, ``train_stars``;
+- ``geometry``: ``register_stack`` (2D and ``dims: 3``), ``stitch_mosaic``;
+- ``optics``: ``correct_illumination`` (the module's PSF, localization and
+  deconvolution jobs are a later slice).
 """

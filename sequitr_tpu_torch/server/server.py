@@ -463,6 +463,18 @@ def _require_model(job: Job, config: ServerConfiguration, expect_kind=None, unfo
 # ---------------------------------------------------------------------------
 
 
+def _reject_low_confidence(resp, min_response: float, stats: dict) -> bool:
+    """The registration confidence gate, shared by the 2D and volumetric
+    estimators so the hold policy cannot drift apart: True = reject this
+    estimate (counted in ``stats``) — the caller yields the held
+    trajectory and skips the anchor update. Reading a device response
+    waits for it."""
+    if min_response and float(resp) < min_response:
+        stats["n"] += 1
+        return True
+    return False
+
+
 def _expand_inputs_entry(path: str):
     """Ordered file list for one input entry (dir/glob expansion) — [path]
     for a plain file; never raises (callers decide what emptiness means)."""
@@ -948,7 +960,9 @@ def unet_config_from_params(p: dict):
 
 from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
     gan_denoise as _pipelines_gan_denoise,
+    geometry as _pipelines_geometry,
     instances as _pipelines_instances,
+    optics as _pipelines_optics,
     segmentation as _pipelines_segmentation,
     training as _pipelines_training,
 )

@@ -104,3 +104,37 @@ def test_train_fidelity_unet3d_and_polyphase(polyphase):
     r = fidelity.train_fidelity(kind, steps=2, batch=2, size=32, polyphase=polyphase, device="cpu")
     assert set(r) == {"loss_rel_dev_max", "loss_final_dev", "loss_final_ref", "steps"}
     assert r["loss_rel_dev_max"] <= 1e-3 and r["loss_final_ref"] > 0
+
+
+# the geometry meters carry no model: keys equal, the pixel errors within
+# 1e-4 plus the 4-decimal rounding (shifts agree to 1e-5 px,
+# test_torch_registration.py), the photometric and illumination numbers to
+# the rounding of their last digit (the corrector is bit-equal)
+GEOMETRY = {
+    "register": ("register_fidelity", {"n": 4, "shape": (64, 64)}),
+    "register_default_shape": ("register_fidelity", {"n": 3}),
+    "mosaic": ("mosaic_fidelity", {"grid": (2, 2), "tile": (96, 96), "overlap": 24}),
+    "illum": ("illum_fidelity", {"t": 8, "shape": (64, 64)}),
+}
+GEOMETRY_TOL = {
+    "trajectory_rmse_px": 2e-4, "max_err_px": 2e-4, "position_rmse_px": 2e-4,
+    "seam_rms_residual_px": 2e-4, "photometric_residual_frac": 2e-4,
+    "bleach_rate_err": 1e-6, "drift_ratio": 1e-4, "shading_rmse": 1e-4, "rel_err_p99": 1e-4,
+}
+
+
+@pytest.mark.parametrize("meter", sorted(GEOMETRY))
+def test_geometry_meter_matches_the_jax_meter(meter):
+    name, kwargs = GEOMETRY[meter]
+    want = getattr(jax_fidelity, name)(**kwargs)
+    got = getattr(fidelity, name)(**kwargs, device="cpu")
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for k, v in want.items():
+        if isinstance(v, float):
+            assert abs(got[k] - v) <= GEOMETRY_TOL[k], (k, got[k], v)
+        else:
+            assert got[k] == v, (k, got[k], v)
+    if meter == "mosaic":
+        # the JAX tests' bars (tests/test_fidelity.py)
+        assert got["position_rmse_px"] < 0.05 and got["seam_rms_residual_px"] < 0.05
+        assert got["photometric_residual_frac"] < 0.08

@@ -18,6 +18,7 @@ MODULES = [
     "sequitr_tpu_torch.utils",
     "sequitr_tpu_torch.native",
     "sequitr_tpu_torch.localize",
+    "sequitr_tpu_torch.mosaic",
     "sequitr_tpu_torch.data",
     "sequitr_tpu_torch.data.tiff",
     "sequitr_tpu_torch.data.source",
@@ -41,6 +42,8 @@ MODULES = [
     "sequitr_tpu_torch.ops.weightmaps",
     "sequitr_tpu_torch.ops.flows",
     "sequitr_tpu_torch.ops.stardist",
+    "sequitr_tpu_torch.ops.registration",
+    "sequitr_tpu_torch.ops.illumination",
     "sequitr_tpu_torch.ops.kernels",
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
@@ -55,6 +58,8 @@ MODULES = [
     "sequitr_tpu_torch.server.server",
     "sequitr_tpu_torch.server.pipelines",
     "sequitr_tpu_torch.server.pipelines.gan_denoise",
+    "sequitr_tpu_torch.server.pipelines.geometry",
+    "sequitr_tpu_torch.server.pipelines.optics",
     "sequitr_tpu_torch.server.pipelines.instances",
     "sequitr_tpu_torch.server.pipelines.segmentation",
     "sequitr_tpu_torch.server.pipelines.training",
@@ -84,13 +89,14 @@ from sequitr_tpu_torch.server.server import REGISTRY
 for job in (
     "evaluate_unet2d", "evaluate_unet3d", "parity_check", "evaluate_gan",
     "evaluate_denoise", "evaluate_flows", "evaluate_stars", "build_gan_pairs",
-    "train_gan", "train_n2v", "train_flows", "train_stars",
+    "train_gan", "train_n2v", "train_flows", "train_stars", "register_stack",
+    "stitch_mosaic", "correct_illumination",
 ):
     assert job in REGISTRY.names(), job
 
 import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
-from sequitr_tpu_torch import fidelity, utils
+from sequitr_tpu_torch import fidelity, mosaic, utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
@@ -140,6 +146,11 @@ calls = [
     lambda: fidelity.flows_fidelity(frame_shape=(64, 64), n=1),
     lambda: fidelity.stars_fidelity(frame_shape=(64, 64), n=1),
     lambda: fidelity.train_fidelity("gan", steps=1, batch=1, size=32),
+    lambda: fidelity.register_fidelity(n=2, shape=(32, 32)),
+    lambda: fidelity.mosaic_fidelity(grid=(1, 2), tile=(32, 32), overlap=8),
+    lambda: fidelity.illum_fidelity(t=2, shape=(16, 16)),
+    lambda: mosaic.stitch_grid(torch.zeros(2, 16, 16).numpy(), (1, 2), overlap=4),
+    lambda: mosaic.blend_mosaic(torch.zeros(1, 16, 16).numpy(), [[0.5, 0.0]], (4, 4)),
 ]
 for call in calls:
     try:
@@ -157,6 +168,7 @@ train.create_unet_state(cfg, train.TrainConfig(), device="cpu")
 train.create_gan_state(gcfg, train.TrainConfig(), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
 zoo.create("stars_cells", device="cpu")
+mosaic.stitch_grid(torch.rand(2, 16, 16).numpy(), (1, 2), overlap=4, device="cpu")
 # the N2V masking's draw and apply, and the flips, run where their tensors lie
 img = torch.zeros(2, 16, 16, 1)
 draws = train.n2v_draw_mask(None, img.shape, 8, (5, 5), "median")
