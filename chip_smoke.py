@@ -143,6 +143,28 @@ on failure:
    directly the job's way; quantile passes 0 in every train job, 4 in
    each 4-frame serve and in evaluate_flows / evaluate_stars, 8 in
    evaluate_denoise, 2 in each 2-volume serve.
+16. geometry phase: ``register_stack`` (2D, first mode with
+   ``frame_batch``, integer mode, ``dims: 3``), ``stitch_mosaic`` (device
+   and cpu backends, a timelapse) and ``correct_illumination`` (exp,
+   ratio) through ``ImageServer``, held to the known truth, to the port on
+   the CPU and to each other; the geometry meters on the card and the CPU;
+17. optics phase: (y) ``localize_emitters`` on 256 uint16 frames of
+   512x512 (120 emitters a frame), the first 8 frames' rows held to the
+   port on the CPU (count, order, positions), frame 0's raw fits card
+   against CPU within 1e-4 px, ``emitter_fidelity`` at the JAX tests'
+   bars, where a localized frame's time goes and no sync before its one
+   fetch; (z) ``dims: 3`` on 4 volumes of 16x512x512, volume 0 card against
+   CPU, ``emitter3d_fidelity``; (aa) ``calibrate_astigmatism`` on a
+   17-plane bead scan -> ``localize_emitters`` with ``astigmatism`` (its
+   output directory, by ``depends_on``) on 64 frames of 512x512, the
+   coefficients card against CPU within 1e-5 relative and z within 1e-3 of
+   the range, ``astig_fidelity``; (bb) ``deconvolve`` on 64 frames of
+   1024x1024 (20 iterations), ``dims: 3`` on a 32x512x512 volume and a
+   2-timepoint timelapse, card against CPU within 5e-6 of the largest
+   value, an RL frame's device ms and its cuFFT share; then the exact
+   normalize's repair: a slice past 2^24 values on the card, lo/hi card =
+   CPU, ``seg_fidelity``'s reference side on a 65x512x512 volume. Every job
+   launches none of the four kernels.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -153,7 +175,7 @@ outside a checkout of the repository.
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
-``family_train``)
+``family_train``, ``geometry``, ``optics``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -3343,13 +3365,346 @@ def geometry_phase(torch, hist, conv, smi_line):
     return counts
 
 
+OPTICS_FRAME = (512, 512)  # bench.py::bench_emitters / bench_astig
+OPTICS_FRAMES = 256  # (y)
+OPTICS_EMITTERS = 120  # bench_emitters' and bench_emitters3d's 120 a frame / volume
+OPTICS_VOLUME = (16, 512, 512)  # (z): bench_emitters3d
+OPTICS_VOLUMES = 4
+OPTICS_ASTIG_FRAMES = 64  # (aa): 80 emitters a frame, bench_astig's
+OPTICS_DECON_FRAME = (1024, 1024)  # (bb): the serving phases' frame
+OPTICS_DECON_FRAMES = 64
+OPTICS_DECON_VOLUME = VOLUME  # (bb) dims 3: the 3D serving shape
+OPTICS_SEED = 444_100
+OPTICS_CARD_CPU_PX = 1e-4  # positions and widths, card against the port on the CPU (raw fits)
+OPTICS_CSV_UNIT = 1e-4  # emitters.csv's %.4f: a raw gap of 1e-6 can move the last digit
+OPTICS_Z_FRAC = 1e-3  # astigmatic z, card against CPU, as a share of the calibrated range
+OPTICS_CALIB_RTOL = 1e-5  # calibration coefficients, card against CPU
+OPTICS_RL_REL = 5e-6  # deconvolved frames and volumes, card against CPU, relative to the largest value (H100: 2.1e-6 frame, 2.7e-6 volume)
+OPTICS_SEG3D = (65, 512, 512)  # seg_fidelity's reference side: 17,039,360 voxels > 2^24
+
+
+def _emitters_csv(np, path):
+    """emitters.csv -> (header, rows array)."""
+    with open(path) as f:
+        lines = f.read().strip().split("\n")
+    ncol = lines[0].count(",") + 1
+    return lines[0], np.asarray([[float(v) for v in r.split(",")] for r in lines[1:]]).reshape(-1, ncol)
+
+
+def _same_rows(np, what, card, cpu, z_col=None, z_tol=None):
+    """Card rows against CPU rows: the same count, frames and order; values
+    within the raw bar plus one CSV unit (z, where given, at its own bar).
+    Returns the largest gap of the position columns."""
+    if card.shape != cpu.shape or not np.array_equal(card[:, 0], cpu[:, 0]):
+        raise AssertionError(f"{what}: card rows {card.shape} and CPU rows {cpu.shape} differ in count or frames")
+    gap = np.abs(card - cpu)
+    cols = [c for c in range(1, card.shape[1]) if c != z_col]
+    amp_tol = 1e-5 * np.abs(cpu) + OPTICS_CARD_CPU_PX + OPTICS_CSV_UNIT
+    if (gap[:, cols] > amp_tol[:, cols]).any():
+        raise AssertionError(f"{what}: card and CPU rows differ by up to {gap[:, cols].max()}")
+    if z_col is not None and gap[:, z_col].max() > z_tol:
+        raise AssertionError(f"{what}: z differs by {gap[:, z_col].max()} > {z_tol}")
+    return float(gap[:, 1:].max())
+
+
+def optics_phase(torch, hist, conv, smi_line):
+    """localize_emitters (2D, dims 3, astigmatic after calibrate_astigmatism)
+    and deconvolve (2D, dims 3, a volume timelapse) through ImageServer on
+    the card, held to the port on the CPU and to the emitter meters' bars;
+    the exact normalize's repair (a slice past 2^24 values, lo/hi card
+    against CPU, seg_fidelity's reference side past 2^24 voxels); where a
+    localized and a deconvolved frame's time goes. Returns {job:
+    (histogram_2d launches, quantile passes)}: 0 for every job (no kernel
+    of the four lies on these paths)."""
+    import numpy as np
+
+    from sequitr_tpu_torch import fidelity, psf
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.ops import normalize as norm_ops
+    from sequitr_tpu_torch.pipeline import infer
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        servers = {
+            dev: ImageServer(ServerConfiguration(
+                jobs_dir=os.path.join(tmp, f"jobs_{dev}"), models_dir=os.path.join(tmp, "models"), device=dev,
+            ))
+            for dev in ("cuda", "cpu")
+        }
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        def serve(name, module, params, inputs, dev="cuda", depends_on=None):
+            """One job (``depends_on``: the output directory of a job served
+            before, which it names as its dependency); returns (outputs,
+            metrics, wall s). Card jobs run with every kernel's launch
+            count reset just before and read just after."""
+            out = os.path.join(tmp, f"out_{dev}_{name}")
+            spec = {"module": module, "params": params, "input": inputs, "output": out}
+            if depends_on:
+                spec["depends_on"] = [depends_on]
+            submit_job(servers[dev].config.jobs_dir, spec)
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not servers[dev].poll_once():
+                raise AssertionError(f"optics job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = (hist.histogram_2d.launches, hist.quantile_pass.launches,
+                        conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches)
+            with open(os.path.join(out, "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"optics job {name}: {status.get('error')}")
+            if dev == "cuda":
+                if any(launched):
+                    raise AssertionError(f"optics job {name} launched a kernel of the four: {launched}")
+                counts[f"optics_{name}"] = launched[:2]
+            metrics = json.loads(status["outputs"].get("metrics", "{}"))
+            shown = {k: v for k, v in status["outputs"].items() if k.startswith("n_")}
+            print(f"optics job {name} ({dev}) {module} {json.dumps(params)[:160]}: wall {wall:.4f} s, "
+                  f"{json.dumps(shown)} metrics {json.dumps(metrics)} on {smi_line}")
+            return status["outputs"], metrics, wall
+
+        def as_u16(a):
+            return np.clip(np.round(a), 0, 65535).astype(np.uint16)
+
+        # (y) localize_emitters 2D: 256 uint16 frames of 512x512, 120
+        # emitters a frame, max_peaks 256, threshold_sigmas 5 (the default)
+        frames = np.stack([
+            as_u16(synthetic.emitter_frame(OPTICS_SEED + t, OPTICS_FRAME, n=OPTICS_EMITTERS)[0])
+            for t in range(OPTICS_FRAMES)
+        ])
+        em_path = write("emitters.tif", frames)
+        loc_params = {"max_peaks": 256}
+        # warm-up: the first use of each op on the card would land in (y)'s frames/s
+        serve("y_warmup", "localize_emitters", dict(loc_params, frame_range=[0, 8]), [em_path])
+        out_y, _, wall_y = serve("y_2d", "localize_emitters", loc_params, [em_path])
+        out_yc, _, _ = serve("y_2d_cpu", "localize_emitters", dict(loc_params, frame_range=[0, 8]), [em_path], "cpu")
+        hdr, rows_y = _emitters_csv(np, out_y["emitters"])
+        _, rows_yc = _emitters_csv(np, out_yc["emitters"])
+        gap = _same_rows(np, "(y)", rows_y[rows_y[:, 0] < 8], rows_yc)
+        thr0 = float(np.median(frames[0].astype(np.float32)))
+        got = psf.localize_emitters(torch.from_numpy(frames[0]).cuda(), 120.0)
+        want = psf.localize_emitters(frames[0], 120.0, device="cpu")
+        raw = max(float(np.abs(got[k] - want[k]).max()) for k in ("y", "x"))
+        if raw > OPTICS_CARD_CPU_PX or len(got["y"]) != len(want["y"]):
+            raise AssertionError(f"(y) raw fits: card and CPU positions differ by {raw} px")
+        fps_y = OPTICS_FRAMES / wall_y
+        print(f"optics (y) {hdr}: {len(rows_y)} rows over {OPTICS_FRAMES} frames of {OPTICS_FRAME} "
+              f"({len(rows_y) / OPTICS_FRAMES:.2f} a frame, frame 0 median {thr0}); card vs CPU port on the first "
+              f"8 frames: rows equal in count and order, largest CSV gap {gap:.6f}, raw positions {raw:.3e} px; "
+              f"{fps_y:.3f} frames/s (job wall) on {smi_line}")
+        em = fidelity.emitter_fidelity(device="cuda")
+        print(f"optics meter emitter_fidelity (card): {json.dumps(em)} on {smi_line}")
+        if not (em["rmse_px"] < 0.05 and em["recall"] > 0.9 and em["precision"] > 0.9):
+            raise AssertionError(f"emitter_fidelity misses the JAX tests' bars: {em}")
+
+        # where a localized frame's time goes: detect + fit + the one fetch,
+        # and the host threshold the job takes a frame
+        dev_frames = [torch.from_numpy(f).cuda() for f in frames[:16]]
+
+        def localize_stream():
+            for f in dev_frames:
+                _, valid, fits = psf._detect_and_fit(f, 40.0, max_peaks=256, min_distance=2, window=7, sigma=1.5)
+                psf.fetch_valid(valid, fits)
+
+        wall, busy, ops, by_name = _profile_stream(torch, "localize 512x512", localize_stream, 16, "frame")
+        t0 = time.perf_counter()
+        for f in frames[:16]:
+            infer_thr = float(np.median(f.astype(np.float32)))
+            np.median(np.abs(f.astype(np.float32) - infer_thr))
+        host_thr_ms = (time.perf_counter() - t0) / 16 * 1e3
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # no hidden sync before the one fetch
+            _, valid, fits = psf._detect_and_fit(dev_frames[0], 40.0, max_peaks=256, min_distance=2, window=7, sigma=1.5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        psf.fetch_valid(valid, fits)
+        print(f"optics (y) a frame: {wall / 16 * 1e3:.4f} ms wall with its fetch, busy {busy / (wall * 1e6):.3f}, "
+              f"{ops:.1f} device ops, device {sum(by_name.values()) / 1e3 / 16:.4f} ms; the host threshold (two "
+              f"np.median) {host_thr_ms:.4f} ms a frame; no sync before the fetch on {smi_line}")
+        del dev_frames, frames
+
+        # (z) dims 3: 4 volumes of 16x512x512, 120 emitters each
+        vdir = os.path.join(tmp, "em_volumes")
+        os.makedirs(vdir)
+        for t in range(OPTICS_VOLUMES):
+            vol, _ = synthetic.emitter_volume(OPTICS_SEED + 100 + t, OPTICS_VOLUME, n=OPTICS_EMITTERS)
+            tiff.write_stack(os.path.join(vdir, f"vol_t{t:04d}.tif"), as_u16(vol))
+        p3 = {"dims": 3, "max_peaks": 256, "sigma": 1.4, "sigma_z": 1.6}
+        serve("z_warmup", "localize_emitters", dict(p3, frame_range=[0, 1]), [vdir])
+        out_z, _, wall_z = serve("z_dims3", "localize_emitters", p3, [vdir])
+        out_zc, _, _ = serve("z_dims3_cpu", "localize_emitters", dict(p3, frame_range=[0, 1]), [vdir], "cpu")
+        _, rows_z = _emitters_csv(np, out_z["emitters"])
+        _, rows_zc = _emitters_csv(np, out_zc["emitters"])
+        gap = _same_rows(np, "(z)", rows_z[rows_z[:, 0] < 1], rows_zc)
+        print(f"optics (z) dims 3: {len(rows_z)} rows over {OPTICS_VOLUMES} volumes of {OPTICS_VOLUME}; card vs CPU "
+              f"port on volume 0: rows equal, largest CSV gap {gap:.6f}; {OPTICS_VOLUMES / wall_z:.3f} volumes/s "
+              f"(job wall) on {smi_line}")
+        em3 = fidelity.emitter3d_fidelity(device="cuda")
+        print(f"optics meter emitter3d_fidelity (card): {json.dumps(em3)} on {smi_line}")
+        if not (em3["lateral_rmse_px"] < 0.05 and em3["axial_rmse_px"] < 0.15
+                and em3["recall"] > 0.9 and em3["precision"] > 0.9):
+            raise AssertionError(f"emitter3d_fidelity misses the JAX tests' bars: {em3}")
+
+        # (aa) calibrate_astigmatism (17-plane bead scan) -> localize_emitters
+        # with astigmatism (64 frames of 512x512, 80 emitters a frame)
+        zs = np.linspace(*synthetic.ASTIG_Z_RANGE, 17)
+        gy, gx = np.mgrid[:32, :32].astype(np.float64)
+        rng = np.random.default_rng(OPTICS_SEED + 200)
+        scan = []
+        for z in zs:
+            sy, sx = synthetic.astig_widths(z)
+            scan.append(20.0 + 2000.0 / (2 * np.pi * sx * sy)
+                        * np.exp(-((gy - 15.7) ** 2) / (2 * sy**2) - ((gx - 16.2) ** 2) / (2 * sx**2))
+                        + rng.normal(0, 0.3, (32, 32)))
+        beads = write("beads.tif", np.asarray(scan, np.float32))
+        astig = np.stack([
+            synthetic.astig_emitter_frame(OPTICS_SEED + 300 + t, OPTICS_FRAME, n=80)[0]
+            for t in range(OPTICS_ASTIG_FRAMES)
+        ]).astype(np.float32)
+        astig_path = write("astig.tif", astig)
+        cal_params = {"z_start": float(zs[0]), "z_step": float(zs[1] - zs[0])}
+        calibs = {}
+        for dev in ("cuda", "cpu"):
+            sfx = "_cpu" if dev == "cpu" else ""
+            out_cal, met, _ = serve(f"aa_calibrate{sfx}", "calibrate_astigmatism", cal_params, [beads], dev)
+            lp = {"astigmatism": os.path.dirname(out_cal["calibration"]), "threshold": 25.0, "max_peaks": 256}
+            if dev == "cpu":
+                lp["frame_range"] = [0, 4]
+            # chained as a workflow chains them: the calibration job's
+            # output directory, named in depends_on and in astigmatism
+            out_a, _, wall_a = serve(f"aa_localize{sfx}", "localize_emitters", lp, [astig_path], dev,
+                                     depends_on=lp["astigmatism"])
+            with open(out_cal["calibration"]) as f:
+                calibs[dev] = (json.load(f), met, out_a, wall_a)
+        (cal_d, met_d, out_a, wall_a), (cal_c, met_c, out_ac, _) = calibs["cuda"], calibs["cpu"]
+        coef_gap = max(
+            abs(a - b) / max(abs(b), 1e-30) for k in ("qx", "qy") for a, b in zip(cal_d[k], cal_c[k])
+        )
+        span = synthetic.ASTIG_Z_RANGE[1] - synthetic.ASTIG_Z_RANGE[0]
+        _, rows_a = _emitters_csv(np, out_a["emitters"])
+        _, rows_ac = _emitters_csv(np, out_ac["emitters"])
+        gap = _same_rows(np, "(aa)", rows_a[rows_a[:, 0] < 4], rows_ac, z_col=1, z_tol=OPTICS_Z_FRAC * span)
+        z_gap = float(np.abs(rows_a[rows_a[:, 0] < 4][:, 1] - rows_ac[:, 1]).max())
+        print(f"optics (aa) calibration card {json.dumps(cal_d)} metrics {json.dumps(met_d)}; CPU metrics "
+              f"{json.dumps(met_c)}; coefficients card vs CPU {coef_gap:.3e} relative; localize: {len(rows_a)} rows "
+              f"over {OPTICS_ASTIG_FRAMES} frames, card vs CPU on 4 frames: z {z_gap:.6f} "
+              f"({z_gap / span:.3e} of the range), other columns {gap:.6f}; "
+              f"{OPTICS_ASTIG_FRAMES / wall_a:.3f} frames/s (job wall, after its calibration job) on {smi_line}")
+        if coef_gap > OPTICS_CALIB_RTOL:
+            raise AssertionError(f"(aa) calibration coefficients differ by {coef_gap} relative")
+        ast = fidelity.astig_fidelity(device="cuda")
+        print(f"optics meter astig_fidelity (card): {json.dumps(ast)} on {smi_line}")
+        if not (ast["lateral_rmse_px"] < 0.05 and ast["axial_rmse_frac"] < 0.015
+                and ast["recall"] > 0.9 and ast["precision"] > 0.9):
+            raise AssertionError(f"astig_fidelity misses the JAX tests' bars: {ast}")
+        del astig
+
+        # (bb) deconvolve: 64 frames of 1024x1024 at 20 iterations; dims 3
+        # on one 32x512x512 volume; a 2-timepoint volume timelapse (z: 32)
+        h, w = OPTICS_DECON_FRAME
+        big = synthetic.bandlimited_scene((h + OPTICS_DECON_FRAMES, w + OPTICS_DECON_FRAMES), rng,
+                                          amp=1500.0, offset=6000.0)
+        dframes = np.stack([as_u16(big[k:k + h, k:k + w]) for k in range(OPTICS_DECON_FRAMES)])
+        dc_path = write("decon.tif", dframes)
+        serve("bb_warmup", "deconvolve", {"frame_range": [0, 4]}, [dc_path])
+        out_b, m_b, wall_b = serve("bb_2d", "deconvolve", {}, [dc_path])
+        out_bc, _, _ = serve("bb_2d_cpu", "deconvolve", {"frame_range": [0, 1]}, [dc_path], "cpu")
+        a = tiff.read_stack(out_b["deconvolved"]).reshape((-1,) + OPTICS_DECON_FRAME)[0]
+        b = tiff.read_stack(out_bc["deconvolved"]).reshape((-1,) + OPTICS_DECON_FRAME)[0]  # one page: (H, W)
+        rel_b = float(np.abs(a - b).max() / np.abs(b).max())
+        print(f"optics (bb) deconvolve 2D: {OPTICS_DECON_FRAMES} frames of {OPTICS_DECON_FRAME}, 20 iterations: "
+              f"{m_b['frames_per_sec']} frames/s (job), {OPTICS_DECON_FRAMES / wall_b:.3f} frames/s (wall); frame 0 "
+              f"card vs CPU port {rel_b:.3e} of its largest value on {smi_line}")
+        if rel_b > OPTICS_RL_REL:
+            raise AssertionError(f"(bb) 2D: card and CPU differ by {rel_b} relative")
+        vol = as_u16(synthetic.bandlimited_scene(OPTICS_DECON_VOLUME, rng, sigma=0.12, amp=1500.0, offset=6000.0))
+        vol_path = write("decon_volume.tif", vol)
+        out_v, m_v, wall_v = serve("bb_dims3", "deconvolve", {"dims": 3}, [vol_path])
+        got_v = tiff.read_stack(out_v["deconvolved"])
+        t0 = time.perf_counter()
+        want_v = psf.richardson_lucy(
+            torch.from_numpy(vol), psf.gaussian_psf_3d(9, 5, 1.5, 3.0, device="cpu"), 20
+        ).numpy()
+        cpu_s = time.perf_counter() - t0
+        rel_v = float(np.abs(got_v - want_v).max() / np.abs(want_v).max())
+        lapse_path = write("decon_lapse.tif", np.concatenate([vol, vol[::-1]]))
+        out_l, m_l, _ = serve("bb_timelapse", "deconvolve", {"dims": 3, "z": OPTICS_DECON_VOLUME[0]}, [lapse_path])
+        lapse0 = tiff.read_stack(os.path.join(out_l["deconvolved"], "deconvolved_t0000.tif"))
+        same = bool(np.array_equal(lapse0, got_v))
+        print(f"optics (bb) dims 3 on {OPTICS_DECON_VOLUME}: job wall {wall_v:.4f} s (metrics {json.dumps(m_v)}), "
+              f"card vs CPU port {rel_v:.3e} of its largest value (the CPU's Richardson-Lucy {cpu_s:.2f} s); "
+              f"timelapse (z: {OPTICS_DECON_VOLUME[0]}) {m_l['volumes_per_sec']} volumes/s, timepoint 0 equal to "
+              f"the volume job {same} on {smi_line}")
+        if rel_v > OPTICS_RL_REL or not same:
+            raise AssertionError(f"(bb) dims 3: card vs CPU {rel_v}, timelapse equal {same}")
+        del want_v, got_v, lapse0
+
+        # where a Richardson-Lucy frame's time goes (20 iterations, fetched)
+        kernel = psf.gaussian_psf_2d(9, 1.5, device="cuda")
+        dev_frames = [torch.from_numpy(f).cuda() for f in dframes[:8]]
+
+        def rl_stream():
+            for f in dev_frames:
+                infer._copy_to_host_async(psf.richardson_lucy_frame(f, kernel, 20))
+            torch.cuda.synchronize()
+
+        wall, busy, ops, by_name = _profile_stream(torch, "Richardson-Lucy 1024x1024 x20", rl_stream, 8, "frame")
+        fft_ms, copy_ms, other_ms = _fft_split(by_name, 8)
+        dev_ms = fft_ms + copy_ms + other_ms
+        print(f"optics (bb) an RL frame: {wall / 8 * 1e3:.4f} ms wall, device {dev_ms:.4f} ms (cuFFT {fft_ms:.4f}, "
+              f"{fft_ms / dev_ms:.3f} of it; copies {copy_ms:.4f}; elementwise {other_ms:.4f}), busy "
+              f"{busy / (wall * 1e6):.3f}, {ops:.1f} device ops on {smi_line}")
+        del dev_frames, dframes
+
+        # the repair: the exact normalize past 2^24 values, and card = CPU
+        n = 64 * 512 * 512 + 1
+        gen = torch.Generator().manual_seed(OPTICS_SEED)
+        x = (torch.empty(n, 2).exponential_(generator=gen).sum(-1) * 60.0).to(torch.float32)
+        lohi_c = norm_ops.percentile_linear(x.reshape(-1, 1), (5.0, 99.5))
+        xd = x.cuda()
+        lohi_d = norm_ops.percentile_linear(xd.reshape(-1, 1), (5.0, 99.5))
+        out_d = norm_ops.percentile_normalize(xd)
+        ms = _median_ms(lambda: norm_ops.percentile_normalize(xd), 10)
+        equal_big = torch.equal(lohi_d.cpu(), lohi_c)
+        equal_out = torch.equal(out_d.cpu(), norm_ops.percentile_normalize(x))
+        img, _ = synthetic.cells_frame(424_000, (1024, 1024))
+        fr = torch.from_numpy(as_u16(img)).float().reshape(-1, 1)
+        equal_frame = torch.equal(norm_ops.percentile_linear(fr.cuda(), (5.0, 99.5)).cpu(),
+                                  norm_ops.percentile_linear(fr, (5.0, 99.5)))
+        print(f"optics repair: exact normalize of {n} values (2^24 + ...) on the card: lo/hi {lohi_d.flatten().tolist()} "
+              f"equal to the CPU's {equal_big}, normalized equal {equal_out}, {ms:.4f} ms; serve frame lo/hi card = "
+              f"CPU {equal_frame} on {smi_line}")
+        if not (equal_big and equal_out and equal_frame):
+            raise AssertionError("the exact normalize differs between the card and the CPU")
+        del x, xd, out_d
+        tc3 = infer.TileConfig(patch=(32, 256, 256), overlap=(8, 32, 32))
+        seg = fidelity.seg_fidelity("unet3d_cells", OPTICS_SEG3D, tc=tc3, n=1, device="cuda")
+        print(f"optics repair: seg_fidelity unet3d_cells on {OPTICS_SEG3D} ({int(np.prod(OPTICS_SEG3D))} voxels, "
+              f"the reference side's exact normalize past 2^24): {json.dumps(seg)} on {smi_line}")
+        if not seg["miou_vs_ref"] >= 0.99:
+            raise AssertionError(f"seg_fidelity past 2^24 voxels: {seg}")
+    return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "evaluate", "train", "gan_train", "family_train", "geometry",
+    "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics",
 )
 
 
@@ -3416,6 +3771,7 @@ def main(argv=None) -> int:
             "gan_train": lambda: gan_train_phase(torch, hist, conv, smi_line),
             "family_train": lambda: family_train_phase(torch, hist, conv, smi_line),
             "geometry": lambda: geometry_phase(torch, hist, conv, smi_line),
+            "optics": lambda: optics_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -3444,6 +3800,7 @@ def main(argv=None) -> int:
     counts.update(timed("gan_train", gan_train_phase, hist, conv, smi_line))
     counts.update(timed("family_train", family_train_phase, hist, conv, smi_line))
     counts.update(timed("geometry", geometry_phase, hist, conv, smi_line))
+    counts.update(timed("optics", optics_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -3465,7 +3822,9 @@ def main(argv=None) -> int:
         "serves one a frame or volume, evaluate_denoise two a frame, evaluate_flows and "
         "evaluate_stars one a frame); geom_* are the geometry phase's register_stack, "
         "stitch_mosaic and correct_illumination jobs on the card, which run cuFFT and torch ops and "
-        "launch none of the four kernels; the conv3x3 "
+        "launch none of the four kernels; optics_* are the optics phase's localize_emitters (2D, dims 3, "
+        "astigmatic), calibrate_astigmatism and deconvolve jobs, which run pools, sorts, gathers, cuFFT and "
+        "torch ops and launch none of the four kernels; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

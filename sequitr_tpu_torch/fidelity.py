@@ -19,8 +19,13 @@ JAX package's fixtures, seeds, frame shapes and return keys:
 * ``register_fidelity``, ``mosaic_fidelity``, ``illum_fidelity``: the
   geometry and illumination paths against the analytic truth of a
   band-limited synthetic scene (trajectory and position errors in px, the
-  correction's residuals). These carry no model and no reference path:
-  the port's readings on the card are held to its readings on the CPU.
+  correction's residuals);
+* ``emitter_fidelity``, ``emitter3d_fidelity``, ``astig_fidelity``: the
+  localization paths (2D, volumetric, astigmatic) against the known
+  emitter positions of synthetic frames and volumes (RMSE in px or as a
+  share of the z range, recall, precision). The geometry and emitter
+  meters carry no model and no reference path: the port's readings on
+  the card are held to its readings on the CPU.
 
 The one deliberate difference from the JAX module: the reference runs on
 the SAME device as the served path (IEEE f32, TF32 off: ``utils.ieee_f32``),
@@ -47,7 +52,7 @@ from sequitr_tpu_torch.utils import resolve_device
 __all__ = [
     "miou", "ap50", "psnr_db", "seg_fidelity", "gan_fidelity", "n2v_fidelity",
     "flows_fidelity", "stars_fidelity", "train_fidelity", "register_fidelity",
-    "mosaic_fidelity", "illum_fidelity",
+    "mosaic_fidelity", "illum_fidelity", "emitter_fidelity", "emitter3d_fidelity", "astig_fidelity",
 ]
 
 
@@ -607,4 +612,121 @@ def illum_fidelity(
         "shading_rmse": _round(float(np.sqrt(np.mean((prof - want) ** 2)))),
         "rel_err_p99": _round(float(np.percentile(rel, 99))),
         "n_frames": t,
+    }
+
+
+# ---------------------------------------------------------------------------
+# emitter localization: centroid RMSE against the truth
+# ---------------------------------------------------------------------------
+
+
+def _greedy_match(found: np.ndarray, truth, dist2, radius: float):
+    """Greedy nearest-first matching (the JAX meters'): each truth row in
+    turn takes the nearest unused detection within ``radius``. Returns the
+    (detection index, truth row) pairs."""
+    pairs = []
+    unused = list(range(len(found)))
+    for t in truth:
+        if not unused:
+            break
+        d2 = [dist2(found[j], t) for j in unused]
+        jbest = int(np.argmin(d2))
+        if d2[jbest] <= radius**2:
+            pairs.append((unused.pop(jbest), t))
+    return pairs
+
+
+def emitter_fidelity(
+    n: int = 6, shape: Tuple[int, int] = (256, 256), n_emitters: int = 40, seed0: int = 444_000, device=None,
+) -> Dict[str, float]:
+    """Sub-pixel accuracy of the 2D detect+fit path on ``device``.
+
+    Synthetic frames carry known continuous (y, x) positions; detections
+    within 1.5 px of a truth position (greedy nearest-first) count as
+    hits. RMSE is over matched pairs.
+    """
+    from sequitr_tpu_torch import psf
+    from sequitr_tpu_torch.data import synthetic
+
+    device = resolve_device(device)
+    sq_errs, hits, dets, total = [], 0, 0, 0
+    for i in range(n):
+        img, pos = synthetic.emitter_frame(seed0 + i, shape, n=n_emitters)
+        got = psf.localize_emitters(img, threshold=120.0, sigma=1.5, device=device)
+        found = np.stack([got["y"], got["x"]], -1) if len(got["y"]) else np.zeros((0, 2))
+        dets += len(found)
+        total += len(pos)
+        for j, (ty, tx) in _greedy_match(found, pos, lambda f, t: (f[0] - t[0]) ** 2 + (f[1] - t[1]) ** 2, 1.5):
+            sq_errs.append((found[j, 0] - ty) ** 2 + (found[j, 1] - tx) ** 2)
+            hits += 1
+    return {
+        "rmse_px": _round(np.sqrt(np.mean(sq_errs)) if sq_errs else float("nan")),
+        "recall": _round(hits / max(total, 1)),
+        "precision": _round(hits / max(dets, 1)),
+        "n_frames": n,
+    }
+
+
+def emitter3d_fidelity(
+    n: int = 3, shape: Tuple[int, int, int] = (16, 256, 256), n_emitters: int = 30, seed0: int = 446_000,
+    device=None,
+) -> Dict[str, float]:
+    """Sub-voxel accuracy of the volumetric detect+fit path on ``device``:
+    detections within 1.5 voxels euclidean count as hits; lateral and
+    axial RMSE reported apart."""
+    from sequitr_tpu_torch import psf
+    from sequitr_tpu_torch.data import synthetic
+
+    device = resolve_device(device)
+    lat_sq, ax_sq, hits, dets, total = [], [], 0, 0, 0
+    for i in range(n):
+        vol, pos = synthetic.emitter_volume(seed0 + i, shape, n=n_emitters)
+        got = psf.localize_emitters_3d(vol, threshold=120.0, sigma=1.4, sigma_z=1.6, device=device)
+        found = np.stack([got["z"], got["y"], got["x"]], -1) if len(got["z"]) else np.zeros((0, 3))
+        dets += len(found)
+        total += len(pos)
+        for j, (tz, ty, tx) in _greedy_match(found, pos, lambda f, t: float(np.sum((f - np.asarray(t)) ** 2)), 1.5):
+            ax_sq.append((found[j, 0] - tz) ** 2)
+            lat_sq.append((found[j, 1] - ty) ** 2 + (found[j, 2] - tx) ** 2)
+            hits += 1
+    return {
+        "lateral_rmse_px": _round(np.sqrt(np.mean(lat_sq)) if lat_sq else float("nan")),
+        "axial_rmse_px": _round(np.sqrt(np.mean(ax_sq)) if ax_sq else float("nan")),
+        "recall": _round(hits / max(total, 1)),
+        "precision": _round(hits / max(dets, 1)),
+        "n_volumes": n,
+    }
+
+
+def astig_fidelity(
+    n: int = 4, shape: Tuple[int, int] = (256, 256), n_emitters: int = 25, seed0: int = 447_000, device=None,
+) -> Dict[str, float]:
+    """z-recovery accuracy of the astigmatic path on ``device``, with the
+    exactly matching calibration (``synthetic.ASTIG_*``): lateral RMSE in
+    px, axial RMSE as a share of the calibrated z range; matched laterally
+    within 2 px."""
+    from sequitr_tpu_torch import psf
+    from sequitr_tpu_torch.data import synthetic
+
+    device = resolve_device(device)
+    calib = psf.AstigCalibration(qx=synthetic.ASTIG_QX, qy=synthetic.ASTIG_QY, z_range=synthetic.ASTIG_Z_RANGE)
+    span = synthetic.ASTIG_Z_RANGE[1] - synthetic.ASTIG_Z_RANGE[0]
+    lat_sq, ax_sq, hits, dets, total = [], [], 0, 0, 0
+    for i in range(n):
+        img, pos = synthetic.astig_emitter_frame(seed0 + i, shape, n=n_emitters)
+        got = psf.localize_emitters_astig(img, 25.0, calib, device=device)
+        found = np.stack([got["z"], got["y"], got["x"]], -1) if len(got["z"]) else np.zeros((0, 3))
+        dets += len(found)
+        total += len(pos)
+        lateral = lambda f, t: (f[1] - t[1]) ** 2 + (f[2] - t[2]) ** 2  # noqa: E731
+        for j, t in _greedy_match(found, pos, lateral, 2.0):
+            lat_sq.append(lateral(found[j], t))
+            ax_sq.append((found[j, 0] - t[0]) ** 2)
+            hits += 1
+    return {
+        "lateral_rmse_px": _round(np.sqrt(np.mean(lat_sq)) if lat_sq else float("nan")),
+        "axial_rmse_frac": _round((np.sqrt(np.mean(ax_sq)) / span) if ax_sq else float("nan")),
+        "recall": _round(hits / max(total, 1)),
+        "precision": _round(hits / max(dets, 1)),
+        "n_frames": n,
     }

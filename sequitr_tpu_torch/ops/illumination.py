@@ -21,9 +21,10 @@ shading, per-channel median, gain.
 
 The median is ``jnp.percentile(x, 50)``'s, linear method: sort, then the
 two order statistics at ``floor`` / ``ceil`` of ``0.5 * (n - 1)`` (in f32)
-summed with JAX's two weights (``_median_linear``). ``torch.median``
-returns the lower middle and ``torch.quantile`` interpolates by ``lerp``
-(and refuses more than 2^24 values), so neither is bit-equal to it.
+summed with JAX's two weights (``_median_linear``, a call of
+``ops.normalize.percentile_linear``). ``torch.median`` returns the lower
+middle and ``torch.quantile`` interpolates by ``lerp`` (and refuses more
+than 2^24 values), so neither is bit-equal to it.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from sequitr_tpu_torch.ops.normalize import percentile_linear
 
 __all__ = [
     "fit_shading",
@@ -120,22 +123,11 @@ def estimate_bleach_exp(
 
 
 def _median_linear(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """``jnp.percentile(x, 50.0, axis=dim)`` of f32 ``x``, bit for bit.
-
-    JAX's linear method: q = 0.5 * (n - 1) in f32, the sorted values at
-    floor(q) and ceil(q), then ``low * (1 - w) + high * w`` with
-    w = q - floor(q). Odd counts take the middle value times 1 plus the
-    same value times 0; even counts 0.5 * each middle, summed.
-    """
-    n = x.shape[dim]
-    q = np.float32(0.5) * np.float32(n - 1)
-    low, high = int(np.floor(q)), int(np.ceil(q))
-    high_w = np.float32(q - np.float32(low))
-    low_w = np.float32(1.0) - high_w
-    ordered = torch.sort(x, dim=dim).values
-    lo = ordered.narrow(dim, low, 1).squeeze(dim)
-    hi = ordered.narrow(dim, high, 1).squeeze(dim)
-    return lo * float(low_w) + hi * float(high_w)
+    """``jnp.percentile(x, 50.0, axis=dim)`` of f32 ``x``, bit for bit
+    (``percentile_linear`` at q = 50: odd counts take the middle value
+    times 1 plus the same value times 0; even counts 0.5 * each middle,
+    summed)."""
+    return percentile_linear(x, (50.0,), dim=dim)[0]
 
 
 def make_corrector(mode: str) -> Callable:

@@ -5,8 +5,9 @@
 
 Three ways to find ``lo``/``hi``, as in the JAX package:
 
-* ``percentile_normalize``: exact, ``torch.quantile`` with linear
-  interpolation (``jnp.percentile``'s default);
+* ``percentile_normalize``: exact, one sort per slice and JAX's linear
+  interpolation (``percentile_linear``: ``jnp.percentile`` as it runs
+  under ``jax.jit``, bit for bit, at any slice size);
 * ``percentile_normalize_fast``: a 4096-bin histogram in plain PyTorch
   (min/max pass, integer bucketing, one scatter-add of counts);
 * ``percentile_normalize_pallas``: a 1024-bin histogram on the CUDA
@@ -22,11 +23,13 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from sequitr_tpu_torch.ops.kernels.histogram import invert_cdf, kernel_quantiles, scale_of
 
 __all__ = [
+    "percentile_linear",
     "percentile_normalize",
     "percentile_normalize_fast",
     "percentile_normalize_pallas",
@@ -42,6 +45,57 @@ def _flatten_spatial(x: torch.Tensor, channel_axis: bool) -> torch.Tensor:
     return x.reshape(-1, 1)
 
 
+def percentile_linear(x: torch.Tensor, qs: Sequence[float], dim: int = 0) -> torch.Tensor:
+    """``jnp.percentile(x, qs, axis=dim)`` of f32 ``x`` as it runs under
+    ``jax.jit`` with constant ``qs`` (percents), bit for bit.
+
+    Returns (len(qs), *x's shape without ``dim``). JAX's linear method in
+    f32: q = p / 100 (folded exactly: eager JAX multiplies by 0.01 and
+    lands an ulp off), the position q * (f32(n) - 1), the sorted values at
+    its floor and ceil, then ``low * (1 - w) + high * w`` with w the
+    position's fraction, the sum fused with the first product as XLA's CPU
+    backend emits it (``fma_f32``). A slice holding a NaN gives NaN,
+    as in JAX. One sort serves every q; the positions are host numbers
+    (``n`` is static), so nothing syncs.
+    """
+    n = x.shape[dim]
+    n_f = np.float32(n)
+    ordered = torch.sort(x, dim=dim).values
+    out = []
+    for p in qs:
+        pos = np.float32(np.float32(p) / np.float32(100.0)) * (n_f - np.float32(1.0))
+        low = min(max(np.floor(pos), np.float32(0.0)), n_f - np.float32(1.0))
+        high = min(max(np.ceil(pos), np.float32(0.0)), n_f - np.float32(1.0))
+        high_w = np.float32(pos - np.floor(pos))
+        low_w = np.float32(1.0) - high_w
+        lo = ordered.narrow(dim, int(low), 1).squeeze(dim)
+        hi = ordered.narrow(dim, int(high), 1).squeeze(dim)
+        out.append(fma_f32(lo, float(low_w), hi * float(high_w)))
+    res = torch.stack(out)
+    # NaN sorts last: the slice's largest value is NaN iff it holds one
+    has_nan = torch.isnan(ordered.narrow(dim, n - 1, 1).squeeze(dim))
+    return torch.where(has_nan, torch.full_like(res, float("nan")), res)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as one fused multiply-add (``b`` a
+    tensor or an f32-exact number).
+
+    ``a * b`` of two f32 values is exact in f64 (48 bits); the f64 sum and
+    its error (TwoSum) give the sum rounded to odd, and rounding that to
+    f32 is the correctly rounded sum (53 >= 24 + 2 bits). Elementwise f64
+    ops, the same on the CPU and the card.
+    """
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    odd = (s.view(torch.int64) & 1) == 1
+    away = torch.nextafter(s, torch.where(err > 0, float("inf"), float("-inf")))
+    return torch.where((err == 0) | odd, s, away).float()
+
+
 def percentile_normalize(
     x: torch.Tensor,
     p_lo: float = 5.0,
@@ -50,12 +104,11 @@ def percentile_normalize(
     clip: bool = True,
     eps: float = 1e-8,
 ) -> torch.Tensor:
-    """Exact per-frame percentile normalization (sort-based)."""
+    """Exact per-frame percentile normalization (one sort per slice,
+    ``percentile_linear``)."""
     flat = _flatten_spatial(x, channel_axis)
-    # scalar q: a tensor q would be range-checked on the host (a sync)
-    lo = torch.quantile(flat, p_lo / 100.0, dim=0)
-    hi = torch.quantile(flat, p_hi / 100.0, dim=0)
-    return _apply(x, lo, hi, channel_axis, clip, eps)
+    lohi = percentile_linear(flat, (p_lo, p_hi), dim=0)
+    return _apply(x, lohi[0], lohi[1], channel_axis, clip, eps)
 
 
 def histogram_quantiles(

@@ -509,6 +509,23 @@ def _read_stack_or_fail(job: Job, path: str) -> np.ndarray:
         raise jobs_lib.JobError(f"job {job.id}: cannot read {path}: {e}")
 
 
+def _robust_threshold(arr: np.ndarray, thr_abs, k_sig: float) -> float:
+    """Absolute threshold if given, else robust per-frame median + k*MAD
+    (host numpy, the JAX server's)."""
+    if thr_abs is not None:
+        return float(thr_abs)
+    med = float(np.median(arr))
+    mad = float(np.median(np.abs(arr - med))) * 1.4826
+    return med + k_sig * max(mad, 1e-12)
+
+
+def _volume_chunks(seq, n: int):
+    """float32 view of ``VolumeSequence.chunks`` (the JAX server's
+    data-parallel feed; copied for the multi-card slice)."""
+    for c in seq.chunks(n):
+        yield np.asarray(c, np.float32)
+
+
 def _require_one_card(job: Job, device, key: str) -> None:
     """``key`` across more than one CUDA card is a later slice of the port:
     a JobError there; on one card it serves single-device, as the JAX

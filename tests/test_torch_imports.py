@@ -19,6 +19,7 @@ MODULES = [
     "sequitr_tpu_torch.native",
     "sequitr_tpu_torch.localize",
     "sequitr_tpu_torch.mosaic",
+    "sequitr_tpu_torch.psf",
     "sequitr_tpu_torch.data",
     "sequitr_tpu_torch.data.tiff",
     "sequitr_tpu_torch.data.source",
@@ -90,13 +91,14 @@ for job in (
     "evaluate_unet2d", "evaluate_unet3d", "parity_check", "evaluate_gan",
     "evaluate_denoise", "evaluate_flows", "evaluate_stars", "build_gan_pairs",
     "train_gan", "train_n2v", "train_flows", "train_stars", "register_stack",
-    "stitch_mosaic", "correct_illumination",
+    "stitch_mosaic", "correct_illumination", "localize_emitters",
+    "calibrate_astigmatism", "deconvolve",
 ):
     assert job in REGISTRY.names(), job
 
 import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
-from sequitr_tpu_torch import fidelity, mosaic, utils
+from sequitr_tpu_torch import fidelity, mosaic, psf, utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
@@ -151,6 +153,16 @@ calls = [
     lambda: fidelity.illum_fidelity(t=2, shape=(16, 16)),
     lambda: mosaic.stitch_grid(torch.zeros(2, 16, 16).numpy(), (1, 2), overlap=4),
     lambda: mosaic.blend_mosaic(torch.zeros(1, 16, 16).numpy(), [[0.5, 0.0]], (4, 4)),
+    lambda: psf.gaussian_psf_2d(9, 1.5),
+    lambda: psf.gaussian_psf_3d(9, 5, 1.5, 3.0),
+    lambda: psf.localize_emitters(torch.zeros(16, 16).numpy(), 1.0),
+    lambda: psf.localize_emitters_3d(torch.zeros(8, 16, 16).numpy(), 1.0),
+    lambda: psf.localize_emitters_astig(torch.zeros(16, 16).numpy(), 1.0, psf.AstigCalibration((0, 0, 1), (0, 0, 1), (-1, 1), 7)),
+    lambda: psf.calibrate_astigmatism(torch.zeros(5, 16, 16).numpy(), [0, 1, 2, 3, 4]),
+    lambda: psf.z_from_widths([1.0], [1.0], psf.AstigCalibration((0, 0, 1), (0, 0, 1), (-1, 1))),
+    lambda: fidelity.emitter_fidelity(n=1, shape=(32, 32), n_emitters=2),
+    lambda: fidelity.emitter3d_fidelity(n=1, shape=(8, 32, 32), n_emitters=2),
+    lambda: fidelity.astig_fidelity(n=1, shape=(32, 32), n_emitters=2),
 ]
 for call in calls:
     try:
@@ -169,6 +181,9 @@ train.create_gan_state(gcfg, train.TrainConfig(), device="cpu")
 ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r}, device="cpu"))
 zoo.create("stars_cells", device="cpu")
 mosaic.stitch_grid(torch.rand(2, 16, 16).numpy(), (1, 2), overlap=4, device="cpu")
+psf.localize_emitters(torch.zeros(16, 16).numpy(), 1.0, device="cpu")
+psf.localize_emitters_3d(torch.zeros(8, 16, 16).numpy(), 1.0, device="cpu")
+psf.richardson_lucy(torch.rand(16, 16), psf.gaussian_psf_2d(5, 1.0, device="cpu"), 2)
 # the N2V masking's draw and apply, and the flips, run where their tensors lie
 img = torch.zeros(2, 16, 16, 1)
 draws = train.n2v_draw_mask(None, img.shape, 8, (5, 5), "median")
