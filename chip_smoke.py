@@ -164,7 +164,27 @@ on failure:
    value, an RL frame's device ms and its cuFFT share; then the exact
    normalize's repair: a slice past 2^24 values on the card, lo/hi card =
    CPU, ``seg_fidelity``'s reference side on a 65x512x512 volume. Every job
-   launches none of the four kernels.
+   launches none of the four kernels;
+18. quantify phase: (cc) ``qc_stack`` on 64 uint16 frames of 1024x1024 with
+   faults injected by index (4 blurred, 3 dark, 2 saturated): the flagged
+   frames equal the injected set, every frame's metrics card against the
+   port on the CPU (p01/p99/sat_frac equal, the whole-frame sums within
+   ``QUANT_QC_RTOL``), the flags equal, a 2-channel run, where a QC frame's
+   time goes; ``dims: 3`` on 4 volumes of 32x512x512 whose sharpest plane
+   drifts one plane a volume: ``best_z`` equal to the truth and to the CPU
+   port's; (dd) ``project_stack`` on 8 such volumes with each method (edof
+   in blend and in select with ``save_height``), card against the CPU port
+   on 2 volumes (selection methods equal in uint16, the float methods
+   within ``QUANT_PROJ_RTOL``, projection.csv and the height map equal),
+   each method's volumes/s, device ms, device ops and busy share; (ee) the
+   chain ``project_stack`` (max, 4 volumes of 16x1024x1024) ->
+   ``segmentation_unet2d`` (4 quantile passes, as job (a)) ->
+   ``measure_objects`` -> ``export_ctc`` (tracks by the copied tracker) by
+   ``depends_on``, the host jobs' files byte-equal to the CPU port's;
+   (ff) ``count_spots`` (a ``localize_emitters`` emitters.csv) and
+   ``measure_tracks`` byte-equal to the CPU port's, the tracker's frames/s
+   at ``bench.py::bench_tracking``'s scene and ``tracking_fidelity`` at the
+   JAX tests' bars. Only the segmentation job launches a kernel of the four.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -175,7 +195,7 @@ outside a checkout of the repository.
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
-``family_train``, ``geometry``, ``optics``)
+``family_train``, ``geometry``, ``optics``, ``quantify``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -3698,13 +3718,373 @@ def optics_phase(torch, hist, conv, smi_line):
     return counts
 
 
+QUANT_FRAME = (1024, 1024)  # (cc): the served frame shape
+QUANT_FRAMES = 64
+QUANT_BLURRED = (5, 17, 33, 49)  # (cc)'s injected faults, by frame index
+QUANT_DARK = (9, 26, 58)
+QUANT_SATURATED = (12, 40)
+QUANT_VOLUME = VOLUME  # (cc) dims 3 and (dd): the 3D serving shape
+QUANT_VOLUMES = 8  # (dd); (cc) dims 3 takes the first 4
+QUANT_BEST_Z = 12  # volume t is sharpest at plane 12 + t
+QUANT_CHAIN_VOLUME = (16, 1024, 1024)  # (ee)
+QUANT_CHAIN_VOLUMES = 4
+QUANT_SEED = 464_100
+QUANT_QC_RTOL = 2e-6  # focus_vol, tenengrad, mean, std (std against the frame's mean), card vs CPU port (H100: 2.6e-7)
+QUANT_PROJ_RTOL = 1e-6  # project_stack's float methods card vs CPU port, of the volume's largest value
+TRACK_SCENE = dict(n_objects=120, n_frames=60, field=(384, 384), n_divisions=12, seed=575_001)  # bench.py:674-700
+
+
+def _focus_stacks(np, ndimage, base, n_planes, best_of, n_vols, shape, seed):
+    """``n_vols`` uint16 z-stacks cropped from ``base`` at a 2 px drift a
+    volume: plane z of volume t is the crop blurred by a Gaussian of sigma
+    0.8 |z - best_of(t)|, plus camera noise (sigma 2)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    blurred = {}
+    vols = np.empty((n_vols, n_planes, h, w), np.uint16)
+    for t in range(n_vols):
+        for z in range(n_planes):
+            d = abs(z - best_of(t))
+            if d not in blurred:
+                blurred[d] = ndimage.gaussian_filter(base, 0.8 * d) if d else base
+            plane = blurred[d][2 * t:2 * t + h, 2 * t:2 * t + w] + rng.normal(0.0, 2.0, (h, w))
+            vols[t, z] = np.clip(np.round(plane), 0, 65535)
+    return vols
+
+
+def quantify_phase(torch, hist, conv, smi_line):
+    """qc_stack (2D, 2 channels, dims 3), project_stack (every method),
+    the workflow chain project_stack -> segmentation_unet2d ->
+    measure_objects -> export_ctc, and the host jobs (count_spots,
+    measure_tracks) through ImageServer on the card, held to the injected
+    truth and to the port on the CPU; the copied tracker's rate and the
+    tracking meter on the host. Returns {job: (histogram_2d launches,
+    quantile passes)}: 0 for every job but the chain's segmentation."""
+    import numpy as np
+    from scipy import ndimage
+
+    from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import fidelity, localize, tracking
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import fixtures
+    from sequitr_tpu_torch.ops import projection, qc
+    from sequitr_tpu_torch.pipeline import infer
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+
+    # uint16 on the card: the casts the paths take, and the reductions they avoid
+    u16 = torch.tensor([[0, 65535], [7, 3]], dtype=torch.int32).to(torch.uint16).cuda()
+    widened = u16.to(torch.int32).amax(0).to(torch.uint16).cpu().numpy().tolist()
+    picked = torch.index_select(u16.view(torch.int16), 0, torch.tensor([1], device="cuda")).view(torch.uint16)
+    if widened != [7, 65535] or picked.cpu().numpy().tolist() != [[7, 3]] \
+            or u16.to(torch.float32).cpu().tolist() != [[0.0, 65535.0], [7.0, 3.0]]:
+        raise AssertionError("uint16 casts, widened max or same-bits gather on the card")
+    try:
+        native = u16.amax(0).cpu().numpy().tolist() == [7, 65535]
+    except RuntimeError as e:
+        native = f"refused ({str(e).splitlines()[0][:80]})"
+    print(f"quantify uint16 on the card: int32-widened max, int16-view gather, float cast right; "
+          f"torch.amax on uint16 itself: {native}")
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        models = os.path.join(tmp, "models")
+        meta = fixtures.manifest()["unet2d_cells"]
+        arch = os.path.join(tmp, "unet2d_cells.json")
+        with open(arch, "w") as f:
+            json.dump(dict(meta["config"], __kind__=meta["kind"]), f)
+        npz = os.path.join(fixtures.fixture_dir(), "unet2d_cells.npz")
+        if cli.main(["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, "unet2d_cells"]):
+            raise AssertionError("import-model unet2d_cells failed")
+        servers = {
+            dev: ImageServer(ServerConfiguration(
+                jobs_dir=os.path.join(tmp, f"jobs_{dev}"), models_dir=models, device=dev,
+            ))
+            for dev in ("cuda", "cpu")
+        }
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        def serve(name, module, params, inputs, dev="cuda", depends_on=None):
+            """One job, launch counts reset just before and read just after
+            on the card; returns (outputs, metrics, wall s, output dir)."""
+            out = os.path.join(tmp, f"out_{dev}_{name}")
+            spec = {"module": module, "params": params, "input": inputs, "output": out}
+            if depends_on:
+                spec["depends_on"] = [depends_on]
+            submit_job(servers[dev].config.jobs_dir, spec)
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            t0 = time.perf_counter()
+            if not servers[dev].poll_once():
+                raise AssertionError(f"quantify job {name}: no job to run")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = (hist.histogram_2d.launches, hist.quantile_pass.launches,
+                        conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches)
+            with open(os.path.join(out, "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"quantify job {name}: {status.get('error')}")
+            if dev == "cuda":
+                counts[f"quant_{name}"] = launched[:2]
+                if module != "segmentation_unet2d" and any(launched):
+                    raise AssertionError(f"quantify job {name} launched a kernel of the four: {launched}")
+            metrics = json.loads(status["outputs"].get("metrics", "{}"))
+            print(f"quantify job {name} ({dev}) {module} {json.dumps(params)[:120]}: wall {wall:.4f} s, "
+                  f"metrics {json.dumps(metrics)[:400]} on {smi_line}")
+            return status["outputs"], metrics, wall, out
+
+        def same_files(what, out_a, out_b, names):
+            for n in names:
+                with open(os.path.join(out_a, n), "rb") as fa, open(os.path.join(out_b, n), "rb") as fb:
+                    if fa.read() != fb.read():
+                        raise AssertionError(f"{what}: {n} differs between the card and the CPU port")
+
+        def qc_gap(got, want):
+            """Largest relative gap of the whole-frame sums (std against the
+            frame's mean); p01/p99/sat_frac must be equal."""
+            if not np.array_equal(got[..., 4:], want[..., 4:]):
+                raise AssertionError("qc: p01/p99/sat_frac differ between the card and the CPU port")
+            scale = np.abs(want[..., :4]).astype(np.float64)
+            scale[..., 3] = np.maximum(scale[..., 3], np.abs(want[..., 2]))
+            return float((np.abs(got[..., :4].astype(np.float64) - want[..., :4]) / np.maximum(scale, 1e-30)).max())
+
+        def qc_flags(path):
+            with open(path) as f:
+                rows = [r.split(",") for r in f.read().strip().split("\n")[1:]]
+            return [(int(r[0]), int(r[1]), r[-1]) for r in rows]
+
+        # (cc) qc_stack: 64 uint16 frames of 1024x1024 (crops of one cells
+        # scene drifting 1 px a frame) with faults injected by index
+        big, _ = synthetic.cells_frame(QUANT_SEED, (QUANT_FRAME[0] + QUANT_FRAMES, QUANT_FRAME[1] + QUANT_FRAMES))
+        h, w = QUANT_FRAME
+        frames = np.stack([big[t:t + h, t:t + w] for t in range(QUANT_FRAMES)])
+        for t in QUANT_BLURRED:
+            frames[t] = ndimage.gaussian_filter(frames[t], 3.0)
+        for t in QUANT_DARK:
+            frames[t] *= 0.3
+        frames = np.clip(np.round(frames), 0, 65535).astype(np.uint16)
+        for t in QUANT_SATURATED:
+            frames[t, :32] = 65535  # 3.1% of the pixels
+        qc_path = write("qc.tif", frames)
+        serve("cc_warmup", "qc_stack", {"frame_range": [0, 4]}, [qc_path])
+        out_cc, m_cc, wall_cc, dir_cc = serve("cc_qc", "qc_stack", {}, [qc_path])
+        flags = qc_flags(out_cc["qc"])
+        flagged = {t for t, _, fl in flags if fl}
+        injected = set(QUANT_BLURRED) | set(QUANT_DARK) | set(QUANT_SATURATED)
+        by_t = {t: fl for t, _, fl in flags}
+        if flagged != injected or not all("focus" in by_t[t] for t in QUANT_BLURRED) \
+                or not all("dark" in by_t[t] for t in QUANT_DARK) \
+                or not all("saturated" in by_t[t] for t in QUANT_SATURATED):
+            raise AssertionError(f"(cc) flags {sorted((t, by_t[t]) for t in flagged)}, injected {sorted(injected)}")
+        # the metrics: the card's frame_qc against the port's on the CPU, all 64 frames
+        dev_rows = np.stack([qc.frame_qc(torch.from_numpy(f).cuda(), 65535.0).cpu().numpy() for f in frames])
+        t0 = time.perf_counter()
+        cpu_rows = np.stack([qc.frame_qc(torch.from_numpy(f), 65535.0).numpy() for f in frames])
+        cpu_s = time.perf_counter() - t0
+        gap_cc = qc_gap(dev_rows, cpu_rows)
+        cpu_flags = qc.flag_frames(cpu_rows)
+        if ["+".join(fl) for fl in cpu_flags] != [fl for _, _, fl in flags]:
+            raise AssertionError("(cc) the CPU port's flags differ from the card's")
+        out_c2, m_c2, _, _ = serve("cc_two_channels", "qc_stack", {}, [qc_path, write("qc_flipped.tif", frames[::-1])])
+        flags2 = qc_flags(out_c2["qc"])
+        with open(out_cc["qc"]) as f1, open(out_c2["qc"]) as f2:
+            one = f1.read().strip().split("\n")[1:]
+            two = f2.read().strip().split("\n")[1:]
+        mirrored = {QUANT_FRAMES - 1 - t for t in injected}
+        if one != two[0::2] or {t for t, ch, fl in flags2 if ch == 1 and fl} != mirrored:
+            raise AssertionError("(cc) 2 channels: channel 0 differs from the 1-channel run or channel 1's flags")
+        print(f"quantify (cc) qc_stack: {QUANT_FRAMES} frames of {QUANT_FRAME}: flagged {sorted(flagged)} = injected "
+              f"(blurred {list(QUANT_BLURRED)}, dark {list(QUANT_DARK)}, saturated {list(QUANT_SATURATED)}); "
+              f"{QUANT_FRAMES / wall_cc:.3f} frames/s (job wall); card vs CPU port: p01/p99/sat_frac equal, "
+              f"whole-frame sums {gap_cc:.3e} relative (bar {QUANT_QC_RTOL}), flags equal (CPU {cpu_s:.2f} s); "
+              f"2 channels: {m_c2['n_flagged_frames']} flagged frames, channel 0 rows equal to the 1-channel "
+              f"run's on {smi_line}")
+        if gap_cc > QUANT_QC_RTOL:
+            raise AssertionError(f"(cc) qc metrics card vs CPU {gap_cc}")
+
+        # where a QC frame's time goes: one batched pass + its one fetch
+        dev_frames = [torch.from_numpy(f).cuda() for f in frames[:16]]
+
+        def qc_stream():
+            for f in dev_frames:
+                infer._copy_to_host_async(qc.frame_qc(f, 65535.0))
+            torch.cuda.synchronize()
+
+        wall, busy, ops_qc, by_name = _profile_stream(torch, "qc 1024x1024 uint16", qc_stream, 16, "frame")
+        print(f"quantify (cc) a QC frame: {wall / 16 * 1e3:.4f} ms wall, device {sum(by_name.values()) / 1e3 / 16:.4f} "
+              f"ms, busy {busy / (wall * 1e6):.3f}, {ops_qc:.1f} device ops on {smi_line}")
+        del dev_frames, frames, big
+
+        # (cc) dims 3 and (dd): z-stacks of 32x512x512 sharpest at plane 12 + t
+        z, vh, vw = QUANT_VOLUME
+        base, _ = synthetic.cells_frame(QUANT_SEED + 100, (vh + 2 * QUANT_VOLUMES, vw + 2 * QUANT_VOLUMES))
+        vols = _focus_stacks(np, ndimage, base, z, lambda t: QUANT_BEST_Z + t, QUANT_VOLUMES, (vh, vw),
+                             QUANT_SEED + 101)
+        vdir = os.path.join(tmp, "volumes")
+        os.makedirs(vdir)
+        for t in range(QUANT_VOLUMES):
+            tiff.write_stack(os.path.join(vdir, f"vol_t{t:04d}.tif"), vols[t])
+        p3 = {"dims": 3, "frame_range": [0, 4]}
+        out_3, m_3, wall_3, _ = serve("cc_dims3", "qc_stack", p3, [vdir])
+        out_3c, _, _, _ = serve("cc_dims3_cpu", "qc_stack", p3, [vdir], "cpu")
+        with open(out_3["qc_volumes"]) as f:
+            best = [int(r.split(",")[2]) for r in f.read().strip().split("\n")[1:]]
+        with open(out_3c["qc_volumes"]) as f:
+            best_c = [int(r.split(",")[2]) for r in f.read().strip().split("\n")[1:]]
+        vol_rows = qc.frame_qc(torch.from_numpy(vols[0]).cuda(), 65535.0).cpu().numpy()
+        gap_3 = qc_gap(vol_rows, qc.frame_qc(torch.from_numpy(vols[0]), 65535.0).numpy())
+        print(f"quantify (cc) dims 3: 4 volumes of {QUANT_VOLUME}: best_z {best} (truth "
+              f"{[QUANT_BEST_Z + t for t in range(4)]}), CPU port {best_c}, best_z_drift {m_3['best_z_drift']}; "
+              f"volume 0's plane rows card vs CPU {gap_3:.3e}; {4 / wall_3:.3f} volumes/s (job wall) on {smi_line}")
+        if best != [QUANT_BEST_Z + t for t in range(4)] or best_c != best or gap_3 > QUANT_QC_RTOL:
+            raise AssertionError(f"(cc) dims 3: best_z {best}, CPU {best_c}, gap {gap_3}")
+
+        # (dd) project_stack: 8 volumes, every method; the CPU port on the first 2
+        methods = [("max", {}), ("min", {}), ("sum", {}), ("mean", {}), ("std", {}), ("median", {}),
+                   ("best_focus", {}), ("edof", {}), ("edof", {"edof_mode": "select", "save_height": True})]
+        serve("dd_warmup", "project_stack", {"method": "edof", "frame_range": [0, 1]}, [vdir])
+        dev_vols = [torch.from_numpy(v).cuda() for v in vols[:4]]
+        for method, extra in methods:
+            tag = method if not extra else "edof_select"
+            params = {"method": method, **extra}
+            out_d, _, wall_d, dir_d = serve(f"dd_{tag}", "project_stack", params, [vdir])
+            out_dc, _, _, dir_dc = serve(f"dd_{tag}_cpu", "project_stack", dict(params, frame_range=[0, 2]),
+                                         [vdir], "cpu")
+            got = tiff.read_stack(out_d["projected"])[:2]
+            want = tiff.read_stack(out_dc["projected"])
+            if got.dtype != want.dtype:
+                raise AssertionError(f"(dd) {tag}: dtype {got.dtype} vs {want.dtype}")
+            gap = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+            bar = 0.0 if projection.METHODS[method] else QUANT_PROJ_RTOL
+            notes = []
+            if method == "best_focus":
+                with open(out_d["projection"]) as f:
+                    rows = f.read().strip().split("\n")
+                with open(out_dc["projection"]) as f:
+                    rows_c = f.read().strip().split("\n")
+                truth = [QUANT_BEST_Z + t for t in range(QUANT_VOLUMES)]
+                if rows[:3] != rows_c or [int(r.split(",")[2]) for r in rows[1:]] != truth:
+                    raise AssertionError(f"(dd) projection.csv {rows} (CPU {rows_c}, truth {truth})")
+                notes.append(f"projection.csv best_z = truth, equal to the CPU's")
+            if "save_height" in extra:
+                hgt, hgt_c = tiff.read_stack(out_d["height"])[:2], tiff.read_stack(out_dc["height"])
+                if not np.array_equal(hgt, hgt_c):
+                    raise AssertionError("(dd) height maps differ between the card and the CPU port")
+                notes.append(f"height map equal (median plane {int(np.median(hgt[0]))})")
+            project = projection.make_projector(method, mode=extra.get("edof_mode", "blend"))
+
+            def proj_stream(project=project):
+                for v in dev_vols * 4:
+                    infer._copy_to_host_async(project(v)[0])
+                torch.cuda.synchronize()
+
+            # 16 volumes a profile (a profile of 20 short kernels has come
+            # back empty), taken again if it caught no kernel
+            for _ in range(2):
+                pwall, busy, ops, by_name = _profile_stream(torch, f"project {tag} {QUANT_VOLUME}", proj_stream,
+                                                            16, "volume", top=4)
+                if ops:
+                    break
+            device = (f"device {sum(by_name.values()) / 1e3 / 16:.4f} ms, {ops:.1f} device ops, busy "
+                      f"{busy / (pwall * 1e6):.3f}" if ops else "device time not measured (no kernel profiled)")
+            print(f"quantify (dd) {tag}: {got.dtype}, card vs CPU port on 2 volumes {gap:.3e} of the largest value "
+                  f"(bar {bar}){'; ' + '; '.join(notes) if notes else ''}; {QUANT_VOLUMES / wall_d:.3f} volumes/s "
+                  f"(job wall), a volume {pwall / 16 * 1e3:.4f} ms wall, {device} on {smi_line}")
+            if gap > bar:
+                raise AssertionError(f"(dd) {tag}: card vs CPU {gap}")
+        del dev_vols, vols
+
+        # (ee) the workflow chain by depends_on: project_stack (max) of 4
+        # volumes of 16x1024x1024 -> segmentation_unet2d -> measure_objects
+        # (the projection as its intensity channel) -> export_ctc
+        cz, ch_, cw = QUANT_CHAIN_VOLUME
+        base, _ = synthetic.cells_frame(QUANT_SEED + 200, (ch_ + 2 * QUANT_CHAIN_VOLUMES, cw + 2 * QUANT_CHAIN_VOLUMES))
+        chain = _focus_stacks(np, ndimage, base, cz, lambda t: cz // 2, QUANT_CHAIN_VOLUMES, (ch_, cw),
+                              QUANT_SEED + 201)
+        chain_path = write("chain.tif", chain.reshape((-1, ch_, cw)))
+        del chain
+        out_p, m_p, wall_p, dir_p = serve("ee_project", "project_stack", {"method": "max", "z": cz}, [chain_path])
+        out_s, m_s, wall_s, dir_s = serve("ee_segment", "segmentation_unet2d",
+                                          {"model": "unet2d_cells", "localize": False},
+                                          [out_p["projected"]], depends_on=dir_p)
+        seg = counts["quant_ee_segment"]
+        if seg != (QUANT_CHAIN_VOLUMES, QUANT_CHAIN_VOLUMES):
+            raise AssertionError(f"(ee) segmentation: {seg} histogram launches/passes, expected "
+                                 f"{QUANT_CHAIN_VOLUMES} of each")
+        labels = tiff.read_stack(out_s["labels"])
+        out_m, m_m, _, dir_m = serve("ee_measure", "measure_objects", {}, [out_s["labels"], out_p["projected"]],
+                                     depends_on=dir_s)
+        _, _, _, dir_mc = serve("ee_measure_cpu", "measure_objects", {}, [out_s["labels"], out_p["projected"]], "cpu")
+        same_files("(ee) measure_objects", dir_m, dir_mc, ["measurements.csv"])
+        # tracks.csv and lbep.txt by the copied tracker on the served labels
+        trk = os.path.join(tmp, "tracks")
+        os.makedirs(trk)
+        tables = [localize.localize_frame_table(labels[t], t=t) for t in range(len(labels))]
+        ids, tracks = tracking.link_tables(tables, max_distance=20.0)
+        tracking.write_tracks_csv(os.path.join(trk, "tracks.csv"), tables, ids)
+        tracking.write_lbep(os.path.join(trk, "lbep.txt"), tracks)
+        out_x, m_x, _, dir_x = serve("ee_export", "export_ctc", {}, [out_s["labels"], trk], depends_on=dir_m)
+        _, _, _, dir_xc = serve("ee_export_cpu", "export_ctc", {}, [out_s["labels"], trk], "cpu")
+        same_files("(ee) export_ctc", dir_x, dir_xc,
+                   ["res_track.txt"] + [f"mask{t:03d}.tif" for t in range(QUANT_CHAIN_VOLUMES)])
+        print(f"quantify (ee) chain: project_stack {QUANT_CHAIN_VOLUMES} x {QUANT_CHAIN_VOLUME} "
+              f"{QUANT_CHAIN_VOLUMES / wall_p:.3f} volumes/s -> segmentation_unet2d {m_s.get('frames_per_sec')} "
+              f"frames/s (histogram_2d launches {seg[0]} in {seg[1]} passes, as job a) -> measure_objects "
+              f"{m_m['n_objects']} objects -> export_ctc {m_x['n_matched']} matched ({len(tracks)} tracks); "
+              f"measurements.csv, res_track.txt and the masks byte-equal to the CPU port's on {smi_line}")
+
+        # (ff) the host jobs on the card machine: count_spots on (ee)'s labels
+        # and a localize_emitters emitters.csv; measure_tracks
+        spots = np.stack([
+            np.clip(np.round(synthetic.emitter_frame(QUANT_SEED + 300 + t, QUANT_FRAME, n=400)[0]), 0, 65535)
+            for t in range(QUANT_CHAIN_VOLUMES)
+        ]).astype(np.uint16)
+        out_l, m_l, _, _ = serve("ff_localize", "localize_emitters", {"max_peaks": 512}, [write("spots.tif", spots)])
+        cs_params = {"capture_radius": 2.0}
+        out_c, m_cs, _, dir_c = serve("ff_count", "count_spots", cs_params, [out_s["labels"], out_l["emitters"]])
+        _, _, _, dir_cc = serve("ff_count_cpu", "count_spots", cs_params, [out_s["labels"], out_l["emitters"]], "cpu")
+        same_files("(ff) count_spots", dir_c, dir_cc, ["spots.csv", "spot_counts.csv"])
+        out_t, m_t, _, dir_t = serve("ff_traces", "measure_tracks", {}, [dir_m, trk])
+        _, _, _, dir_tc = serve("ff_traces_cpu", "measure_tracks", {}, [dir_m, trk], "cpu")
+        same_files("(ff) measure_tracks", dir_t, dir_tc, ["traces.csv"])
+        print(f"quantify (ff) count_spots: {m_cs['n_spots']} spots, {m_cs['n_assigned']} assigned to "
+              f"{m_cs['n_objects']} objects; measure_tracks: {m_t['n_joined']} of {m_t['n_rows']} rows joined to "
+              f"{m_t['n_tracks']} tracks; CSVs byte-equal to the CPU port's on {smi_line}")
+
+        # the copied tracker at bench.py::bench_tracking's scene, on the host
+        scene, _, _ = fidelity.tracking_scene(**TRACK_SCENE)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, trs = tracking.link_tables(scene, max_distance=12.0, max_gap=1, motion_model="kalman",
+                                          divisions=True, mitotic_class=2)
+            walls.append(time.perf_counter() - t0)
+        fps = TRACK_SCENE["n_frames"] / float(np.median(walls))
+        tf = fidelity.tracking_fidelity()
+        print(f"quantify (ff) tracking: link_tables (kalman, divisions) on {TRACK_SCENE}: {len(trs)} tracks, "
+              f"{fps:.3f} frames/s on the host (median of 3); tracking_fidelity {json.dumps(tf)}: link accuracy "
+              f"{tf['link_accuracy']} (nearest {tf['link_accuracy_nearest']}) on {smi_line}")
+        if not (tf["link_accuracy"] > 0.98 and tf["track_purity"] > 0.95 and tf["division_recall"] >= 0.75
+                and tf["division_precision"] >= 0.9 and tf["link_accuracy"] > tf["link_accuracy_nearest"] + 0.02):
+            raise AssertionError(f"tracking_fidelity misses the JAX tests' bars: {tf}")
+    return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics",
+    "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify",
 )
 
 
@@ -3772,6 +4152,7 @@ def main(argv=None) -> int:
             "family_train": lambda: family_train_phase(torch, hist, conv, smi_line),
             "geometry": lambda: geometry_phase(torch, hist, conv, smi_line),
             "optics": lambda: optics_phase(torch, hist, conv, smi_line),
+            "quantify": lambda: quantify_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -3801,6 +4182,7 @@ def main(argv=None) -> int:
     counts.update(timed("family_train", family_train_phase, hist, conv, smi_line))
     counts.update(timed("geometry", geometry_phase, hist, conv, smi_line))
     counts.update(timed("optics", optics_phase, hist, conv, smi_line))
+    counts.update(timed("quantify", quantify_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -3824,7 +4206,11 @@ def main(argv=None) -> int:
         "stitch_mosaic and correct_illumination jobs on the card, which run cuFFT and torch ops and "
         "launch none of the four kernels; optics_* are the optics phase's localize_emitters (2D, dims 3, "
         "astigmatic), calibrate_astigmatism and deconvolve jobs, which run pools, sorts, gathers, cuFFT and "
-        "torch ops and launch none of the four kernels; the conv3x3 "
+        "torch ops and launch none of the four kernels; quant_* are the quantify phase's qc_stack, "
+        "project_stack, measure_objects, export_ctc, localize_emitters, count_spots and measure_tracks "
+        "jobs, which run sorts, reductions and elementwise torch ops on the card or host numpy and launch "
+        "none of the four kernels, except quant_ee_segment, the chain's segmentation_unet2d on 4 projected "
+        "frames, which normalizes each with one quantile pass as job a does; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

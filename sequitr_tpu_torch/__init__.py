@@ -10,14 +10,16 @@ helpers it shares with the JAX package are copies. Entry points run on the
 card (``device="cuda"``) unless the caller passes ``device="cpu"``; without
 a CUDA device they raise instead of quietly running on the CPU.
 
-Ported so far: the ``segmentation_unet2d`` serving path (percentile
-normalize on the histogram kernel, U-Net2D, standard or polyphase forward,
-tiling/stitch, labels.tif and objects.h5), 3D segmentation, GAN and N2V
-serving, the instance families' serving (``segment_flows``,
-``segment_stars``), the evaluation and parity jobs with the fidelity
-meters (``fidelity``), U-Net and GAN training (standard or polyphase
-forward) and the conv studies (``studies``: the fused 3x3 conv kernels,
-Winograd, the polyphase A/B).
+Ported so far (34 of the JAX server's 37 jobs): the ``segmentation_unet2d``
+serving path (percentile normalize on the histogram kernel, U-Net2D,
+standard or polyphase forward, tiling/stitch, labels.tif and objects.h5),
+3D segmentation, GAN and N2V serving, the instance families' serving
+(``segment_flows``, ``segment_stars``), the evaluation and parity jobs with
+the fidelity meters (``fidelity``), the training jobs (standard or
+polyphase forward), geometry and illumination, the PSF jobs, acquisition
+QC and z-projection on the card (``ops.qc``, ``ops.projection``), the host
+quantification and tracking jobs (``tracking``) and the conv studies
+(``studies``: the fused 3x3 conv kernels, Winograd, the polyphase A/B).
 Subpackages import lazily so ``import sequitr_tpu_torch`` stays
 light.
 """

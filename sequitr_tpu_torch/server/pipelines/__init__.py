@@ -14,6 +14,10 @@ registry. Ported so far:
 - ``instances``: ``segment_flows``, ``segment_stars``, ``evaluate_flows``,
   ``evaluate_stars``, ``train_flows``, ``train_stars``;
 - ``geometry``: ``register_stack`` (2D and ``dims: 3``), ``stitch_mosaic``;
-- ``optics``: ``correct_illumination`` (the module's PSF, localization and
-  deconvolution jobs are a later slice).
+- ``optics``: ``localize_emitters`` (2D, ``dims: 3``, astigmatic),
+  ``calibrate_astigmatism``, ``deconvolve``, ``correct_illumination``;
+- ``quantify``: ``measure_objects``, ``count_spots`` (2D and ``dims: 3``
+  each), ``measure_tracks``, ``track_objects``;
+- ``interop``: ``export_ctc``, ``qc_stack`` (2D and ``dims: 3``),
+  ``project_stack``.
 """

@@ -979,7 +979,9 @@ from sequitr_tpu_torch.server.pipelines import (  # noqa: E402,F401
     gan_denoise as _pipelines_gan_denoise,
     geometry as _pipelines_geometry,
     instances as _pipelines_instances,
+    interop as _pipelines_interop,
     optics as _pipelines_optics,
+    quantify as _pipelines_quantify,
     segmentation as _pipelines_segmentation,
     training as _pipelines_training,
 )

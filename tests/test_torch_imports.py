@@ -20,6 +20,7 @@ MODULES = [
     "sequitr_tpu_torch.localize",
     "sequitr_tpu_torch.mosaic",
     "sequitr_tpu_torch.psf",
+    "sequitr_tpu_torch.tracking",
     "sequitr_tpu_torch.data",
     "sequitr_tpu_torch.data.tiff",
     "sequitr_tpu_torch.data.source",
@@ -45,6 +46,9 @@ MODULES = [
     "sequitr_tpu_torch.ops.stardist",
     "sequitr_tpu_torch.ops.registration",
     "sequitr_tpu_torch.ops.illumination",
+    "sequitr_tpu_torch.ops.qc",
+    "sequitr_tpu_torch.ops.projection",
+    "sequitr_tpu_torch.ops.colocalize",
     "sequitr_tpu_torch.ops.kernels",
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
@@ -64,6 +68,8 @@ MODULES = [
     "sequitr_tpu_torch.server.pipelines.instances",
     "sequitr_tpu_torch.server.pipelines.segmentation",
     "sequitr_tpu_torch.server.pipelines.training",
+    "sequitr_tpu_torch.server.pipelines.quantify",
+    "sequitr_tpu_torch.server.pipelines.interop",
     "sequitr_tpu_torch.studies",
     "sequitr_tpu_torch.studies.conv2d",
     "sequitr_tpu_torch.studies.conv2d_gemm",
@@ -92,7 +98,8 @@ for job in (
     "evaluate_denoise", "evaluate_flows", "evaluate_stars", "build_gan_pairs",
     "train_gan", "train_n2v", "train_flows", "train_stars", "register_stack",
     "stitch_mosaic", "correct_illumination", "localize_emitters",
-    "calibrate_astigmatism", "deconvolve",
+    "calibrate_astigmatism", "deconvolve", "measure_objects", "count_spots",
+    "measure_tracks", "track_objects", "export_ctc", "qc_stack", "project_stack",
 ):
     assert job in REGISTRY.names(), job
 
@@ -184,6 +191,12 @@ mosaic.stitch_grid(torch.rand(2, 16, 16).numpy(), (1, 2), overlap=4, device="cpu
 psf.localize_emitters(torch.zeros(16, 16).numpy(), 1.0, device="cpu")
 psf.localize_emitters_3d(torch.zeros(8, 16, 16).numpy(), 1.0, device="cpu")
 psf.richardson_lucy(torch.rand(16, 16), psf.gaussian_psf_2d(5, 1.0, device="cpu"), 2)
+# QC and projections run where their tensors lie; the tracker is host numpy
+from sequitr_tpu_torch.ops import projection, qc
+assert qc.frame_qc(torch.zeros(2, 8, 8, dtype=torch.uint16), float("inf")).shape == (2, 7)
+for method in projection.METHODS:
+    projection.make_projector(method)(torch.zeros(3, 8, 8, dtype=torch.uint16))
+fidelity.tracking_fidelity(n_objects=4, n_frames=12, n_divisions=1)
 # the N2V masking's draw and apply, and the flips, run where their tensors lie
 img = torch.zeros(2, 16, 16, 1)
 draws = train.n2v_draw_mask(None, img.shape, 8, (5, 5), "median")

@@ -364,8 +364,9 @@ def test_localize_data_parallel_matches_streaming(env):
 
 def test_smlm_workflow_chain(env):
     """calibrate -> astigmatic localize (z_scale-consistent btrack units)
-    on the port; its objects.h5 feeds the JAX server's track_objects (not
-    ported yet), which must link one track whose z trend matches truth."""
+    on the port; its objects.h5 feeds the JAX server's track_objects and
+    the port's, which must both link one track whose z trend matches
+    truth, into the same tracks.csv."""
     z_scale = 0.01
     _, loc = _chain(env, "torch", "smlm", {"threshold": 40, "btrack": True, "z_scale": z_scale}, "smlm")
     assert loc["state"] == "complete", loc.get("error")
@@ -375,6 +376,9 @@ def test_smlm_workflow_chain(env):
     _same_h5(loc["outputs"]["objects"], loc_j["outputs"]["objects"], atol=1e-3)
     st = _serve(env, "jax", "smlm_trk", "track_objects", {"max_distance": 5}, [loc["outputs"]["objects"]])
     assert st["state"] == "complete", st.get("error")
+    st_t = _serve(env, "torch", "smlm_trk", "track_objects", {"max_distance": 5}, [loc["outputs"]["objects"]])
+    assert st_t["state"] == "complete", st_t.get("error")
+    assert open(st_t["outputs"]["tracks"]).read() == open(st["outputs"]["tracks"]).read()
     rows = open(st["outputs"]["tracks"]).read().strip().split("\n")
     hdr = rows[0].split(",")
     data = sorted((dict(zip(hdr, r.split(","))) for r in rows[1:]), key=lambda d: float(d["t"]))
