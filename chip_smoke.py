@@ -185,6 +185,25 @@ on failure:
    ``measure_tracks`` byte-equal to the CPU port's, the tracker's frames/s
    at ``bench.py::bench_tracking``'s scene and ``tracking_fidelity`` at the
    JAX tests' bars. Only the segmentation job launches a kernel of the four.
+19. ops phase, the operations surface through ``python -m sequitr_tpu_torch``
+   subprocesses: (a) ``doctor`` (exit 0, ``cuda x1 (<name>)``, the probe's
+   ``init_s`` and ``matmul_s``) and ``info``, beside a probe that a trace
+   left running on another thread neither fails the next profiled block
+   nor crashes the process; (b) ``unet2d_cells`` import -> export ->
+   import -> export, bit-equal at each step; (c) ``serve --workers 2
+   --device cuda`` (both workers on the one card) and ``submit --follow``
+   of ``segmentation_unet2d`` (``profile: true``) -> ``measure_objects``:
+   labels.tif byte-equal to the same job in this process, the job's own
+   trace holding ``minmax_kernel`` and ``count_kernel`` 4 times each (its
+   launch count in the ``kernels`` line); (d) ``cancel`` of a running
+   ``__test_slow__`` job (cancelled within 5 s), then ``drain --wait``
+   with both workers busy and a job queued (the running jobs complete, the
+   supervisor exits 0, the queued job stays), ``queue`` and ``stats``; the
+   profile's overhead on the warm 4-frame job; (e) eight 4-frame jobs under
+   ``--workers 1`` and ``--workers 2``: jobs/s from the ledger's
+   ``finished`` span, the workers' boot and the idle drain; (f) every
+   example whose optional packages are present (``REQUIRES``), 4 at a
+   time, ``SEQUITR_EXAMPLE_STEPS=20``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -195,7 +214,7 @@ outside a checkout of the repository.
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
-``family_train``, ``geometry``, ``optics``, ``quantify``)
+``family_train``, ``geometry``, ``optics``, ``quantify``, ``ops``)
 after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
@@ -4078,13 +4097,420 @@ def quantify_phase(torch, hist, conv, smi_line):
     return counts
 
 
+OPS_FRAMES = 4  # job (a)'s stack: 4 cells_frame frames of 1024x1024
+OPS_SEED = 424_000  # job (a)'s frames
+OPS_JOBS = 8  # (e): 4-frame segmentation jobs under --workers 1 and --workers 2
+OPS_CANCEL_S = 5.0  # (d): a running job reaches "cancelled" within this after the cancel command
+OPS_EXAMPLE_WORKERS = 4  # (f): examples run this many at a time
+
+_STALE_TRACE_PROBE = """\
+import json, os, sys, threading
+import torch
+from sequitr_tpu_torch import utils
+out = sys.argv[1]
+started, release = threading.Event(), threading.Event()
+def abandoned():
+    with utils.trace(os.path.join(out, "stale")):
+        started.set()
+        release.wait(60)
+t = threading.Thread(target=abandoned)
+t.start()
+assert started.wait(30)
+with utils.trace(os.path.join(out, "next")):
+    x = torch.ones((256, 256), device="cuda")
+    float((x @ x).sum())
+release.set()
+t.join(60)
+assert os.path.getsize(os.path.join(out, "stale", "trace.json")) > 0
+with open(os.path.join(out, "next", "trace.json")) as f:
+    events = json.load(f)["traceEvents"]
+print(json.dumps({"kernels": sum(e.get("cat") == "kernel" for e in events)}))
+"""
+
+
+def _log_time(line):
+    """The wall-clock time of a ``logging`` line (``%(asctime)s`` first)."""
+    import datetime
+
+    return datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+def _trace_kernels(path):
+    """{kernel name: launches} of a Chrome trace written by ``utils.trace``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def ops_phase(torch, hist, conv, smi_line):
+    """The operations surface on the card: doctor and info, the weight
+    interchange round trip, a supervised two-worker serve (a profiled
+    workflow, cancel, drain), jobs/s under one and two workers, and every
+    example whose optional packages are present. Returns {job: (histogram_2d
+    launches, quantile passes)}: the supervised job's from its own trace."""
+    import importlib
+    import importlib.util
+    import re
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import examples
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import fixtures
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run_cli(*args, timeout=180, env=None):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "sequitr_tpu_torch", *args], cwd=root, capture_output=True,
+            text=True, timeout=timeout, env=env,
+        )
+        return res, time.perf_counter() - t0
+
+    def read_status(out):
+        try:
+            with open(os.path.join(out, "status.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def wait_for(pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.05)
+        if not pred():
+            raise AssertionError(f"ops: timed out waiting for {what}")
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models, logs = (os.path.join(tmp, d) for d in ("jobs", "models", "logs"))
+        for d in (jobs, logs):
+            os.makedirs(d)
+
+        # (a) doctor and info, beside the stale-trace probe, in subprocesses
+        with ThreadPoolExecutor(3) as pool:
+            doc = pool.submit(run_cli, "doctor", "--jobs-dir", jobs, "--models-dir", models,
+                              "--timeout", "120")
+            inf = pool.submit(run_cli, "info", "--models-dir", models)
+            stale = pool.submit(
+                subprocess.run, [sys.executable, "-c", _STALE_TRACE_PROBE, tmp], cwd=root,
+                capture_output=True, text=True, timeout=180,
+            )
+            (doc, doc_s), (inf, inf_s), stale = doc.result(), inf.result(), stale.result()
+        print(doc.stdout.rstrip())
+        name = torch.cuda.get_device_name(0)
+        if doc.returncode != 0 or f"cuda x{torch.cuda.device_count()} ({name})" not in doc.stdout:
+            raise AssertionError(f"doctor: rc {doc.returncode}\n{doc.stdout}\n{doc.stderr[-2000:]}")
+        probe = re.search(r"init_s ([0-9.]+), matmul_s ([0-9.]+)", doc.stdout)
+        print(f"ops (a) doctor exit 0 in {doc_s:.2f} s: cuda init_s {probe.group(1)}, matmul_s "
+              f"{probe.group(2)} (256x256 f32, first call) on {smi_line}")
+        print(inf.stdout.rstrip())
+        if inf.returncode != 0 or f"devices={torch.cuda.device_count()} ({name})" not in inf.stdout:
+            raise AssertionError(f"info: rc {inf.returncode}\n{inf.stdout}\n{inf.stderr[-2000:]}")
+        if stale.returncode != 0 or json.loads(stale.stdout.strip().splitlines()[-1])["kernels"] < 1:
+            raise AssertionError(f"stale-trace probe: rc {stale.returncode}\n{stale.stdout}\n{stale.stderr[-2000:]}")
+        print("ops (a) a profiled block after a trace left running on another thread: takes the profiler "
+              "over (the stale trace lands in its own directory), completes with its own CUDA kernels in "
+              "its trace, and the stale block's end does not crash the process")
+
+        # (b) import-model -> export-model -> import-model of unet2d_cells, bit-equal at each step
+        meta = fixtures.manifest()["unet2d_cells"]
+        arch = os.path.join(tmp, "unet2d_cells.json")
+        with open(arch, "w") as f:
+            json.dump(dict(meta["config"], __kind__=meta["kind"]), f)
+        npz = os.path.join(fixtures.fixture_dir(), "unet2d_cells.npz")
+        exported = [os.path.join(tmp, "export1.npz"), os.path.join(tmp, "export2.npz")]
+        steps = [
+            ["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, "unet2d_cells"],
+            ["export-model", "--models-dir", models, "unet2d_cells", exported[0]],
+            ["import-model", "--models-dir", models, "--npz", exported[0], "--arch", arch, "unet2d_cells_again"],
+            ["export-model", "--models-dir", models, "unet2d_cells_again", exported[1]],
+        ]
+        for argv in steps:
+            if cli.main(argv):
+                raise AssertionError(f"{argv[0]} failed")
+
+        def arrays(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+
+        src, first, second = arrays(npz), arrays(exported[0]), arrays(exported[1])
+        if sorted(src) != sorted(first) or sorted(first) != sorted(second):
+            raise AssertionError("export-model keys differ from the fixture's")
+        for k in src:
+            if not np.array_equal(src[k].astype(np.float32), first[k]) or first[k].tobytes() != second[k].tobytes():
+                raise AssertionError(f"interchange round trip changed {k}")
+        print(f"ops (b) unet2d_cells: import -> export -> import -> export, {len(first)} arrays "
+              f"bit-equal at each step (the fixture's float16 read as float32)")
+
+        frames = np.stack(
+            [synthetic.cells_frame(OPS_SEED + i, (1024, 1024))[0] for i in range(OPS_FRAMES)]
+        ).clip(0, 65535).astype(np.uint16)
+        stack = os.path.join(tmp, "stack.tif")
+        tiff.write_stack(stack, frames)
+        seg_params = {"model": "unet2d_cells", "localize": False}
+
+        def serve_cfg(name, **kw):
+            path = os.path.join(tmp, f"{name}.json")
+            ServerConfiguration(jobs_dir=jobs, models_dir=models, poll_interval=0.2, log_dir=logs,
+                                device="cuda", **kw).to_json(path)
+            return path
+
+        def start_serve(workers, cfg_path, log_name, env=None):
+            log_f = open(os.path.join(tmp, log_name), "w")
+            t0 = time.time()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "sequitr_tpu_torch", "serve", "--workers", str(workers),
+                 "--device", "cuda", "--config", cfg_path],
+                cwd=root, stdout=log_f, stderr=subprocess.STDOUT, env=env,
+            )
+            proc.log_f, proc.log_path, proc.t0 = log_f, os.path.join(tmp, log_name), t0
+            return proc
+
+        def log_of(proc):
+            with open(proc.log_path) as f:
+                return f.read()
+
+        def stop(proc):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            proc.log_f.close()
+
+        def boot_times(proc):
+            """Seconds from the spawn of the workers (the supervisor's
+            "supervising" line; a single worker's own start) to each
+            worker's "server watching" line."""
+            lines = log_of(proc).splitlines()
+            spawned = [_log_time(ln) for ln in lines if "supervising" in ln] or [proc.t0]
+            watching = [_log_time(ln) for ln in lines if "server watching" in ln]
+            return [round(t - spawned[0], 3) for t in watching]
+
+        # (c) serve --workers 2 on the one card; a profiled workflow by submit --follow
+        slow_env = dict(os.environ, SEQUITR_TEST_SLOW="1")
+        sup = start_serve(2, serve_cfg("ops_c"), "ops_c.log", env=slow_env)
+        try:
+            seg_out, meas_out = os.path.join(tmp, "ops_seg"), os.path.join(tmp, "ops_meas")
+            wf = os.path.join(tmp, "workflow.json")
+            with open(wf, "w") as f:
+                json.dump([
+                    {"module": "segmentation_unet2d", "params": dict(seg_params, profile=True),
+                     "input": [stack], "output": seg_out},
+                    {"module": "measure_objects", "params": {},
+                     "input": [os.path.join(seg_out, "labels.tif"), stack], "output": meas_out},
+                ], f)
+            # the same job in this process on the card, while the workers boot
+            ref_jobs = os.path.join(tmp, "ref_jobs")
+            ref = ImageServer(ServerConfiguration(jobs_dir=ref_jobs, models_dir=models, device="cuda"))
+            ref_out = os.path.join(tmp, "ref_seg")
+            submit_job(ref_jobs, {"module": "segmentation_unet2d", "params": dict(seg_params, profile=True),
+                                  "input": [stack], "output": ref_out})
+            torch.cuda.synchronize()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            if not ref.poll_once():
+                raise AssertionError("ops: the in-process job did not run")
+            torch.cuda.synchronize()
+            counts["ops_inprocess"] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            if counts["ops_inprocess"] != (OPS_FRAMES, OPS_FRAMES):
+                raise AssertionError(f"ops: in-process job ran {counts['ops_inprocess']} (launches, passes)")
+            res, follow_s = run_cli("submit", "--jobs-dir", jobs, "--follow", wf, timeout=300)
+            if res.returncode != 0:
+                raise AssertionError(f"submit --follow: rc {res.returncode}\n{res.stdout[-2000:]}\n"
+                                     f"{res.stderr[-2000:]}\n{log_of(sup)[-3000:]}")
+            seg_status = read_status(seg_out)
+            metrics = json.loads(seg_status["outputs"]["metrics"])
+            if seg_status["state"] != "complete" or metrics.get("device") != "cuda":
+                raise AssertionError(f"ops: supervised job {seg_status}")
+            with open(os.path.join(seg_out, "labels.tif"), "rb") as f:
+                served = f.read()
+            with open(os.path.join(ref_out, "labels.tif"), "rb") as f:
+                if f.read() != served:
+                    raise AssertionError("ops: the supervised job's labels.tif differs from the in-process job's")
+            kernels = _trace_kernels(os.path.join(seg_out, "profile", "trace.json"))
+            minmax = sum(n for k, n in kernels.items() if "minmax_kernel" in k)
+            count = sum(n for k, n in kernels.items() if "count_kernel" in k)
+            counts["ops_supervised"] = (count, minmax)
+            print(f"ops (c) serve --workers 2 --device cuda: submit --follow of segmentation_unet2d "
+                  f"(profile) -> measure_objects exit 0 in {follow_s:.2f} s; labels.tif byte-equal to "
+                  f"the in-process job's; its trace holds minmax_kernel x{minmax}, count_kernel "
+                  f"x{count} ({len(kernels)} kernel names, {sum(kernels.values())} launches); "
+                  f"metrics {json.dumps(metrics)} on {smi_line}")
+            if (count, minmax) != (OPS_FRAMES, OPS_FRAMES):
+                raise AssertionError(f"ops: the supervised trace holds {minmax} minmax / {count} count launches")
+            print(f"ops boot: worker spawn -> 'server watching' {boot_times(sup)} s")
+
+            # (d) cancel a running job; then drain with one job running on each worker and one queued
+            slow_out = os.path.join(tmp, "ops_slow")
+            jid = submit_job(jobs, {"module": "__test_slow__", "params": {"sleep": 60},
+                                    "input": [], "output": slow_out})
+            wait_for(lambda: os.path.exists(os.path.join(slow_out, "worker_pid.txt")), 60, "the slow job")
+            res, cancel_s = run_cli("cancel", "--jobs-dir", jobs, jid)
+            t0 = time.perf_counter()
+            if res.returncode != 0 or "cancel requested" not in res.stdout:
+                raise AssertionError(f"cancel: rc {res.returncode} {res.stdout} {res.stderr[-1000:]}")
+            wait_for(lambda: (read_status(slow_out) or {}).get("state") == "cancelled", OPS_CANCEL_S,
+                     "the cancelled state")
+            print(f"ops (d) cancel {jid}: the command took {cancel_s:.3f} s, the running job was "
+                  f"cancelled {time.perf_counter() - t0:.3f} s after it ({res.stdout.strip()})")
+            holds = [os.path.join(tmp, f"ops_hold{i}") for i in range(2)]
+            for out in holds:
+                submit_job(jobs, {"module": "__test_slow__", "params": {"sleep": 3}, "input": [], "output": out})
+            wait_for(lambda: all((read_status(o) or {}).get("state") == "running" for o in holds), 60,
+                     "both workers busy")
+            queued_out = os.path.join(tmp, "ops_queued")
+            queued = submit_job(jobs, {"module": "__test_slow__", "params": {"sleep": 0.1}, "input": [],
+                                       "output": queued_out})
+            res, drain_busy_s = run_cli("drain", "--jobs-dir", jobs, "--wait", "--timeout", "120")
+            code = sup.wait(timeout=60)
+            if res.returncode != 0 or code != 0:
+                raise AssertionError(f"drain: rc {res.returncode}, supervisor {code}\n{res.stderr}\n"
+                                     f"{log_of(sup)[-3000:]}")
+            if any((read_status(o) or {}).get("state") != "complete" for o in holds) \
+                    or read_status(queued_out) is not None \
+                    or sorted(os.listdir(jobs)) != [f"job_{queued}.json"]:
+                raise AssertionError(f"ops: drain left {sorted(os.listdir(jobs))}")
+            print(f"ops (d) drain --wait with both workers busy: {drain_busy_s:.3f} s (running jobs "
+                  f"complete, supervisor exit 0, .serve.pid gone, the queued job still queued)")
+        finally:
+            stop(sup)
+        for argv in (["queue", "--jobs-dir", jobs], ["stats", logs]):
+            res, _ = run_cli(*argv)
+            if res.returncode != 0:
+                raise AssertionError(f"{argv[0]}: rc {res.returncode} {res.stderr[-1000:]}")
+            print(res.stdout.rstrip())
+        os.remove(os.path.join(jobs, f"job_{queued}.json"))
+
+        # profile overhead: the same 4-frame job in this process, warm, without and with profile
+        walls = {}
+        for name in ("plain", "profiled", "plain", "profiled"):
+            out = os.path.join(tmp, f"overhead_{name}_{len(walls)}")
+            params = dict(seg_params, profile=True) if name == "profiled" else seg_params
+            submit_job(ref_jobs, {"module": "segmentation_unet2d", "params": params, "input": [stack],
+                                  "output": out})
+            t0 = time.perf_counter()
+            ref.poll_once()
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
+        plain_s, prof_s = min(walls["plain"]), min(walls["profiled"])
+        print(f"ops profile overhead: the 4-frame job {plain_s * 1e3:.2f} ms plain, {prof_s * 1e3:.2f} ms "
+              f"with profile (x{prof_s / plain_s:.3f}; best of 2, warm, in-process) on {smi_line}")
+
+        # (e) eight 4-frame jobs under --workers 1 and --workers 2 on the one card: one
+        # warm-up job a worker is queued before the serve starts (the serve start -> first
+        # job complete time), the eight are submitted at once when every worker has
+        # finished its warm-up
+        for workers in (1, 2):
+            ledger = os.path.join(logs, "jobs.jsonl")
+            if os.path.exists(ledger):
+                os.remove(ledger)
+
+            def seg_jobs(tag, n):
+                outs = [os.path.join(tmp, f"ops_e{workers}_{tag}{i}") for i in range(n)]
+                ids = [submit_job(jobs, {"module": "segmentation_unet2d", "params": seg_params,
+                                         "input": [stack], "output": out}) for out in outs]
+                return outs, ids
+
+            def ledger_rows():
+                try:
+                    with open(ledger) as f:
+                        return {r["id"]: r for r in map(json.loads, f)}
+                except (OSError, ValueError):
+                    return {}
+
+            warm_outs, warm_ids = seg_jobs("warm", workers)
+            sup = start_serve(workers, serve_cfg(f"ops_e{workers}"), f"ops_e{workers}.log")
+            try:
+                # until every worker has served one (claims are first come, first served)
+                for attempt in range(8):
+                    wait_for(lambda: all((read_status(o) or {}).get("state") == "complete" for o in warm_outs),
+                             180, f"the warm-up jobs under {workers} worker(s)")
+                    warmed = {str(ledger_rows()[i]["worker"]) for i in warm_ids}
+                    if len(warmed) == workers:
+                        break
+                    more_outs, more_ids = seg_jobs(f"warm{attempt}_", 1)
+                    warm_outs, warm_ids = warm_outs + more_outs, warm_ids + more_ids
+                else:
+                    raise AssertionError(f"ops: warm-up jobs reached only workers {sorted(warmed)}")
+                t_submit = time.time()
+                outs, ids = seg_jobs("job", OPS_JOBS)
+                wait_for(lambda: all((read_status(o) or {}).get("state") == "complete" for o in outs), 180,
+                         f"{OPS_JOBS} jobs under {workers} worker(s)")
+                time.sleep(0.5)  # idle: every worker back in its poll loop
+                res, drain_idle_s = run_cli("drain", "--jobs-dir", jobs, "--wait", "--timeout", "60")
+                if res.returncode != 0 or sup.wait(timeout=30) != 0:
+                    raise AssertionError(f"idle drain: rc {res.returncode}\n{log_of(sup)[-2000:]}")
+            finally:
+                stop(sup)
+            rows = ledger_rows()
+            first_done = min(rows[i]["finished"] for i in warm_ids)
+            done = sorted(rows[i]["finished"] for i in ids if rows[i]["state"] == "complete")
+            if len(done) != OPS_JOBS:
+                raise AssertionError(f"ops: {len(done)} of {OPS_JOBS} jobs complete under {workers} workers")
+            devices = {json.loads(read_status(o)["outputs"]["metrics"])["device"] for o in outs + warm_outs}
+            if devices != {"cuda"}:
+                raise AssertionError(f"ops: the jobs under {workers} worker(s) ran on {devices}")
+            span = done[-1] - done[0]
+            print(f"ops (e) --workers {workers}: {OPS_JOBS} jobs of {OPS_FRAMES} 1024x1024 frames submitted at "
+                  f"once to warm workers: ledger finished span {span:.3f} s, {(OPS_JOBS - 1) / span:.3f} "
+                  f"jobs/s ((n-1)/span); all done {done[-1] - t_submit:.3f} s after the submit "
+                  f"({OPS_JOBS / (done[-1] - t_submit):.3f} jobs/s); by worker "
+                  f"{sorted(str(rows[i]['worker']) for i in ids)}; serve start -> first (warm-up) job "
+                  f"complete {first_done - sup.t0:.3f} s; spawn -> 'server watching' {boot_times(sup)} s; "
+                  f"idle drain --wait {drain_idle_s:.3f} s; on {smi_line}")
+
+        # (f) the examples on the card, those whose optional packages are present
+        runnable, left_out = [], []
+        for ex in examples.NAMES:
+            mod = importlib.import_module(f"sequitr_tpu_torch.examples.{ex}")
+            missing = [r for r in getattr(mod, "REQUIRES", ()) if importlib.util.find_spec(r) is None]
+            (left_out if missing else runnable).append((ex, missing))
+        print("ops (f) examples left out: " + (", ".join(
+            f"{ex} (needs {', '.join(m)}, absent on this host)" for ex, m in left_out) or "none"))
+
+        def run_example(ex):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", f"sequitr_tpu_torch.examples.{ex}", os.path.join(tmp, f"ex_{ex}")],
+                cwd=root, capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, SEQUITR_EXAMPLE_STEPS="20"),
+            )
+            return ex, res, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(OPS_EXAMPLE_WORKERS) as pool:
+            results = list(pool.map(run_example, [ex for ex, _ in runnable]))
+        for ex, res, wall in results:
+            if res.returncode != 0:
+                raise AssertionError(f"example {ex}: rc {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+            print(f"ops (f) example {ex}: exit 0 in {wall:.2f} s ({OPS_EXAMPLE_WORKERS} at a time on the card)")
+        print(f"ops (f) {len(results)} examples in {time.perf_counter() - t0:.2f} s on {smi_line}")
+    return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
 
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
-    "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify",
+    "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify", "ops",
 )
 
 
@@ -4153,6 +4579,7 @@ def main(argv=None) -> int:
             "geometry": lambda: geometry_phase(torch, hist, conv, smi_line),
             "optics": lambda: optics_phase(torch, hist, conv, smi_line),
             "quantify": lambda: quantify_phase(torch, hist, conv, smi_line),
+            "ops": lambda: ops_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -4183,6 +4610,7 @@ def main(argv=None) -> int:
     counts.update(timed("geometry", geometry_phase, hist, conv, smi_line))
     counts.update(timed("optics", optics_phase, hist, conv, smi_line))
     counts.update(timed("quantify", quantify_phase, hist, conv, smi_line))
+    counts.update(timed("ops", ops_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -4210,7 +4638,10 @@ def main(argv=None) -> int:
         "project_stack, measure_objects, export_ctc, localize_emitters, count_spots and measure_tracks "
         "jobs, which run sorts, reductions and elementwise torch ops on the card or host numpy and launch "
         "none of the four kernels, except quant_ee_segment, the chain's segmentation_unet2d on 4 projected "
-        "frames, which normalizes each with one quantile pass as job a does; the conv3x3 "
+        "frames, which normalizes each with one quantile pass as job a does; ops_supervised is the ops "
+        "phase's segmentation_unet2d served by a supervised worker process (serve --workers 2), its "
+        "launches counted in the job's own profile trace (count_kernel, minmax_kernel), ops_inprocess the "
+        "same job in this process; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

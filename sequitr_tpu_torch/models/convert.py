@@ -15,6 +15,10 @@ only the kernels change layout: a conv's HWIO (DHWIO) kernel becomes
 torch's (c_out, c_in, k...), the transposed conv's becomes (c_in, c_out,
 k...) with no spatial flip (``sequitr_tpu/models/torch_reference.py``
 documents both maps in 2D; 3D adds the depth axis in front).
+
+``from_layout`` reads a flat npz exported from TF or torch whose kernels
+keep their source layout (``import-model --layout tf|torch``): the JAX
+package's three kernel maps, copied, on the same keys.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
     "build", "load_flat", "to_flat", "nest_flat", "load_train_state", "conv_to_torch",
-    "conv_from_torch", "pack_conv3x3",
+    "conv_from_torch", "pack_conv3x3", "tf_transpose_kernel_to_jax", "torch_kernel_to_jax",
+    "torch_transpose_kernel_to_jax", "from_layout", "LAYOUTS",
 ]
 
 _STATE = "state/"
@@ -74,6 +79,50 @@ def pack_conv3x3(
     w = torch.tensor(np.asarray(w_hwio, dtype=np.float32), device=device)
     bias = torch.tensor(np.asarray(b, dtype=np.float32), device=device)
     return conv3x3.pack_weights(w, bias, dtype)
+
+
+def tf_transpose_kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    """TF conv*_transpose kernel [k..., c_out, c_in] -> HWIO [k..., c_in, c_out]."""
+    axes = list(range(w.ndim))
+    axes[-2], axes[-1] = axes[-1], axes[-2]
+    return np.transpose(w, axes)
+
+
+def torch_kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    """torch conv kernel [c_out, c_in, k...] -> HWIO [k..., c_in, c_out]."""
+    nd = w.ndim
+    return np.transpose(w, tuple(range(2, nd)) + (1, 0))
+
+
+def torch_transpose_kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose kernel [c_in, c_out, k...] -> HWIO [k..., c_in, c_out]."""
+    nd = w.ndim
+    return np.transpose(w, tuple(range(2, nd)) + (0, 1))
+
+
+LAYOUTS = ("jax", "tf", "torch")
+
+
+def from_layout(flat: Mapping[str, np.ndarray], layout: str) -> Dict[str, np.ndarray]:
+    """A flat dict whose kernels are in ``layout``'s form as the canonical
+    flat dict (HWIO kernels), the JAX CLI's ``import-model --layout`` maps:
+    ``tf`` transposes the transposed-conv kernels (``/up/`` keys); ``torch``
+    those and every other ``*/w`` of 4 or more dimensions; ``jax`` changes
+    nothing. ``state/`` entries pass through."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}: use one of {LAYOUTS}")
+    out = {}
+    for key, w in flat.items():
+        kernel = (
+            layout != "jax" and not key.startswith(_STATE)
+            and key.endswith("/w") and np.ndim(w) >= 4
+        )
+        if kernel and "/up/" in f"/{key}/":
+            w = (tf_transpose_kernel_to_jax if layout == "tf" else torch_transpose_kernel_to_jax)(w)
+        elif kernel and layout == "torch":
+            w = torch_kernel_to_jax(w)
+        out[key] = w
+    return out
 
 
 def _flat_key(sd_key: str) -> str:

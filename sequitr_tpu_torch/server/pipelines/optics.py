@@ -19,6 +19,11 @@ server does on one chip. The illumination job's estimate pass samples
 frames on the host (``ops.illumination.fit_shading`` /
 ``estimate_bleach_exp``, numpy); its streaming pass runs every frame
 through ``ops.illumination.make_corrector`` on the device.
+
+The two test hooks of the JAX module, ``__test_wedge__`` (never returns)
+and ``__test_slow__`` (sleeps, polling the cancel marker), register only
+under ``SEQUITR_TEST_WEDGE`` / ``SEQUITR_TEST_SLOW``, for the lifecycle
+tests of the supervisor, drain, cancel, reclaim and recycle paths.
 """
 
 from __future__ import annotations
@@ -710,6 +715,39 @@ def _write_planes(path: str, got: np.ndarray, comp: str, timer) -> None:
         writer.abort()
         raise
     writer.close()
+
+
+if os.environ.get("SEQUITR_TEST_WEDGE"):  # pragma: no cover - subprocess only
+    # test hook: a pipeline that never returns, for exercising the watchdog
+    # -> worker-recycle path end-to-end from a real supervisor subprocess
+    @register("__test_wedge__")
+    def _test_wedge(job: Job, config: ServerConfiguration):
+        time.sleep(3600)
+
+
+if os.environ.get("SEQUITR_TEST_SLOW"):  # pragma: no cover - subprocess only
+    # test hook for the multi-worker e2e: a job slow enough to SIGKILL its
+    # owner mid-run. Writes the worker's pid so the test kills exactly that
+    # process; the reclaimed RE-run sees the pid file already present and
+    # finishes fast (the rescue, not the sleep, is what's under test).
+    @register("__test_slow__")
+    def _test_slow(job: Job, config: ServerConfiguration):
+        out = job.output or "."
+        os.makedirs(out, exist_ok=True)
+        pid_file = os.path.join(out, "worker_pid.txt")
+        rerun = os.path.exists(pid_file)
+        with open(pid_file, "w") as f:
+            f.write(str(os.getpid()))
+        end = time.time() + (0.5 if rerun else float(job.params.get("sleep", 10.0)))
+        while time.time() < end:
+            # poll the cancel marker like every real pipeline does between
+            # frames/steps, so lifecycle tests can cancel this job too
+            if jobs_lib.cancel_requested(job):
+                raise jobs_lib.JobCancelled(
+                    f"job {job.id} cancelled mid-sleep"
+                )
+            time.sleep(0.2)
+        return {"rerun": str(rerun)}
 
 
 @register("deconvolve")

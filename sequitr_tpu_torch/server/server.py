@@ -15,6 +15,8 @@ server's orbax checkpoint. ``python -m sequitr_tpu export-model`` output
 imports with ``python -m sequitr_tpu_torch import-model``.
 
 Jobs run on ``config.device`` (default the CUDA card), training jobs too.
+The job param ``profile: true`` traces a job with ``torch.profiler``
+(``utils.trace``) into ``<output>/profile``.
 Multi-card data or spatial parallelism is a later slice of the port.
 """
 
@@ -196,6 +198,8 @@ class ImageServer:
             attempts += 1
             try:
                 pipeline = self.registry.get(job.module, job.func)
+                if job.params.get("profile"):
+                    pipeline = _profiled(pipeline)
                 outputs = self._run_with_watchdog(pipeline, job) or {}
                 unread = job.params.unread_keys()
                 warnings = list(job.runtime_warnings) or None
@@ -334,6 +338,23 @@ class ImageServer:
         if error:
             raise error[0]
         return result[0]
+
+
+def _profiled(pipeline):
+    """Wrap a pipeline in a ``torch.profiler`` trace (job param ``profile:
+    true``): the Chrome trace lands in ``<job output>/profile`` and the
+    path is added to the job outputs, as the JAX server adds its trace's."""
+
+    def run(job, config):
+        from sequitr_tpu_torch import utils
+
+        pdir = os.path.join(job.output or ".", "profile")
+        with utils.trace(pdir):
+            outputs = pipeline(job, config) or {}
+        outputs.setdefault("profile", pdir)
+        return outputs
+
+    return run
 
 
 # ---------------------------------------------------------------------------

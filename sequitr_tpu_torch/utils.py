@@ -9,13 +9,17 @@ f32 convs in TF32 by default); ``derived`` caches a module built from
 another (a folded copy, a polyphase module) for as long as the source
 module's tensors stay as they were.
 ``PhaseTimer`` is the JAX package's structured phase timer, copied.
-``device_median_ms`` times calls on the card.
+``trace`` captures a ``torch.profiler`` trace around a block (the job
+param ``profile: true``). ``device_median_ms`` times calls on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import queue
+import threading
 import time
 from typing import Callable, Dict, Iterator, Union
 
@@ -23,7 +27,7 @@ import torch
 
 __all__ = [
     "DEFAULT_DEVICE", "resolve_device", "ieee_f32", "f32_entry", "derived",
-    "PhaseTimer", "device_median_ms",
+    "PhaseTimer", "trace", "device_median_ms",
 ]
 
 DEFAULT_DEVICE = "cuda"
@@ -135,6 +139,109 @@ class PhaseTimer:
 
     def summary(self) -> Dict[str, float]:
         return {f"{k}_s": round(v, 4) for k, v in self._acc.items()}
+
+
+class _ProfilerThread:
+    """The one thread that starts and stops every ``trace`` of the process.
+
+    PyTorch's profiler session is per process (CUPTI), while its start and
+    stop are bound to the thread that made them: a trace started on a job's
+    thread can be stopped only there. Run on this thread, a new trace can
+    stop the one a watchdog-abandoned job left running and take its place.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._queue = None
+        self.active = None  # (profile, owner token, log_dir)
+
+    def call(self, fn):
+        """Run ``fn()`` on the profiler thread; return or raise its result."""
+        with self._lock:
+            if self._queue is None:
+                self._queue = queue.Queue()
+                threading.Thread(target=self._loop, daemon=True, name="sequitr-profiler").start()
+        done = queue.Queue(maxsize=1)
+        self._queue.put((fn, done))
+        ok, value = done.get()
+        if not ok:
+            raise value
+        return value
+
+    def _loop(self):
+        while True:
+            fn, done = self._queue.get()
+            try:
+                done.put((True, fn()))
+            except BaseException as e:  # handed to the caller
+                done.put((False, e))
+
+
+_PROFILER = _ProfilerThread()
+
+
+def _stop_and_export(active) -> None:
+    prof, _, log_dir = active
+    try:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    except Exception:
+        pass
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace (CPU ops of every thread, and CUDA
+    kernels, copies and runtime calls where a card is visible) around a
+    block; the Chrome trace lands in ``log_dir/trace.json`` (Perfetto and
+    ``chrome://tracing`` read it).
+
+    Robust to a stale trace left running by an abandoned thread (a
+    watchdog-timed-out profiled job): the new trace stops the stale one
+    (whose trace lands in its own directory) and takes the profiler over,
+    as the JAX package's ``trace`` does; a failed start runs the block
+    untraced, and a failed stop or export never masks the block's own
+    result.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    token = object()
+
+    def start():
+        if _PROFILER.active is not None:
+            stale, _PROFILER.active = _PROFILER.active, None
+            _stop_and_export(stale)
+        try:
+            config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+            prof = profile(activities=activities, experimental_config=config)
+        except (AttributeError, TypeError):  # a PyTorch without the option
+            prof = profile(activities=activities)
+        prof.start()
+        _PROFILER.active = (prof, token, log_dir)
+
+    def stop():
+        # a trace that a later one took over was stopped and exported then
+        if _PROFILER.active is not None and _PROFILER.active[1] is token:
+            active, _PROFILER.active = _PROFILER.active, None
+            _stop_and_export(active)
+
+    try:
+        _PROFILER.call(start)
+        started = True
+    except Exception:
+        started = False
+    try:
+        yield
+    finally:
+        if started:
+            try:
+                _PROFILER.call(stop)
+            except Exception:
+                pass
 
 
 def device_median_ms(fn: Callable[[], object], n: int = 100) -> float:

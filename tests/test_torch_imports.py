@@ -13,6 +13,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "sequitr_tpu_torch",
     "sequitr_tpu_torch.__main__",
+    "sequitr_tpu_torch.client",
+    "sequitr_tpu_torch.examples",
     "sequitr_tpu_torch.config",
     "sequitr_tpu_torch.fidelity",
     "sequitr_tpu_torch.utils",
@@ -79,6 +81,15 @@ MODULES = [
     "sequitr_tpu_torch.studies.conv3x3_parts",
     "sequitr_tpu_torch.studies.normalize_pass",
     "sequitr_tpu_torch.studies.flow_gather",
+] + [
+    f"sequitr_tpu_torch.examples.{name}"
+    for name in (
+        "correct_illumination", "denoise_n2v", "distill_fast_model", "enhance_denoise",
+        "localize_3d", "migrate_checkpoint", "operate_jobs", "qc_review", "quantify_workflow",
+        "register_and_chain", "segment_instances_flows", "segment_instances_stars",
+        "segment_timelapse", "segment_volume_3d", "stitch_mosaic", "stream_large_stack",
+        "track_lineage",
+    )
 ]
 
 PROBE = """
@@ -102,6 +113,8 @@ for job in (
     "measure_tracks", "track_objects", "export_ctc", "qc_stack", "project_stack",
 ):
     assert job in REGISTRY.names(), job
+# the test hooks register only under SEQUITR_TEST_WEDGE / SEQUITR_TEST_SLOW
+assert "__test_wedge__" not in REGISTRY.names() and "__test_slow__" not in REGISTRY.names()
 
 import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
