@@ -204,6 +204,39 @@ on failure:
    ``finished`` span, the workers' boot and the idle drain; (f) every
    example whose optional packages are present (``REQUIRES``), 4 at a
    time, ``SEQUITR_EXAMPLE_STEPS=20``.
+20. parallel phase, every job that shards served by ``ImageServer`` inside
+   ``parallel.virtual_devices(4)`` (a pool of 4 devices over the one card:
+   real shards and halo exchanges, the copies within one device), each
+   line with its wall time, peak GB and device ms (a profiled run): (a)
+   ``segmentation_unet2d`` ``spatial_parallel: true`` on one 8192x8192
+   ``cells_frame`` (4 x 2048 rows) against one untiled whole-frame forward
+   of the same normalized frame (mIoU >= 0.997, pixel agreement printed),
+   one quantile pass, the halo rows a frame counted and held to 2 x 3 a
+   3x3 conv; (b) ``spatial_parallel: 2`` (2 data x 2 space) on 4 frames
+   of 2048x2048, each held the same way, a pass a chunk of 2 frames; (c)
+   ``segmentation_unet3d`` Z-sharded on a 64x512x512 volume against the
+   whole volume; (d) ``enhancement_gan`` ``spatial_parallel: true`` at
+   2048x2048 against the whole-frame generator (PSNR >= 40 dB); (e)
+   ``data_parallel`` through segmentation_unet2d, segment_flows,
+   enhancement_gan, denoise, localize_emitters (2D, 3D, astigmatic),
+   deconvolve, register_stack and stitch_mosaic, each against the same job
+   on the card alone (files byte-equal where each device serves the frames
+   the single-device job serves one at a time, else at the job's bars:
+   CSVs to their decimals and the geometry phase's 1e-3 px); (f)
+   ``finetune_spatial`` with ``unet2d_cells``' architecture on 2048x2048
+   frames, 3 steps, 4 ways against 1 from one seeded init: at f32 compute
+   every hold of the train phase, at bf16 loss, accuracy and grad_norm at
+   those bars and the weights at the bf16 bars, which lie between the bf16
+   noise floor (1 way at bf16 against 1 way at f32) and a planted fault
+   (zeroed halos), both printed and the fault required beyond the bars; the
+   bf16 spatial step timed at 1 and 4 ways; (g) ``train_unet2d``
+   ``data_parallel`` at f32, batch 8 on 4 ways against 1 (global
+   batch-norm statistics), the train phase's holds; (h) a mesh of two
+   distinct devices, cuda:0 and the CPU (the weight copies, cross-device
+   halos, gathers and gradient returns of a multi-card pool): the spatial
+   forward and data-parallel serving at 512x512 against the card alone,
+   and the data-parallel and spatial train steps, 3 each, at the train
+   phase's bars.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -214,8 +247,8 @@ outside a checkout of the repository.
 runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
-``family_train``, ``geometry``, ``optics``, ``quantify``, ``ops``)
-after the build, for work on one kernel or path, and prints neither of the
+``family_train``, ``geometry``, ``optics``, ``quantify``, ``ops``,
+``parallel``) after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
 
@@ -4504,6 +4537,562 @@ def ops_phase(torch, hist, conv, smi_line):
     return counts
 
 
+PAR_WAYS = 4  # the emulated mesh: parallel.virtual_devices(4) over cuda:0
+PAR_FRAME = (8192, 8192)  # (a): one slide-scanner-sized frame, 4 x 2048 rows
+PAR_HYBRID = (2048, 2048)  # (b): 4 frames, 2 data x 2 space
+PAR_VOLUME = (64, 512, 512)  # (c): 16 planes a shard
+PAR_GAN = (2048, 2048)  # (d)
+PAR_FT = (2048, 2048)  # (f): finetune_spatial frames
+PAR_FT_STEPS = 3
+PAR_SERVE_FRAME = (1024, 1024)  # (e): the serve phase's frame shape
+PAR_OVERLAP = 102  # (e): stitch_mosaic's 3x3 grid of such tiles, 10% overlap
+PAR_RECORD = (256, 256)  # (g): the train phase's patch shape, 8 records
+PAR_SEED = 626_000
+PAR_MIXED = (512, 512)  # (h): a frame, and 2 records of PAR_RECORD, on a mesh of cuda:0 and the CPU
+PAR_MIXED_PROB_BAR = 2.5e-4  # (h): the model phase's card-vs-CPU logit bar (1e-3) times softmax's largest slope (1/4)
+# (f) bf16, 4 ways against 1, between the bf16 noise floor (1 way bf16 against
+# 1 way f32: update L2 0.242967, statistics 0.00346) and the planted fault
+# (zeroed halos: 0.309188, 0.01793); 4 ways read 0.173802, 0.00178 (PERF.md)
+PAR_FT_BF16_UPDATE_BAR = 0.275
+PAR_FT_BF16_STATS_BAR = 0.007
+PAR_ENHANCE_PSNR_DB = PSNR_BAR_DB  # (d): the enhance phase's bar
+PAR_CSV_UNIT = OPTICS_CSV_UNIT  # (e): emitters.csv, DP against one device
+PAR_GEOM_PX = GEOM_CARD_CPU_PX  # (e): register_stack / stitch_mosaic, DP against one device
+PAR_PIXEL_REL = 1e-5  # (e): registered / mosaic pixels, DP against one device, of the frame's largest value
+
+
+RESP_REL = 1e-4  # (e): a seam's or a frame's PSR response, DP against one device (tests/test_torch_geometry_jobs.py)
+
+
+def _csv_gap(np, path_a, path_b, abs_bar, rel_bar):
+    """Two CSVs of one job: the same header, rows and text cells; numbers
+    within ``abs_bar`` plus ``rel_bar`` of their size plus one unit of a
+    printed last digit. Returns (rows, largest absolute gap)."""
+    with open(path_a) as f, open(path_b) as g:
+        a, b = f.read().strip().splitlines(), g.read().strip().splitlines()
+    if a[0] != b[0] or len(a) != len(b):
+        raise AssertionError(f"{path_b}: header or row count differs from {path_a}")
+    gap = 0.0
+    for ra, rb in zip(a[1:], b[1:]):
+        for x, y in zip(ra.split(","), rb.split(",")):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                if x != y:
+                    raise AssertionError(f"{path_b}: {y!r} against {x!r}")
+                continue
+            unit = 10.0 ** -len(x.split(".")[1]) if "." in x else 0.0
+            d = abs(fx - fy)
+            gap = max(gap, d)
+            if not d <= abs_bar + rel_bar * abs(fx) + unit + 1e-12:
+                raise AssertionError(f"{path_b}: {y} against {x}")
+    return len(a) - 1, gap
+
+
+def parallel_phase(torch, hist, conv, smi_line):
+    """The ``parallel`` package on the card: every job that shards, served
+    by ``ImageServer`` inside ``parallel.virtual_devices(4)`` (a 4-device
+    pool over cuda:0: real shards and halo exchanges, the copies within one
+    device), each beside an unsharded reference. Returns {job: (histogram_2d
+    launches, quantile passes)}."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from sequitr_tpu_torch import __main__ as cli
+    from sequitr_tpu_torch import fidelity, parallel
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.data.synthetic import bandlimited_scene
+    from sequitr_tpu_torch.models import convert, fixtures, gan
+    from sequitr_tpu_torch.models import unet as unet_lib
+    from sequitr_tpu_torch.parallel import spatial
+    from sequitr_tpu_torch.pipeline import infer
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import load_model, read_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+        for name in ("unet2d_cells", "unet3d_cells", "gan_denoise", "n2v_cells", "flows_cells"):
+            meta = fixtures.manifest()[name]
+            arch = os.path.join(tmp, f"{name}.json")
+            with open(arch, "w") as f:
+                json.dump(dict(meta["config"], __kind__=meta["kind"]), f)
+            npz = os.path.join(fixtures.fixture_dir(), f"{name}.npz")
+            if cli.main(["import-model", "--models-dir", models, "--npz", npz, "--arch", arch, name]):
+                raise AssertionError(f"import-model {name} failed")
+        server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+
+        def write(name, arr):
+            path = os.path.join(tmp, name)
+            tiff.write_stack(path, arr)
+            return path
+
+        def u16(a):
+            return np.clip(np.round(a), 0, 65535).astype(np.uint16)
+
+        halo = {"rows": 0, "bytes": 0}
+        neighbor_rows = spatial._neighbor_rows
+        halo_fn = {"rows": neighbor_rows}
+
+        def counted(row, j):
+            top, bot = halo_fn["rows"](row, j)
+            n = int(j > 0) + int(j < len(row) - 1)
+            halo["rows"] += n
+            halo["bytes"] += n * top.numel() * top.element_size()
+            return top, bot
+
+        def serve(name, module, params, inputs, ways=PAR_WAYS, profile=False, rows=neighbor_rows):
+            """One job, every kernel's count reset just before it and read just
+            after; ``ways`` > 1 serves it on a virtual pool of that many
+            devices, 1 on the card alone; ``rows`` is the halo exchange
+            (``spatial._neighbor_rows``, or a planted fault). Returns
+            (outputs, wall s, peak GB, device ms or None, halo rows)."""
+            out = os.path.join(tmp, f"out_{name}")
+            submit_job(jobs, {"module": module, "params": params, "input": inputs, "output": out})
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            hist.histogram_2d.launches = 0
+            hist.quantile_pass.launches = 0
+            conv.conv3x3_nhwc.launches = 0
+            conv.conv3x3_flat_chw.launches = 0
+            halo.update(rows=0, bytes=0)
+            pool = parallel.virtual_devices(ways) if ways > 1 else contextlib.nullcontext()
+            prof = torch.profiler.profile(activities=acts) if profile else contextlib.nullcontext()
+            spatial._neighbor_rows = counted
+            halo_fn["rows"] = rows
+            try:
+                t0 = time.perf_counter()
+                with pool, prof:
+                    if not server.poll_once():
+                        raise AssertionError(f"parallel job {name}: no job to run")
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                spatial._neighbor_rows = neighbor_rows
+                halo_fn["rows"] = neighbor_rows
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
+                raise AssertionError(f"parallel job {name} launched a conv study kernel")
+            counts[f"par_{name}"] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            with open(os.path.join(out, "status.json")) as f:
+                status = json.load(f)
+            if status["state"] != "complete":
+                raise AssertionError(f"parallel job {name}: {status.get('error')}")
+            dev_ms = None
+            if profile:
+                ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+                dev_ms = _ms(ops, 1)
+            metrics = json.loads(status["outputs"].get("metrics", "{}"))
+            print(f"parallel job {name} {module} {json.dumps(params_summary(params))[:200]} on {ways} way(s): "
+                  f"wall {wall:.4f} s, peak {peak:.3f} GB, device ms "
+                  f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, halo rows copied {halo['rows']} "
+                  f"({halo['bytes'] / 1e6:.3f} MB), histogram passes {counts[f'par_{name}'][1]}; metrics "
+                  f"{json.dumps(metrics)} on {smi_line}")
+            return status["outputs"], wall, peak, dev_ms, halo["rows"]
+
+        def whole_labels(model, frames):
+            """The untiled whole-frame (whole-volume) forward of the same
+            normalized input on the card: labels, and its wall s."""
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                x = torch.as_tensor(frames, device="cuda")[..., None]
+                tc = infer.TileConfig(patch=tuple(frames.shape[1:]), overlap=(0,) * (frames.ndim - 1))
+                labels = torch.cat([
+                    torch.argmax(torch.softmax(model(infer._normalize(x[i:i + 1], tc)), -1), -1)
+                    for i in range(len(x))
+                ]).to(torch.uint16).cpu().numpy()
+            torch.cuda.synchronize()
+            return labels, time.perf_counter() - t0
+
+        def hold_labels(what, got, want):
+            agree = float(np.mean(got == want))
+            m = fidelity.miou(got.astype(np.int64), want.astype(np.int64), 3)
+            print(f"parallel {what}: labels against the whole-frame forward: miou {m:.6f}, pixel agreement "
+                  f"{agree:.6f} (bar miou >= {MIOU_BAR})")
+            if not m >= MIOU_BAR:
+                raise AssertionError(f"parallel {what}: miou {m} < {MIOU_BAR}")
+
+        _, cfg2, seg2 = load_model(models, "unet2d_cells", device="cuda")
+        n_convs = 2 * cfg2.depth + 2 * (cfg2.depth - 1)
+
+        # (a) one 8192x8192 frame, spatial_parallel: true: 4 x 2048 rows
+        big = u16(synthetic.cells_frame(PAR_SEED, PAR_FRAME)[0])
+        big_path = write("big.tif", big)
+        seg_params = {"model": "unet2d_cells", "localize": False, "spatial_parallel": True}
+        serve("a_warmup", "segmentation_unet2d", seg_params, [write("warm.tif", big[:2048, :2048])])
+        out_a, wall_a, peak_a, _, rows_a = serve("a_spatial", "segmentation_unet2d", seg_params, [big_path])
+        if counts["par_a_spatial"] != (1, 1):
+            raise AssertionError(f"(a): histogram {counts['par_a_spatial']}, expected one pass for the frame")
+        want_rows = n_convs * 2 * (PAR_WAYS - 1)
+        if rows_a != want_rows:
+            raise AssertionError(f"(a): {rows_a} halo rows copied, expected {want_rows}")
+        _, _, _, dev_a, _ = serve("a_spatial_profiled", "segmentation_unet2d", seg_params, [big_path], profile=True)
+        whole_labels(seg2, big[None])  # warm: the first call at this shape allocates and picks algorithms
+        want, wall_whole = whole_labels(seg2, big[None])
+        hold_labels("(a) 8192x8192 on 4 ways", tiff.read_stack(out_a["labels"]), want[0])
+        print(f"parallel (a): {rows_a} halo rows a frame ({n_convs} 3x3 convs x 2 x {PAR_WAYS - 1} boundaries); "
+              f"job wall {wall_a:.4f} s (peak {peak_a:.3f} GB, device {dev_a:.4f} ms profiled) against the "
+              f"warm whole-frame normalize + forward + argmax + fetch {wall_whole:.4f} s: x{wall_a / wall_whole:.3f} "
+              f"(the job also reads the TIFF and writes labels.tif) on {smi_line}")
+        # the sharded forward alone against the whole-frame forward, both warm,
+        # on the same normalized frame: the halo exchange's and the lockstep's cost
+        with torch.inference_mode():
+            x = infer._normalize(torch.as_tensor(big, device="cuda")[None, ..., None],
+                                 infer.TileConfig(patch=PAR_FRAME, overlap=(0, 0)))
+            with parallel.virtual_devices(PAR_WAYS):
+                sp_fn = spatial.spatial_unet2d_infer(cfg2, parallel.make_mesh(device="cuda"), PAR_FRAME)
+            runs = {"sharded": lambda: sp_fn(seg2, x[0]), "whole": lambda: torch.softmax(seg2(x), -1)}
+            cost = {}
+            for kind, fn in runs.items():
+                torch.cuda.empty_cache()
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / 2
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                with torch.profiler.profile(activities=acts) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+                cost[kind] = (wall * 1e3, _ms(ops, 1), len(ops), peak)
+        del x, runs, sp_fn
+        (sw, sd, sn, sp), (ww, wd, wn, wp) = cost["sharded"], cost["whole"]
+        print(f"parallel (a) forward 8192x8192 bf16, warm: 4-way sharded {sw:.3f} ms wall, {sd:.3f} device ms, "
+              f"{sn} device ops, peak {sp:.3f} GB; whole frame {ww:.3f} ms, {wd:.3f} device ms, {wn} ops, peak "
+              f"{wp:.3f} GB: the emulated mesh costs x{sw / ww:.3f} wall, x{sd / wd if wd else float('nan'):.3f} "
+              f"device time on {smi_line}")
+        del big, want
+
+        # (b) spatial_parallel: 2 -> 2 data x 2 space, 4 frames of 2048x2048
+        hyb = np.stack([u16(synthetic.cells_frame(PAR_SEED + 1 + i, PAR_HYBRID)[0]) for i in range(4)])
+        out_b, *_ = serve("b_hybrid", "segmentation_unet2d", dict(seg_params, spatial_parallel=2),
+                          [write("hybrid.tif", hyb)], profile=True)
+        if counts["par_b_hybrid"] != (2, 2):
+            raise AssertionError(f"(b): histogram {counts['par_b_hybrid']}, expected a pass a chunk of 2 frames")
+        want, _ = whole_labels(seg2, hyb)
+        got = tiff.read_stack(out_b["labels"])
+        for i in range(4):
+            hold_labels(f"(b) hybrid frame {i}", got[i], want[i])
+
+        # (c) segmentation_unet3d, a 64x512x512 volume Z-sharded (16 planes a shard)
+        vol = u16(synthetic.cells_volume(PAR_SEED + 10, PAR_VOLUME)[0])
+        out_c, *_ = serve("c_volume", "segmentation_unet3d",
+                          {"model": "unet3d_cells", "localize": False, "spatial_parallel": True},
+                          [write("volume.tif", vol)], profile=True)
+        if counts["par_c_volume"] != (1, 1):
+            raise AssertionError(f"(c): histogram {counts['par_c_volume']}, expected one pass")
+        _, _, seg3 = load_model(models, "unet3d_cells", device="cuda")
+        want, _ = whole_labels(seg3, vol[None])
+        hold_labels("(c) 64x512x512 on 4 ways", tiff.read_stack(out_c["labels"]), want[0])
+
+        # (d) enhancement_gan, spatial_parallel: true at 2048x2048
+        gframe = u16(synthetic.cells_frame(PAR_SEED + 20, PAR_GAN)[0])
+        out_d, *_ = serve("d_enhance", "enhancement_gan", {"model": "gan_denoise", "spatial_parallel": True},
+                          [write("gan.tif", gframe[None])], profile=True)
+        _, _, gmodel = load_model(models, "gan_denoise", device="cuda")
+        with torch.inference_mode():
+            x = torch.as_tensor(gframe, device="cuda")[None, ..., None]
+            tc = infer.TileConfig(patch=PAR_GAN, overlap=(0, 0))
+            ref = gan.generator_apply(gmodel, infer._normalize(x, tc))[0, ..., 0].cpu().numpy()
+        err = tiff.read_stack(out_d["enhanced"]).astype(np.float64) - ref
+        psnr = float(10 * np.log10(1.0 / max(float(np.mean(err**2)), 1e-20)))
+        print(f"parallel (d): enhanced against the whole-frame generator: PSNR {psnr:.2f} dB, max |diff| "
+              f"{np.abs(err).max():.3g} (bar {PAR_ENHANCE_PSNR_DB} dB)")
+        if not psnr >= PAR_ENHANCE_PSNR_DB:
+            raise AssertionError(f"(d) PSNR {psnr} dB < {PAR_ENHANCE_PSNR_DB}")
+
+        # (e) data_parallel through every job that takes it, 4 ways against 1
+        frames = np.stack([u16(synthetic.cells_frame(424_000 + i, PAR_SERVE_FRAME)[0]) for i in range(4)])
+        stack = write("stack.tif", frames)
+        noisy = write("noisy.tif", np.stack([synthetic.denoise_pair(515_000 + i, PAR_SERVE_FRAME)[1]
+                                             for i in range(4)]).astype(np.float32))
+        inst = write("instances.tif", np.stack([u16(synthetic.instances_frame(INSTANCE_SEED + i, PAR_SERVE_FRAME)[0])
+                                                for i in range(4)]))
+        spots = write("spots.tif", np.stack([u16(synthetic.emitter_frame(OPTICS_SEED + t, OPTICS_FRAME,
+                                                                         n=OPTICS_EMITTERS)[0]) for t in range(16)]))
+        spot_vols = os.path.join(tmp, "spot_vols")
+        os.makedirs(spot_vols)
+        for t in range(4):
+            tiff.write_stack(os.path.join(spot_vols, f"v_t{t:02d}.tif"),
+                             u16(synthetic.emitter_volume(OPTICS_SEED + 100 + t, OPTICS_VOLUME, n=OPTICS_EMITTERS)[0]))
+        astig = write("astig.tif", np.stack([u16(synthetic.astig_emitter_frame(OPTICS_SEED + 200 + t, OPTICS_FRAME,
+                                                                              n=80)[0]) for t in range(16)]))
+        calib = {"qx": list(synthetic.ASTIG_QX), "qy": list(synthetic.ASTIG_QY), "z_range": list(synthetic.ASTIG_Z_RANGE)}
+        rng = np.random.default_rng(PAR_SEED + 30)
+        base = bandlimited_scene(PAR_SERVE_FRAME, rng, amp=1500.0, offset=6000.0)
+        spec = torch.fft.fftn(torch.from_numpy(base).double().cuda())
+        drift = np.vstack([[0.0, 0.0], np.cumsum(rng.normal((0.8, -0.6), 0.3, (15, 2)), 0)])
+        drift_path = write("drift.tif", np.stack([
+            _fourier_moved(torch, spec, s).round().clamp(0, 65535).cpu().numpy() for s in drift]).astype(np.uint16))
+        step, tile = PAR_SERVE_FRAME[0] - PAR_OVERLAP, PAR_SERVE_FRAME[0]
+        scene = bandlimited_scene((2 * step + tile,) * 2, rng, amp=1500.0, offset=6000.0)
+        tiles = write("tiles.tif", np.stack([scene[y * step:y * step + tile, x * step:x * step + tile]
+                                             for y in range(3) for x in range(3)]).astype(np.float32))
+        dp_jobs = {
+            "e_seg2d": ("segmentation_unet2d", {"model": "unet2d_cells", "localize": False}, [stack], 4),
+            "e_flows": ("segment_flows", {"model": "flows_cells", "localize": False}, [inst], 4),
+            "e_enhance": ("enhancement_gan", {"model": "gan_denoise"}, [stack], 4),
+            "e_denoise": ("denoise", {"model": "n2v_cells"}, [noisy], 4),
+            "e_localize": ("localize_emitters", {"max_peaks": 256}, [spots], 0),
+            "e_localize3d": ("localize_emitters", {"dims": 3, "max_peaks": 256}, [spot_vols], 0),
+            "e_astig": ("localize_emitters", {"astigmatism": calib, "threshold": 25.0, "max_peaks": 256}, [astig], 0),
+            "e_deconvolve": ("deconvolve", {"iterations": 20}, [stack], 0),
+            "e_register": ("register_stack", {"mode": "first"}, [drift_path], 0),
+            "e_stitch": ("stitch_mosaic", {"grid": [3, 3], "overlap": PAR_OVERLAP, "backend": "device"}, [tiles], 0),
+        }
+        for name, (module, params, inputs, passes) in dp_jobs.items():
+            one, wall1, peak1, _, _ = serve(f"{name}_1way", module, params, inputs, ways=1)
+            dp, wall4, peak4, dev4, _ = serve(f"{name}_4way", module, dict(params, data_parallel=True), inputs,
+                                              profile=True)
+            if counts[f"par_{name}_4way"] != (passes, passes):
+                raise AssertionError(f"({name}): histogram {counts[f'par_{name}_4way']}, expected {passes} passes")
+            gaps = []
+            for key, path in one.items():
+                if not isinstance(path, str) or not os.path.isfile(path):
+                    continue
+                if path.endswith(".tif"):
+                    a, b = tiff.read_stack(path), tiff.read_stack(dp[key])
+                    if module in ("register_stack", "stitch_mosaic"):
+                        gap = float(np.abs(a.astype(np.float64) - b).max() / max(np.abs(a).max(), 1e-12))
+                        gaps.append(f"{key} {gap:.3g} of the largest value")
+                        if gap > PAR_PIXEL_REL:
+                            raise AssertionError(f"({name}) {key}: 4 ways and 1 differ by {gap} relative")
+                    elif a.tobytes() != b.tobytes():
+                        raise AssertionError(f"({name}) {key}: 4 ways and 1 are not byte-equal")
+                    else:
+                        gaps.append(f"{key} byte-equal")
+                elif path.endswith(".csv"):
+                    geom = module in ("register_stack", "stitch_mosaic")
+                    n_rows, gap = _csv_gap(np, path, dp[key], PAR_GEOM_PX if geom else PAR_CSV_UNIT,
+                                           RESP_REL if geom else 0.0)
+                    gaps.append(f"{key} {n_rows} rows, largest gap {gap:.3g}")
+            print(f"parallel {name} data_parallel on {PAR_WAYS} ways against 1: {'; '.join(gaps)}; wall "
+                  f"{wall4:.4f} s against {wall1:.4f} s, peak {peak4:.3f} GB against {peak1:.3f} GB, device "
+                  f"{dev4:.4f} ms (profiled run)")
+
+        # (f) finetune_spatial: unet2d_cells' architecture from one seeded init,
+        # 2048x2048 frames, batch 1, 3 steps, 4 ways against 1. At f32 compute
+        # every hold of the train phase. At bf16 compute (the serving dtype)
+        # loss, accuracy and grad_norm at the train phase's bars, the weights
+        # at PAR_FT_BF16_*_BAR, set between two readings printed each run:
+        # the noise floor (1 way at bf16 against 1 way at f32: what bf16
+        # rounding alone does to 3 steps) and a planted sharding fault (4
+        # ways at bf16 with every halo row zeroed), which must part beyond
+        # the bar
+        arch = {k: v for k, v in fixtures.manifest()["unet2d_cells"]["config"].items()
+                if k in ("depth", "base_features", "num_classes", "norm", "compute_dtype", "in_channels")}
+        scenes = [synthetic.cells_frame(PAR_SEED + 40 + i, PAR_FT) for i in range(2)]
+        ft_in = [write("ft_img.tif", np.stack([u16(s[0]) for s in scenes])),
+                 write("ft_lab.tif", np.stack([s[1] for s in scenes]).astype(np.uint16))]
+        cfg_ft = fixtures.config_class("unet")(**dict(fixtures.manifest()["unet2d_cells"]["config"]))
+        start = convert.to_flat(unet_lib.init(cfg_ft, torch.Generator().manual_seed(3), device="cpu"))
+
+        def zero_rows(row, j):
+            top, bot = neighbor_rows(row, j)
+            return torch.zeros_like(top), torch.zeros_like(bot)
+
+        runs = [("float32", 1, "f32_1"), ("float32", PAR_WAYS, "f32_4"), ("bfloat16", 1, "bf16_1"),
+                ("bfloat16", PAR_WAYS, "bf16_4"), ("bfloat16", PAR_WAYS, "bf16_4_zero_halo")]
+        ft, trained = {}, {}
+        for dtype, ways, tag in runs:
+            params = dict(arch, model=f"ft_{tag}", steps=PAR_FT_STEPS, log_every=1,
+                          learning_rate=TRAIN_LR, checkpoint_every=100, seed=3, compute_dtype=dtype)
+            outs, wall, peak, _, _ = serve(f"f_finetune_{tag}", "finetune_spatial", params, ft_in, ways=ways,
+                                           rows=zero_rows if tag.endswith("zero_halo") else neighbor_rows)
+            with open(outs["metrics_file"]) as f:
+                ft[tag] = ([json.loads(line) for line in f if '"train"' in line], wall, peak)
+            cfg_d = dataclasses.replace(cfg_ft, compute_dtype=dtype)
+            trained[tag] = convert.load_flat(cfg_d, read_model(models, f"ft_{tag}")[2], device="cpu")
+
+        def steps_part(a_tag, b_tag):
+            parted = []
+            for a, b in zip(ft[a_tag][0], ft[b_tag][0]):
+                print(f"parallel (f) {a_tag} against {b_tag} step {a['step']}: loss {a['loss']:.6f} / "
+                      f"{b['loss']:.6f}, accuracy {a['accuracy']:.6f} / {b['accuracy']:.6f}, grad_norm "
+                      f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f}")
+                if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
+                        or abs(a["grad_norm"] - b["grad_norm"]) > TRAIN_GRAD_NORM_RTOL * abs(b["grad_norm"]) \
+                        or abs(a["accuracy"] - b["accuracy"]) > 1e-3:
+                    parted.append(a["step"])
+            return parted
+
+        def weights(a_tag, b_tag, what):
+            rel, over, nulled, stats = _weights_vs(np, convert, trained[a_tag], trained[b_tag], start)
+            print(f"parallel (f) weights {a_tag} against {b_tag} ({what}) after {PAR_FT_STEPS} steps: update L2 "
+                  f"{rel:.6g}, share beyond lr/10 {over:.4g}, BN-nulled biases {nulled:.3g}, statistics "
+                  f"{stats:.6g}; job wall {ft[a_tag][1]:.3f} s against {ft[b_tag][1]:.3f} s, peak "
+                  f"{ft[a_tag][2]:.3f} GB against {ft[b_tag][2]:.3f} GB on {smi_line}")
+            return rel, stats
+
+        for dtype in ("f32", "bf16"):
+            if steps_part(f"{dtype}_4", f"{dtype}_1"):
+                raise AssertionError(f"(f) {dtype}: 4 ways and 1 part beyond the train phase's bars")
+        rel, stats = weights("f32_4", "f32_1", f"held at {TRAIN_UPDATE_BAR} and {TRAIN_STATS_BAR}")
+        if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+            raise AssertionError(f"(f) f32 weights: 4 ways and 1 part beyond the train phase's bars ({rel}, {stats})")
+        floor = weights("bf16_1", "f32_1", "the bf16 noise floor")
+        rel, stats = weights("bf16_4", "bf16_1", f"held at {PAR_FT_BF16_UPDATE_BAR} and {PAR_FT_BF16_STATS_BAR}")
+        fault = weights("bf16_4_zero_halo", "bf16_1", "the planted fault")
+        fault_steps = steps_part("bf16_4_zero_halo", "bf16_1")
+        print(f"parallel (f) bf16 weights: 4 ways against 1 update L2 {rel:.6g}, statistics {stats:.6g}; noise "
+              f"floor {floor[0]:.6g}, {floor[1]:.6g}; planted fault {fault[0]:.6g}, {fault[1]:.6g} (steps beyond "
+              f"the train bars: {fault_steps}); bars {PAR_FT_BF16_UPDATE_BAR}, {PAR_FT_BF16_STATS_BAR}")
+        if rel > PAR_FT_BF16_UPDATE_BAR or stats > PAR_FT_BF16_STATS_BAR:
+            raise AssertionError(f"(f) bf16 weights: 4 ways and 1 part beyond the bf16 bars ({rel}, {stats})")
+        if not (fault[0] > PAR_FT_BF16_UPDATE_BAR or fault[1] > PAR_FT_BF16_STATS_BAR):
+            raise AssertionError(f"(f) the planted fault (zeroed halos) stays within the bf16 bars: {fault}")
+        # the step itself, timed outside the job: 1 warm-up, then 3 steps a way
+        from sequitr_tpu_torch.parallel import spatial_train
+        from sequitr_tpu_torch.pipeline import train
+
+        tc = train.TrainConfig(learning_rate=TRAIN_LR, augment=False)
+        batch = {"image": torch.from_numpy(np.stack([scenes[0][0]]).astype(np.float32)[..., None] / 4000.0).cuda(),
+                 "labels": torch.from_numpy(scenes[0][1][None].astype(np.int64)).cuda()}
+        step_ms = {}
+        for ways in (1, PAR_WAYS):
+            with parallel.virtual_devices(ways):
+                state = train.create_unet_state(cfg_ft, tc, torch.Generator().manual_seed(3), "cuda")
+                step = spatial_train.make_spatial_train_step(cfg_ft, tc, parallel.make_mesh(device="cuda"), PAR_FT, 1)
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                step_ms[ways] = ((time.perf_counter() - t0) / 3 * 1e3, torch.cuda.max_memory_allocated() / 1e9)
+            del state, step
+        print(f"parallel (f) spatial train step 1x{PAR_FT[0]}x{PAR_FT[1]} (unet2d_cells' widths, bf16 compute): "
+              f"1 way {step_ms[1][0]:.3f} ms (peak {step_ms[1][1]:.3f} GB), {PAR_WAYS} ways {step_ms[PAR_WAYS][0]:.3f} "
+              f"ms (peak {step_ms[PAR_WAYS][1]:.3f} GB): ratio x{step_ms[PAR_WAYS][0] / step_ms[1][0]:.3f} on {smi_line}")
+
+        # (g) train_unet2d, data_parallel: batch 8 on 4 ways against 1 (global
+        # batch-norm statistics), 3 steps
+        cells = [synthetic.cells_frame(PAR_SEED + 50 + i, PAR_RECORD) for i in range(8)]
+        rec_in = [write("rec_img.tif", np.stack([u16(c[0]) for c in cells])),
+                  write("rec_lab.tif", np.stack([c[1] for c in cells]).astype(np.uint16))]
+        recs, *_ = serve("g_records", "build_records", {"weight_maps": False}, rec_in, ways=1)
+        tr = {}
+        for ways in (1, PAR_WAYS):
+            # f32 compute: the train phase's bars are f32 bars, at which a
+            # per-replica batch norm would stand out by orders of magnitude
+            params = dict(arch, model=f"tr_{ways}", steps=3, batch_size=8, log_every=1, augment=False,
+                          learning_rate=TRAIN_LR, seed=5, data_parallel=True, compute_dtype="float32")
+            outs, wall, peak, _, _ = serve(f"g_train_{ways}way", "train_unet2d", params, [recs["shards"]], ways=ways)
+            with open(outs["metrics_file"]) as f:
+                tr[ways] = [json.loads(line) for line in f if '"train"' in line]
+        for a, b in zip(tr[PAR_WAYS], tr[1]):
+            print(f"parallel (g) step {a['step']}: loss {a['loss']:.6f} / {b['loss']:.6f}, grad_norm "
+                  f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f} (4 ways / 1)")
+            if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
+                    or abs(a["grad_norm"] - b["grad_norm"]) > TRAIN_GRAD_NORM_RTOL * abs(b["grad_norm"]):
+                raise AssertionError(f"(g) step {a['step']}: 4 ways and 1 part beyond the train phase's bars")
+        cfg_tr = dataclasses.replace(cfg_ft, compute_dtype="float32")  # (g) trains at f32
+        start = convert.to_flat(unet_lib.init(cfg_tr, torch.Generator().manual_seed(5), device="cpu"))
+        trained = {w: convert.load_flat(cfg_tr, read_model(models, f"tr_{w}")[2], device="cpu") for w in (1, PAR_WAYS)}
+        rel, over, nulled, stats = _weights_vs(np, convert, trained[PAR_WAYS], trained[1], start)
+        print(f"parallel (g) weights 4 ways against 1: update L2 {rel:.4g}, share beyond lr/10 {over:.4g}, "
+              f"BN-nulled biases {nulled:.3g}, statistics (global batch) {stats:.3g}")
+        if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+            raise AssertionError(f"(g) weights: 4 ways and 1 part beyond the train phase's bars ({rel}, {stats})")
+
+        # (h) a mesh of two distinct devices, cuda:0 and the CPU: the weight
+        # copies (mesh.replica, spatial_train._Placed), the cross-device halo
+        # exchanges, gathers and gradient returns of a multi-card pool, which
+        # the virtual pool above makes within one device. unet2d_cells at f32
+        # compute; the normalize is the histogram's 1024 bins on both (the
+        # kernel on the card, its plain version on the CPU). Each output held
+        # against the card alone at the model phase's card-vs-CPU bar, each
+        # step and the weights at the train phase's
+        from functools import partial
+
+        mixed = np.empty(2, dtype=object)
+        mixed[:] = [torch.device("cuda", 0), torch.device("cpu")]
+        mesh_x = parallel.Mesh(mixed, ("data",), torch.device("cuda", 0))
+        _, cfg32, m32, _ = fixtures.load("unet2d_cells", compute_dtype="float32", device="cuda")
+        tc_x = infer.TileConfig(patch=PAR_MIXED, overlap=(0, 0), normalize="pallas")
+        copies = []
+        real_copy = parallel.mesh._copy_to
+        parallel.mesh._copy_to = lambda m, d: copies.append(str(d)) or real_copy(m, d)
+        try:
+            frames_x = np.stack([u16(synthetic.cells_frame(PAR_SEED + 60 + i, PAR_MIXED)[0]) for i in range(2)])
+            with torch.inference_mode():
+                xn = infer._normalize(torch.as_tensor(frames_x[:1], device="cuda")[..., None], tc_x)[0, ..., 0]
+            got = spatial.spatial_unet2d_infer(cfg32, mesh_x, PAR_MIXED)(m32, xn)
+            with parallel.virtual_devices(2):
+                want = spatial.spatial_unet2d_infer(cfg32, parallel.make_mesh(device="cuda"), PAR_MIXED)(m32, xn)
+            make = lambda d: infer.cached_batch_inferrer(cfg32, tc_x, PAR_MIXED, 1, d)
+            got_dp = parallel.make_dp_frame_inferrer(make, mesh_x)(m32, frames_x)
+            one = make("cuda")
+            want_dp = [torch.cat(t) for t in zip(*[one(m32, frames_x[i:i + 1]) for i in range(2)])]
+            for what, (gp, gl), (wp, wl) in (("spatial 2-way", got, want), ("data-parallel", got_dp, want_dp)):
+                if gp.device != torch.device("cuda", 0):
+                    raise AssertionError(f"(h) {what}: gathered on {gp.device}, not the job's device")
+                err = float((gp - wp).abs().max())
+                gl, wl = gl.cpu().numpy(), wl.cpu().numpy()
+                m = fidelity.miou(gl.astype(np.int64), wl.astype(np.int64), 3)
+                print(f"parallel (h) {what} {PAR_MIXED[0]}x{PAR_MIXED[1]} f32 on cuda:0 + cpu against the card alone: "
+                      f"max |prob diff| {err:.3g} (bar {PAR_MIXED_PROB_BAR}), miou {m:.6f}, pixel agreement "
+                      f"{float(np.mean(gl == wl)):.6f}")
+                if not (err <= PAR_MIXED_PROB_BAR and m >= MIOU_BAR):
+                    raise AssertionError(f"(h) {what}: the mixed mesh parts from the card ({err}, {m})")
+            if sorted(set(copies)) != ["cpu"]:
+                raise AssertionError(f"(h) serving copied the weights to {copies}, not once to the CPU")
+
+            from sequitr_tpu_torch.parallel import spatial_train
+            from sequitr_tpu_torch.pipeline import train
+
+            tc_t = train.TrainConfig(learning_rate=TRAIN_LR, augment=False)
+            cells_x = [synthetic.cells_frame(PAR_SEED + 70 + i, PAR_RECORD) for i in range(2)]
+            batch_x = {
+                "image": torch.from_numpy(np.stack([c[0] for c in cells_x]).astype(np.float32)[..., None] / 4000.0).cuda(),
+                "labels": torch.from_numpy(np.stack([c[1] for c in cells_x]).astype(np.int64)).cuda(),
+            }
+            steps_x = {
+                "data-parallel": parallel.make_dp_train_step(partial(train.make_unet_train_step, cfg32, tc_t), mesh_x),
+                "spatial 2-way": spatial_train.make_spatial_train_step(cfg32, tc_t, mesh_x, PAR_RECORD, 2),
+            }
+            ref_step = train.make_unet_train_step(cfg32, tc_t)
+            for what, step_x in steps_x.items():
+                sx, sr = (train.create_unet_state(cfg32, tc_t, torch.Generator().manual_seed(9), "cuda") for _ in "xr")
+                start_x = convert.to_flat(sr.model)
+                for i in range(3):
+                    sx, a = step_x(sx, batch_x)
+                    sr, b = ref_step(sr, batch_x)
+                    a, b = ({k: float(v) for k, v in m.items()} for m in (a, b))
+                    print(f"parallel (h) {what} train step {i + 1} on cuda:0 + cpu against the card alone: loss "
+                          f"{a['loss']:.6f} / {b['loss']:.6f}, accuracy {a['accuracy']:.6f} / {b['accuracy']:.6f}, "
+                          f"grad_norm {a['grad_norm']:.6f} / {b['grad_norm']:.6f}")
+                    if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
+                            or abs(a["grad_norm"] - b["grad_norm"]) > TRAIN_GRAD_NORM_RTOL * abs(b["grad_norm"]) \
+                            or abs(a["accuracy"] - b["accuracy"]) > 1e-3:
+                        raise AssertionError(f"(h) {what} step {i + 1}: the mixed mesh parts from the card")
+                rel, over, nulled, stats = _weights_vs(np, convert, sx.model, sr.model, start_x)
+                print(f"parallel (h) {what} weights on cuda:0 + cpu against the card alone after 3 steps: update L2 "
+                      f"{rel:.4g}, share beyond lr/10 {over:.4g}, BN-nulled biases {nulled:.3g}, statistics "
+                      f"{stats:.3g} (bars {TRAIN_UPDATE_BAR}, {TRAIN_STATS_BAR})")
+                if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
+                    raise AssertionError(f"(h) {what} weights: the mixed mesh parts from the card ({rel}, {stats})")
+        finally:
+            parallel.mesh._copy_to = real_copy
+    return counts
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
@@ -4511,6 +5100,7 @@ def params_summary(params):
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
     "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify", "ops",
+    "parallel",
 )
 
 
@@ -4580,6 +5170,7 @@ def main(argv=None) -> int:
             "optics": lambda: optics_phase(torch, hist, conv, smi_line),
             "quantify": lambda: quantify_phase(torch, hist, conv, smi_line),
             "ops": lambda: ops_phase(torch, hist, conv, smi_line),
+            "parallel": lambda: parallel_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -4611,6 +5202,7 @@ def main(argv=None) -> int:
     counts.update(timed("optics", optics_phase, hist, conv, smi_line))
     counts.update(timed("quantify", quantify_phase, hist, conv, smi_line))
     counts.update(timed("ops", ops_phase, hist, conv, smi_line))
+    counts.update(timed("parallel", parallel_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -4641,7 +5233,9 @@ def main(argv=None) -> int:
         "frames, which normalizes each with one quantile pass as job a does; ops_supervised is the ops "
         "phase's segmentation_unet2d served by a supervised worker process (serve --workers 2), its "
         "launches counted in the job's own profile trace (count_kernel, minmax_kernel), ops_inprocess the "
-        "same job in this process; the conv3x3 "
+        "same job in this process; par_* are the parallel phase's jobs on a virtual pool of 4 devices over "
+        "the card (spatial: one pass a frame normalized whole before it is sharded, a pass a chunk of 2 "
+        "frames for the hybrid; data_parallel: one a frame, as single-device) and their 1-way twins; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
         "point); the served and training jobs launch the conv3x3 kernels 0 times"
     )

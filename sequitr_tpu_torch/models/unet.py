@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from sequitr_tpu_torch.utils import f32_entry, resolve_device
 
-__all__ = ["UNetConfig", "UNet", "fold_batchnorm", "init"]
+__all__ = ["UNetConfig", "UNet", "conv", "fold_batchnorm", "init"]
 
 BNStats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -164,6 +164,31 @@ class _Block(nn.Module):
             self.bn2 = _BatchNorm(c_out, device)
 
 
+def conv(
+    cfg: UNetConfig,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    transpose: bool = False,
+    padding: Optional[Tuple[int, ...]] = None,
+) -> torch.Tensor:
+    """One U-Net conv on NC[D]HW ``x`` at ``unet.py``'s rounding points:
+    input and weights in ``cfg.compute_dtype``, the conv's output in that
+    dtype, the bias added in f32. A transposed conv is kernel 2, stride 2;
+    any other is SAME (``padding`` overrides it: the halo convs of
+    ``parallel.spatial`` pad only the unsharded axes)."""
+    dt = cfg.torch_dtype
+    w = w.to(dt)
+    three = cfg.dims == 3
+    if transpose:
+        conv_t = F.conv_transpose3d if three else F.conv_transpose2d
+        y = conv_t(x.to(dt), w, stride=2)
+    else:
+        conv_fn = F.conv3d if three else F.conv2d
+        y = conv_fn(x.to(dt), w, padding=w.shape[-1] // 2 if padding is None else padding)
+    return y.to(torch.float32) + b.view((1, -1) + (1,) * cfg.dims)
+
+
 def _space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:
     """(N, C, H, W) -> (N, s*s*C, H/s, W/s), channel index (sy*s + sx)*C + c
     — the channel order of the JAX package's NHWC ``_space_to_depth``."""
@@ -217,16 +242,7 @@ class UNet(nn.Module):
         self.head = _Conv(1, c_prev, cfg.num_classes * s2d * s2d, False, device, dims)
 
     def _conv(self, x: torch.Tensor, p: _Conv) -> torch.Tensor:
-        dt = self.cfg.torch_dtype
-        w = p.w.to(dt)
-        three = self.cfg.dims == 3
-        if p.transpose:
-            conv_t = F.conv_transpose3d if three else F.conv_transpose2d
-            y = conv_t(x.to(dt), w, stride=2)
-        else:
-            conv = F.conv3d if three else F.conv2d
-            y = conv(x.to(dt), w, padding=w.shape[-1] // 2)
-        return y.to(torch.float32) + p.b.view((1, -1) + (1,) * self.cfg.dims)
+        return conv(self.cfg, x, p.w, p.b, p.transpose)
 
     def _block(
         self, x: torch.Tensor, blk: _Block, stats: Optional[List[BNStats]] = None

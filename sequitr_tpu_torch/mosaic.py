@@ -30,7 +30,7 @@ nominal offset at weight 0.05.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -303,6 +303,7 @@ def pair_offsets(
     window: bool = True,
     refine: int = 2,
     device=None,
+    correlate: Optional[Callable] = None,
 ):
     """Measured offsets of every adjacent tile pair.
 
@@ -311,7 +312,10 @@ def pair_offsets(
     the measured origin offset of tile j relative to tile i; responses
     (E,) PSR; nominals (E, 2) the grid-spacing prediction. The strips are
     cropped at nominal spacing, so the measured strip shift IS the
-    deviation from nominal (expected ~0).
+    deviation from nominal (expected ~0). ``correlate``: an optional
+    ``(refs, movs) -> (shifts, responses)`` in place of the one-device
+    batched correlator, e.g. ``parallel.make_dp_seam_correlator(mesh)``
+    (the pair axis sharded over the mesh).
     """
     n, h, w = tiles.shape
     ov_y, ov_x = overlap
@@ -331,7 +335,10 @@ def pair_offsets(
             refs = np.stack([tiles[i][h - ov_y:, :] for i, _ in pairs])
             movs = np.stack([tiles[j][:ov_y, :] for _, j in pairs])
             nominal = (float(h - ov_y), 0.0)
-        shifts, resp = _correlate_strips(refs, movs, subpixel, window, refine, device)
+        if correlate is None:
+            shifts, resp = _correlate_strips(refs, movs, subpixel, window, refine, device)
+        else:
+            shifts, resp = correlate(refs, movs)
         for k, (i, j) in enumerate(pairs):
             edges.append((i, j))
             offsets.append(np.asarray(nominal) + shifts[k])
@@ -492,6 +499,7 @@ def stitch_grid(
     min_response: float = 0.0,
     blend: bool = True,
     device=None,
+    correlate: Optional[Callable] = None,
 ) -> MosaicResult:
     """Stitch an (R, C) grid of overlapping tiles into one composite.
 
@@ -500,7 +508,8 @@ def stitch_grid(
     fraction of the tile, or per-axis pair. ``min_response``: PSR gate;
     seams below it fall back to nominal spacing (see solve_positions).
     ``blend=False`` skips compositing (estimate-only). The correlations
-    and shifts run on ``device`` (default the card). See MosaicResult.
+    and shifts run on ``device`` (default the card); ``correlate``
+    replaces the seam correlator (``pair_offsets``). See MosaicResult.
     """
     tiles = np.asarray(tiles, np.float32)
     r, c = grid
@@ -535,7 +544,7 @@ def stitch_grid(
         )
     edges, offsets, responses, nominals = pair_offsets(
         tiles, grid, ov, subpixel=subpixel, window=window,
-        refine=refine, device=device,
+        refine=refine, device=device, correlate=correlate,
     )
     positions, used, rms = solve_positions(
         r * c, edges, offsets, responses, nominals,

@@ -52,13 +52,14 @@ def weighted_softmax_cross_entropy(
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Numerically stable elementwise binary cross-entropy with logits, mean."""
+    """Numerically stable elementwise binary cross-entropy with logits, mean:
+    ``optax.sigmoid_binary_cross_entropy``'s form, whose gradient is
+    ``sigmoid(z) - t`` everywhere, at ``z == 0`` too (a ReLU-dead pixel
+    before a zero head bias gives exactly 0; the max/abs form's subgradient
+    there is off by up to 1)."""
     logits = logits.to(torch.float32)
     targets = targets.to(torch.float32)
-    return torch.mean(
-        torch.clamp(logits, min=0.0) - logits * targets
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+    return torch.mean(-(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits)))
 
 
 def gan_discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor) -> torch.Tensor:

@@ -17,13 +17,18 @@ shards (``encode_pair``), its EMA over the generator alone. ``fit_n2v``,
 ``fit_flows`` and ``fit_stars`` train from image-only, flow and ray
 shards (their codecs are the JAX package's, byte for byte), each with its
 holdout evaluator; the N2V evaluator scores one mask drawn once from a
-generator seeded 0. ``fit_unet_spatial`` (the halo-exchanged whole-frame
-trainer) belongs to the multi-card slice of the port.
+generator seeded 0. Every record trainer takes a ``mesh``
+(``parallel.make_mesh``): the step then runs data-parallel over its
+devices with the global batch's statistics
+(``parallel.make_dp_train_step``). ``fit_unet_spatial`` trains on whole
+giant frames, their rows halo-sharded over the mesh
+(``parallel.spatial_train``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import logging
@@ -47,7 +52,7 @@ log = logging.getLogger("sequitr_tpu_torch.fit")
 
 __all__ = [
     "FitConfig", "MetricsLogger", "Distill", "TrainingCancelled", "fit_unet",
-    "fit_gan", "fit_n2v", "fit_flows", "fit_stars", "encode_pair",
+    "fit_gan", "fit_n2v", "fit_flows", "fit_stars", "fit_unet_spatial", "encode_pair",
     "encode_image_example", "encode_flow_example", "encode_stars_example",
     "latest_checkpoint", "step_generator",
 ]
@@ -367,6 +372,16 @@ def _make_unet_evaluator(
     return eval_fn
 
 
+def _step_on(mesh, make_step: Callable, *args, **kwargs) -> Callable:
+    """``make_step(*args, **kwargs)``, data-parallel over ``mesh`` when one
+    is given (``parallel.make_dp_train_step``)."""
+    if mesh is None:
+        return make_step(*args, **kwargs)
+    from sequitr_tpu_torch import parallel
+
+    return parallel.make_dp_train_step(functools.partial(make_step, *args, **kwargs), mesh)
+
+
 def _check_keep_best(fc: FitConfig, known: set) -> None:
     """Reject a misspelt ``keep_best_metric`` before any training."""
     if fc.keep_best_metric and fc.keep_best_metric not in known:
@@ -387,11 +402,13 @@ def fit_unet(
     should_stop: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[int, int], None]] = None,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> train_lib.TrainState:
     """Train a U-Net from segmentation record shards on ``device`` (default
     the card); returns the final state. ``init_state`` (fresh or restored)
     replaces ``unet.init`` from ``fc.seed``; a state at step ``s`` > 0 skips
-    the first ``s`` batches of the record stream."""
+    the first ``s`` batches of the record stream. ``mesh``: data-parallel
+    over its devices."""
     device = resolve_device(device)
     _check_keep_best(
         fc,
@@ -402,12 +419,13 @@ def fit_unet(
         cfg, tc, torch.Generator().manual_seed(fc.seed), device
     )
     if distill is not None:
-        step = train_lib.make_unet_distill_step(
-            cfg, distill.teacher, tc, alpha=distill.alpha, temperature=distill.temperature
+        step = _step_on(
+            mesh, train_lib.make_unet_distill_step,
+            cfg, distill.teacher, tc, alpha=distill.alpha, temperature=distill.temperature,
         )
         metric_keys = ("loss", "ce", "kd", "accuracy", "grad_norm")
     else:
-        step = train_lib.make_unet_train_step(cfg, tc)
+        step = _step_on(mesh, train_lib.make_unet_train_step, cfg, tc)
         metric_keys = ("loss", "accuracy", "grad_norm")
     it = ShardIterator(
         shard_paths, _decode_seg, fc.batch_size, seed=fc.seed,
@@ -486,6 +504,7 @@ def fit_gan(
     should_stop: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[int, int], None]] = None,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> train_lib.GANTrainState:
     """Train the enhancement GAN from (input, target) pair shards on
     ``device`` (default the card); returns the final state. ``init_state``
@@ -497,7 +516,7 @@ def fit_gan(
     state = init_state or train_lib.create_gan_state(
         cfg, tc, torch.Generator().manual_seed(fc.seed), device
     )
-    step = train_lib.make_gan_train_step(cfg, tc, l1_weight=l1_weight)
+    step = _step_on(mesh, train_lib.make_gan_train_step, cfg, tc, l1_weight=l1_weight)
     it = ShardIterator(
         shard_paths, _decode_pair, fc.batch_size, seed=fc.seed,
         shuffle_buffer=fc.shuffle_buffer, holdout_every=fc.holdout_every,
@@ -616,6 +635,7 @@ def fit_n2v(
     progress: Optional[Callable[[int, int], None]] = None,
     device: Union[str, torch.device, None] = None,
     eval_draws: Optional[train_lib.N2VMaskDraws] = None,
+    mesh=None,
 ) -> train_lib.TrainState:
     """Train a Noise2Void denoiser from image-only shards on ``device``
     (default the card): ``fit_unet``'s loop with ``make_n2v_train_step``;
@@ -623,8 +643,9 @@ def fit_n2v(
     replaces its seeded draw)."""
     device = resolve_device(device)
     _check_keep_best(fc, {"eval_n2v_mse", "eval_psnr_masked"})
-    step = train_lib.make_n2v_train_step(
-        cfg, tc, mask_frac=mask_frac, radius=radius, mask_mode=mask_mode, struct=struct
+    step = _step_on(
+        mesh, train_lib.make_n2v_train_step,
+        cfg, tc, mask_frac=mask_frac, radius=radius, mask_mode=mask_mode, struct=struct,
     )
     return _fit(
         init_state, cfg, tc, fc, device, step, shard_paths, _decode_image,
@@ -702,13 +723,14 @@ def fit_flows(
     should_stop: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[int, int], None]] = None,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> train_lib.TrainState:
     """Train a flow-field instance segmenter from flow shards on ``device``
     (default the card): ``fit_unet``'s loop with ``make_flows_train_step``."""
     device = resolve_device(device)
     _check_keep_best(fc, {"eval_loss", "eval_flow_mse", "eval_prob_bce"})
     return _fit(
-        init_state, cfg, tc, fc, device, train_lib.make_flows_train_step(cfg, tc), shard_paths,
+        init_state, cfg, tc, fc, device, _step_on(mesh, train_lib.make_flows_train_step, cfg, tc), shard_paths,
         _decode_flow, lambda: _make_flows_evaluator(cfg, fc, shard_paths, device),
         ("loss", "flow_mse", "prob_bce", "grad_norm"), ckpt_dir, should_stop, progress,
     )
@@ -786,6 +808,7 @@ def fit_stars(
     should_stop: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[int, int], None]] = None,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> train_lib.TrainState:
     """Train a star-convex instance segmenter from stars shards on
     ``device`` (default the card): ``fit_unet``'s loop with
@@ -793,7 +816,50 @@ def fit_stars(
     device = resolve_device(device)
     _check_keep_best(fc, {"eval_loss", "eval_dist_mae", "eval_prob_bce"})
     return _fit(
-        init_state, cfg, tc, fc, device, train_lib.make_stars_train_step(cfg, tc), shard_paths,
+        init_state, cfg, tc, fc, device, _step_on(mesh, train_lib.make_stars_train_step, cfg, tc), shard_paths,
         _decode_stars, lambda: _make_stars_evaluator(cfg, fc, shard_paths, device),
         ("loss", "dist_mae", "prob_bce", "grad_norm"), ckpt_dir, should_stop, progress,
+    )
+
+
+def fit_unet_spatial(
+    cfg: unet.UNetConfig,
+    tc: train_lib.TrainConfig,
+    fc: FitConfig,
+    batches: Iterable,
+    mesh,
+    frame_spatial,
+    ckpt_dir: Optional[str] = None,
+    init_state: Optional[train_lib.TrainState] = None,
+    data_axis: Optional[str] = None,
+    space_axis: str = "data",
+    should_stop: Optional[Callable[[], bool]] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> train_lib.TrainState:
+    """Finetune on WHOLE giant frames, rows halo-sharded over ``mesh``.
+
+    The training counterpart of the ``spatial_parallel`` serve: each step
+    takes one item of ``batches`` (dicts of (batch, *frame_spatial) frames,
+    numpy or tensors) through ``parallel.spatial_train``'s step (halo
+    convs, batch-norm statistics over the mesh, one Adam update on
+    ``device``); augmentation must be off. Checkpoints, resume (a state at
+    step ``s`` skips the first ``s`` batches, as the other loops here do),
+    the metric stream, cancellation and progress ride ``_run_loop``.
+    """
+    device = resolve_device(device)
+    _check_keep_best(fc, set())
+    from sequitr_tpu_torch.parallel import spatial_train
+
+    state = init_state or train_lib.create_unet_state(
+        cfg, tc, torch.Generator().manual_seed(fc.seed), device
+    )
+    step = spatial_train.make_spatial_train_step(
+        cfg, tc, mesh, tuple(frame_spatial), fc.batch_size,
+        space_axis=space_axis, data_axis=data_axis,
+    )
+    host = itertools.islice(iter(batches), int(state.step), None)
+    return _run_loop(
+        state, step, prefetch_to_device(host, depth=fc.prefetch_depth, device=device), fc, ckpt_dir,
+        ("loss", "accuracy", "grad_norm"), should_stop=should_stop, progress=progress,
     )

@@ -193,11 +193,24 @@ def _prepare(batch: Dict[str, torch.Tensor], generator, tc: TrainConfig, dims: i
     return images, labels, weights
 
 
-def _train_forward(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+def _train_forward(cfg: unet.UNetConfig, tc: TrainConfig, mesh=None) -> Callable:
     """``forward(model, images) -> (logits, statistics)`` honouring
     ``tc.polyphase`` (the JAX package's ``_train_forward``): a model outside
-    the polyphase cover is refused here, when the step is built."""
-    if tc.polyphase:
+    the polyphase cover is refused here, when the step is built. ``mesh``
+    (a ``parallel.spatial_train.TrainMesh``): the batch runs sharded over
+    its devices with batch-norm statistics of the global batch
+    (``spatial_train.forward_train_gathered``)."""
+    if mesh is not None:
+        if tc.polyphase:
+            raise ValueError(
+                "polyphase training does not run on a device mesh: train "
+                "polyphase on one device, or data-parallel without polyphase"
+            )
+        from sequitr_tpu_torch.parallel import spatial_train
+
+        def fwd(model, images):
+            return spatial_train.forward_train_gathered(model, images, mesh)
+    elif tc.polyphase:
         if (
             cfg.space_to_depth != 1 or cfg.upsample != "transpose"
             or cfg.depth < 2 or cfg.dims not in (2, 3)
@@ -243,16 +256,17 @@ def _finish(state: TrainState, optimizer, loss, logits, labels, stats, extra=Non
     return state, metrics
 
 
-def make_unet_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+def make_unet_train_step(cfg: unet.UNetConfig, tc: TrainConfig, mesh=None) -> Callable:
     """``step(state, batch, generator) -> (state, metrics)``.
 
     ``batch``: ``image`` (N, *s, C) f32, ``labels`` (N, *s) integer,
     optional ``weights`` (N, *s), on the state's device; ``generator``
     draws the augmentation (unused with ``augment=False``). Metrics
     ``loss``, ``accuracy``, ``grad_norm``: 0-d tensors on the device.
+    ``mesh``: the forward runs data-parallel (``parallel.make_dp_train_step``).
     """
     optimizer = tc.make_optimizer()
-    forward = _train_forward(cfg, tc)
+    forward = _train_forward(cfg, tc, mesh)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         with ieee_f32(cfg.compute_dtype == "float32"):
@@ -270,6 +284,7 @@ def make_unet_distill_step(
     tc: TrainConfig,
     alpha: float = 0.5,
     temperature: float = 2.0,
+    mesh=None,
 ) -> Callable:
     """Distillation step: ``alpha * weighted_CE(student, labels) + (1 -
     alpha) * T^2 * KL(softmax(teacher / T) || softmax(student / T))`` (the
@@ -277,7 +292,7 @@ def make_unet_distill_step(
     folded or not) sees the augmented pixels. Metrics add ``ce`` and ``kd``.
     """
     optimizer = tc.make_optimizer()
-    forward = _train_forward(cfg, tc)
+    forward = _train_forward(cfg, tc, mesh)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         with ieee_f32(cfg.compute_dtype == "float32"):
@@ -592,6 +607,7 @@ def make_n2v_train_step(
     radius=5,
     mask_mode: str = "uniform",
     struct=None,
+    mesh=None,
 ) -> Callable:
     """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
 
@@ -616,7 +632,7 @@ def make_n2v_train_step(
     # a transpose would rotate an in-plane correlated-noise axis
     transpose = struct is None or struct[0] < cfg.dims - 2
     optimizer = tc.make_optimizer()
-    forward = _train_forward(cfg, tc)
+    forward = _train_forward(cfg, tc, mesh)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
              draws: Optional[N2VDraws] = None):
@@ -709,7 +725,7 @@ def flows_loss(out: torch.Tensor, flow: torch.Tensor, prob: torch.Tensor):
     return flow_mse + prob_bce, flow_mse, prob_bce
 
 
-def make_flows_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+def make_flows_train_step(cfg: unet.UNetConfig, tc: TrainConfig, mesh=None) -> Callable:
     """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
 
     The JAX package's flow-field step: flips (vector-aware) and the
@@ -725,7 +741,7 @@ def make_flows_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
             f"({cfg.dims + 1}), got {cfg.num_classes}"
         )
     optimizer = tc.make_optimizer()
-    forward = _train_forward(cfg, tc)
+    forward = _train_forward(cfg, tc, mesh)
     nd = cfg.dims
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
@@ -785,7 +801,7 @@ def stars_loss(out: torch.Tensor, dist: torch.Tensor, prob: torch.Tensor):
     return prob_bce + STARS_DIST_WEIGHT * dist_mae + STARS_BG_REG * bg_reg, dist_mae, prob_bce
 
 
-def make_stars_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
+def make_stars_train_step(cfg: unet.UNetConfig, tc: TrainConfig, mesh=None) -> Callable:
     """``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
 
     The JAX package's star-convex step (2D): flips (ray-permuting) and the
@@ -810,7 +826,7 @@ def make_stars_train_step(cfg: unet.UNetConfig, tc: TrainConfig) -> Callable:
         )
     perms = torch.stack([torch.as_tensor(sd.ray_flip_perm(n_rays, ax), dtype=torch.int64) for ax in (0, 1)])
     optimizer = tc.make_optimizer()
-    forward = _train_forward(cfg, tc)
+    forward = _train_forward(cfg, tc, mesh)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
              draws: Optional[FlipDraws] = None):
@@ -872,7 +888,9 @@ def create_gan_state(
     )
 
 
-def make_gan_train_step(cfg: gan_lib.GANConfig, tc: TrainConfig, l1_weight: float = 100.0) -> Callable:
+def make_gan_train_step(
+    cfg: gan_lib.GANConfig, tc: TrainConfig, l1_weight: float = 100.0, mesh=None
+) -> Callable:
     """``step(state, batch, generator=None) -> (state, metrics)``.
 
     ``batch``: ``input`` (N, H, W, C_in) raw and ``target`` (N, H, W,
@@ -883,12 +901,15 @@ def make_gan_train_step(cfg: gan_lib.GANConfig, tc: TrainConfig, l1_weight: floa
     ``tc.polyphase``); the discriminator steps on (real, detached fake);
     the generator's loss (adversarial through the UPDATED discriminator +
     ``l1_weight`` * L1) backpropagates from that same fake, and only into
-    the generator. Metrics ``d_loss``, ``g_loss``: 0-d tensors.
+    the generator. Metrics ``d_loss``, ``g_loss``: 0-d tensors. ``mesh``:
+    the generator's forward runs data-parallel with global batch-norm
+    statistics; the discriminator (no normalization, one score a patch)
+    scores the gathered batch on the job's device.
     """
     optimizer = tc.make_optimizer()
     gcfg = cfg.generator_config
-    if tc.polyphase:
-        forward = _train_forward(gcfg, tc)
+    if tc.polyphase or mesh is not None:
+        forward = _train_forward(gcfg, tc, mesh)
 
         def generate(model, x):
             y, stats = forward(model.gen, x)

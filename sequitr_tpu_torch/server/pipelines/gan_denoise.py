@@ -11,9 +11,11 @@ cached enhancer/denoiser two ahead (``infer.stream_frames``),
 on the device with the job's ``TileConfig`` (``infer._normalize``: on the
 card one quantile pass a target frame or volume) and score on the host.
 
-``data_parallel`` / ``spatial_parallel`` across more than one card belong
-to the multi-card slice (a JobError there; on one card they serve
-single-device).
+On a pool of more than one device (``parallel.device_pool``)
+``data_parallel`` gives each device its own frame (3D denoise: its own
+volume) and the enhancer's ``spatial_parallel`` splits each frame's rows
+over the devices (``parallel.spatial``); on one device they stream
+single-device, as the JAX server does on one chip.
 """
 
 from __future__ import annotations
@@ -33,14 +35,17 @@ from sequitr_tpu_torch.server.server import (
     _apply_frame_range,
     _apply_roi,
     _auto_frame_batch,
+    _dp_chunk_stream,
+    _n_devices,
     _out_compression,
     _parse_z_pages,
     _reads_fail_fast,
     _require_model,
-    _require_one_card,
     _require_polyphase_model,
     _resolve_inputs,
+    _spatial_ways,
     _tile_config,
+    _volume_chunks,
     register,
 )
 from sequitr_tpu_torch.utils import PhaseTimer, resolve_device
@@ -92,16 +97,18 @@ def _gan_setup(job: Job, config: ServerConfiguration, source):
     return cfg, model, tc
 
 
-def _stream_to_writer(job, source, fn_for, timer, writer, c_out, device):
+def _stream_to_writer(job, source, fn_for, timer, writer, c_out, device, fb=None):
     """Serve every frame of ``source`` through ``fn_for(batch)`` (the
     single-frame form for ``batch=None``) and append each output channel
-    of each frame as a page; progress and cancellation once a frame."""
+    of each frame as a page; progress and cancellation once a frame.
+    ``fb``: frames a call (default the job's ``frame_batch``, else auto)."""
     from sequitr_tpu_torch.pipeline import infer as infer_lib
 
     n_frames = len(source)
-    fb = job.params.get("frame_batch")
-    fb = int(fb) if fb else _auto_frame_batch(source.spatial)
-    fb = max(1, min(fb, n_frames))
+    if fb is None:
+        fb = job.params.get("frame_batch")
+        fb = int(fb) if fb else _auto_frame_batch(source.spatial)
+        fb = max(1, min(fb, n_frames))
     rep = jobs_lib.ProgressReporter(job, n_frames)
 
     def write_frame(got):  # (H, W, C_out)
@@ -131,6 +138,50 @@ def _stream_to_writer(job, source, fn_for, timer, writer, c_out, device):
     rep.finish()
 
 
+def _parallel_plan(job: Job, cfg, tc, model, source, device, serve_for, allow_spatial: bool):
+    """``(fn_for, fb)`` for ``_stream_to_writer`` on a pool of more than
+    one device, or None to stream single-device. ``spatial_parallel``
+    (the GAN enhancer: ``allow_spatial``) splits each frame's rows over
+    the devices, an integer S runs n/S frames at once (hybrid);
+    ``data_parallel`` gives each device its own frame through
+    ``serve_for(batch, device)``."""
+    from sequitr_tpu_torch import parallel
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    n_dev = _n_devices(device)
+    if n_dev <= 1:
+        return None
+    sp = job.params.get("spatial_parallel") if allow_spatial else None
+    if sp:
+        from sequitr_tpu_torch.parallel import spatial as spatial_lib
+
+        s_ways = _spatial_ways(sp, n_dev, tc=tc)
+        d_ways = n_dev // s_ways
+        spatial = tuple(source.spatial)
+
+        def norm(frames):  # (B, H, W[, C]) on the device, each frame whole
+            return infer_lib._normalize(frames if frames.ndim == 4 else frames[..., None], tc)
+
+        try:
+            if d_ways > 1 and len(source) > 1:
+                mesh2 = parallel.make_mesh2d((d_ways, s_ways), device=device)
+                hy = spatial_lib.hybrid_gan_enhance(
+                    cfg, mesh2, spatial, batch=d_ways, out_dtype=tc.probs_dtype,
+                )
+                return (lambda _b: lambda c: hy(model, norm(c))), d_ways
+            sp_enh = spatial_lib.spatial_gan_enhance(
+                cfg, parallel.make_mesh(s_ways, device=device), spatial, out_dtype=tc.probs_dtype,
+            )
+        except (ValueError, NotImplementedError) as e:
+            raise jobs_lib.JobError(str(e))
+        return (lambda _b: lambda f: sp_enh(model, norm(f[None])[0])), 1
+    if job.params.get("data_parallel"):
+        mesh = parallel.make_mesh(device=device)
+        dp = parallel.make_dp_frame_inferrer(lambda d: serve_for(1, d), mesh)
+        return (lambda _b: lambda c: dp(model, c)), n_dev
+    return None
+
+
 def _frames_metrics(timer, t0: float, n_frames: int, device) -> str:
     total_s = time.time() - t0
     metrics = dict(timer.summary(), total_s=round(total_s, 4), n_frames=n_frames)
@@ -157,8 +208,6 @@ def enhancement_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     device = resolve_device(config.device)
     source = _frame_source(job)
     cfg, model, tc = _gan_setup(job, config, source)
-    for key in ("spatial_parallel", "data_parallel"):
-        _require_one_card(job, device, key)
 
     timer = PhaseTimer()
     n_frames = len(source)
@@ -171,13 +220,17 @@ def enhancement_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         _out_compression(job),
     )
 
+    def serve_for(batch, dev):
+        return infer_lib.cached_gan_enhancer(cfg, tc, tuple(source.spatial), batch, dev)
+
     def fn_for(batch):
-        enhance = infer_lib.cached_gan_enhancer(cfg, tc, tuple(source.spatial), batch, device)
+        enhance = serve_for(batch, device)
         return lambda frames: enhance(model, frames)
 
+    fn_for, fb = _parallel_plan(job, cfg, tc, model, source, device, serve_for, True) or (fn_for, None)
     t0 = time.time()
     try:
-        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device)
+        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device, fb)
     except BaseException:
         writer.abort()
         raise
@@ -219,7 +272,6 @@ def denoise(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         )
     paths = _resolve_inputs(job)
     cfg, model = _require_model(job, config, "n2v")
-    _require_one_card(job, device, "data_parallel")
     if cfg.dims == 3:
         return _denoise_volumes(job, cfg, model, paths, device)
     source = _frame_source(job)
@@ -247,13 +299,17 @@ def denoise(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         _out_compression(job),
     )
 
+    def serve_for(batch, dev):
+        return infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), batch, dev)
+
     def fn_for(batch):
-        den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), batch, device)
+        den = serve_for(batch, device)
         return lambda frames: den(model, frames)
 
+    fn_for, fb = _parallel_plan(job, cfg, tc, model, source, device, serve_for, False) or (fn_for, None)
     t0 = time.time()
     try:
-        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device)
+        _stream_to_writer(job, source, fn_for, timer, writer, c_out, device, fb)
     except BaseException:
         writer.abort()
         raise
@@ -320,22 +376,45 @@ def _denoise_volumes(job: Job, cfg, model, paths, device) -> Dict[str, str]:
     )
     timer = PhaseTimer()
     t0 = time.time()
-    den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), None, device)
+    n_dev = _n_devices(device)
+
+    def write_volume(vol):  # (Z, H, W)
+        with timer.phase("write"):
+            for plane in vol:
+                writer.append(plane)
+
     try:
         with source:
-            rep = jobs_lib.ProgressReporter(job, n_vols)
-            for out in infer_lib.stream_frames(
-                lambda v: den(model, v),
-                _reads_fail_fast(job, source.volumes()),
-                prefetch_host=infer_lib._copy_to_host_async, device=device,
-            ):
-                with timer.phase("fetch"):
-                    got = np.asarray(out)[..., 0]  # (Z, H, W)
-                with timer.phase("write"):
-                    for plane in got:
-                        writer.append(plane)
-                rep.step()
-            rep.finish()
+            if job.params.get("data_parallel") and n_dev > 1:
+                # TIMEPOINTS sharded over the devices: one whole volume a
+                # device a dispatch
+                from sequitr_tpu_torch import parallel
+
+                dp = parallel.make_dp_frame_inferrer(
+                    lambda d: infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), 1, d),
+                    parallel.make_mesh(device=device),
+                )
+                for chunk, n_real in _dp_chunk_stream(
+                    job, _volume_chunks(source, n_dev), n_vols, n_dev, phase="volumes",
+                ):
+                    out = dp(model, chunk)
+                    with timer.phase("fetch"):
+                        got = out.cpu().numpy()[..., 0]  # (D, Z, H, W)
+                    for k in range(n_real):
+                        write_volume(got[k])
+            else:
+                den = infer_lib.cached_denoiser(cfg, tc, tuple(source.spatial), None, device)
+                rep = jobs_lib.ProgressReporter(job, n_vols)
+                for out in infer_lib.stream_frames(
+                    lambda v: den(model, v),
+                    _reads_fail_fast(job, source.volumes()),
+                    prefetch_host=infer_lib._copy_to_host_async, device=device,
+                ):
+                    with timer.phase("fetch"):
+                        got = np.asarray(out)[..., 0]  # (Z, H, W)
+                    write_volume(got)
+                    rep.step()
+                rep.finish()
     except BaseException:
         writer.abort()
         raise

@@ -8,9 +8,11 @@ CSV columns and metrics keys as the JAX server. The FFT work runs on
 ``config.device`` (cuFFT on the card) through ``ops.registration`` and
 ``mosaic``; frames go to the device in their native dtype.
 
-``data_parallel`` across more than one card is a later slice of the port
-(``_require_one_card``); on one card it serves single-device, as the JAX
-server does on one chip. ``stitch_mosaic``'s ``backend: "cpu"`` runs the
+``data_parallel`` on a pool of more than one device
+(``parallel.device_pool``) shards ``register_stack``'s frames
+(``parallel.make_dp_registerer``) and ``stitch_mosaic``'s seams
+(``parallel.make_dp_seam_correlator``) over the devices; on one device it
+serves single-device, as the JAX server does on one chip. ``stitch_mosaic``'s ``backend: "cpu"`` runs the
 whole stitch on the host CPU, and ``"auto"`` picks it for grids of at
 most 16 seams when the server's device is a card, the JAX package's
 threshold, kept so the same job JSON takes the same choice.
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from sequitr_tpu_torch import mosaic as mosaic_lib
+from sequitr_tpu_torch import parallel
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.data.source import FrameSource, VolumeSequence
 from sequitr_tpu_torch.ops import registration as reg_lib
@@ -38,12 +41,12 @@ from sequitr_tpu_torch.server.server import (
     _append_writer,
     _apply_frame_range,
     _expand_inputs_entry,
+    _n_devices,
     _out_compression,
     _parse_roi_values,
     _parse_z_pages,
     _reads_fail_fast,
     _reject_low_confidence,
-    _require_one_card,
     _resolve_inputs,
     register,
 )
@@ -90,8 +93,8 @@ def register_stack_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     * ``frame_range``: [start, stop) as in the serving pipelines.
     * ``data_parallel`` (default false): ``first`` mode only (``previous``
       mode integrates an anchor chain serially and rejects the flag), 2D
-      only. Across more than one card it is a JobError (a later slice of
-      the port); on one card the job serves single-device.
+      only: ``frame_batch`` frames a device of the pool a dispatch; on a
+      pool of one device the job serves single-device.
     * ``estimate_roi`` ([y0, x0, y1, x1], 2D only): estimate the drift
       from a STABLE SUBREGION (fiducial marks, adherent patch) instead
       of the whole frame — estimation FFTs shrink to the ROI while the
@@ -221,8 +224,8 @@ def register_stack_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
             "frame_batch needs mode='first': 'previous' mode integrates "
             "a frame-to-frame anchor chain, which is inherently serial"
         )
-    _require_one_card(job, device, "data_parallel")
-    use_batch = frame_batch > 1
+    use_dp = dp_param and _n_devices(device) > 1
+    use_batch = use_dp or frame_batch > 1
     est_roi = p.get("estimate_roi")
     if est_roi is not None:
         est_roi = _parse_roi_values(est_roi, "estimate_roi")
@@ -285,14 +288,24 @@ def register_stack_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         """Batched form of ``estimate_frames`` (first mode only): chunks
         of ``frame_batch`` frames, one ``register_batch`` call per chunk
         (disk reads two chunks ahead). Yields the SAME per-frame tuples,
-        so the consumer loops don't care which estimator ran."""
-        chunk_n = frame_batch
-
-        def run(ref_img, frames):
-            return reg_lib.register_batch(
-                ref_img, frames, subpixel=subpixel, window=window,
-                refine=refine, resample=resample,
+        so the consumer loops don't care which estimator ran. With
+        ``data_parallel`` each device of the pool correlates (and
+        resamples) its ``frame_batch`` frames of the chunk against its
+        copy of the reference."""
+        if use_dp:
+            mesh = parallel.make_mesh(device=device)
+            chunk_n = mesh.size * frame_batch
+            run = parallel.make_dp_registerer(
+                mesh, subpixel=subpixel, window=window, refine=refine, resample=resample,
             )
+        else:
+            chunk_n = frame_batch
+
+            def run(ref_img, frames):
+                return reg_lib.register_batch(
+                    ref_img, frames, subpixel=subpixel, window=window,
+                    refine=refine, resample=resample,
+                )
 
         ref = None
         zero = np.zeros(2, np.float32)
@@ -949,9 +962,9 @@ def stitch_mosaic_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
       (product normalized to 1; blank seams skipped). Composes with
       ``flatfield`` (shading first, then gains); gain range lands in
       the metrics.
-    * ``data_parallel`` (default false): across more than one card a
-      JobError (a later slice of the port); on one card the stitch runs
-      single-device, as the JAX server does on one chip.
+    * ``data_parallel`` (default false): the seam pairs sharded over the
+      device pool (``metrics.n_devices``); on a pool of one device the
+      stitch runs single-device, as the JAX server does on one chip.
 
     Multi-channel: the uniform convention — one input entry per channel
     (each an R*C tile sequence in the same acquisition order). Seams are
@@ -1073,9 +1086,20 @@ def _stitch_mosaic_body(job: Job, device: torch.device) -> Dict[str, str]:
         )
     estimate_only = bool(p.get("estimate_only", False))
 
-    if p.get("positions") is None:
-        # a positions-reuse job never correlates seams
-        _require_one_card(job, device, "data_parallel")
+    correlate = None
+    dp_devices = 0
+    if (
+        bool(p.get("data_parallel"))
+        and _n_devices(device) > 1
+        # a positions-reuse job never correlates seams: no mesh, and no
+        # n_devices as if seams had been sharded
+        and p.get("positions") is None
+    ):
+        mesh = parallel.make_mesh(device=device)
+        dp_devices = mesh.size
+        correlate = parallel.make_dp_seam_correlator(
+            mesh, subpixel=subpixel, window=window, refine=refine
+        )
 
     timelapse = bool(p.get("timelapse", False))
     timer = PhaseTimer()
@@ -1088,6 +1112,7 @@ def _stitch_mosaic_body(job: Job, device: torch.device) -> Dict[str, str]:
         subpixel=subpixel, window=window, refine=refine,
         min_response=min_response, estimate_only=estimate_only,
         device=device, order=order, timer=timer, t0=t0,
+        correlate=correlate, dp_devices=dp_devices,
     )
     if timelapse:
         return _stitch_mosaic_timelapse(job, r, c, entries, **kw)
@@ -1292,6 +1317,8 @@ def _stitch_mosaic_core(
     device: torch.device,
     timer,
     t0: float,
+    correlate=None,
+    dp_devices: int = 0,
 ) -> Dict[str, str]:
     """Shared stitch engine: estimate once on (channel 0, timepoint 0),
     then stream one composite per (timepoint, channel) to page-append
@@ -1423,7 +1450,7 @@ def _stitch_mosaic_core(
                 first, (r, c), overlap=overlap, order="row",
                 subpixel=subpixel, window=window, refine=refine,
                 min_response=min_response, blend=False,
-                device=device,
+                device=device, correlate=correlate,
             )
 
     outputs: Dict[str, str] = {}
@@ -1490,6 +1517,8 @@ def _stitch_mosaic_core(
         )
     else:
         metrics["tiles_per_sec"] = round(r * c / max(total_s, 1e-9), 3)
+    if dp_devices:
+        metrics["n_devices"] = dp_devices
     if canvas_shape is not None:
         metrics["canvas_h"] = int(canvas_shape[0])
         metrics["canvas_w"] = int(canvas_shape[1])

@@ -39,11 +39,11 @@ from sequitr_tpu_torch.server.server import (
     _apply_frame_range,
     _apply_roi,
     _check_truth_shape,
+    _n_devices,
     _out_compression,
     _parse_z_pages,
     _reads_fail_fast,
     _require_model,
-    _require_one_card,
     _require_polyphase_model,
     _resolve_inputs,
     _tile_config,
@@ -64,6 +64,28 @@ def _stream(job: Job, device, fn, frames):
     return infer_lib.stream_frames(
         fn, _reads_fail_fast(job, frames), prefetch_host=prefetch_host, device=device
     )
+
+
+class _FramePass:
+    """The device pass of a serving job: ``pass_(frame)`` runs
+    ``make(device)(model, frame)`` on the job's device; ``sharded()`` is
+    the same pass over a chunk of frames with one frame a device of the
+    pool (``parallel.make_dp_frame_inferrer``), the outputs stacked."""
+
+    def __init__(self, model, make, device):
+        self.model, self.make, self.device = model, make, device
+        self.fn = make(device)
+
+    def __call__(self, frame):
+        return self.fn(self.model, frame)
+
+    def sharded(self):
+        from sequitr_tpu_torch import parallel
+
+        dp = parallel.make_dp_frame_inferrer(
+            lambda dev: parallel.mesh.frame_by_frame(self.make(dev)), parallel.make_mesh(device=self.device)
+        )
+        return lambda chunk: dp(self.model, chunk)
 
 
 def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, device):
@@ -100,16 +122,20 @@ def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
     if tc.polyphase:
         _require_polyphase_model(cfg)
     thresh = float(p.get("cellprob_threshold", 0.5))
-    try:
-        seg = infer_lib.cached_flows_segmenter(
+
+    def make(dev):
+        return infer_lib.cached_flows_segmenter(
             cfg, tc, tuple(spatial), n_iter=int(p.get("n_iter", 200)),
             step_size=float(p.get("step_size", 1.0)),
             cellprob_threshold=thresh,
             # "euler" (default) or "doubling" (pointer doubling on the
             # rounded successor map: log2(n_iter) gathers)
             integrator=str(p.get("integrator", "euler")),
-            device=device,
+            device=dev,
         )
+
+    try:
+        segment = _FramePass(model, make, device)
     except ValueError as e:
         # bad patch/overlap/head combos are deterministic — never retry
         raise jobs_lib.JobError(str(e))
@@ -123,7 +149,7 @@ def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
             min_sink=min_sink, min_area=min_area, snap_radius=snap,
         )
 
-    return (lambda frame: seg(model, frame)), group
+    return segment, group
 
 
 def _serve_frames(job: Job, source, device, segment, to_labels, group_phase: str):
@@ -150,35 +176,56 @@ def _serve_frames(job: Job, source, device, segment, to_labels, group_phase: str
     )
     tables = []
     n_objects = 0
+    n_dev = _n_devices(device)
+    use_dp = bool(job.params.get("data_parallel")) and n_dev > 1
     t0 = time.time()
+
+    def handle(t, a_np, b_np):
+        nonlocal n_objects
+        with timer.phase(group_phase):
+            lab, prob_np = to_labels(a_np, b_np)
+        n_objects += int(lab.max())
+        with timer.phase("write"):
+            labels_w.append(lab.astype(np.uint16, copy=False))
+            if prob_w is not None:
+                prob_w.append(prob_np.astype(np.float32, copy=False))
+        if do_localize:
+            inten = source.frame(t)
+            if inten.ndim == 3:
+                inten = inten.mean(axis=-1)
+            with timer.phase("localize"):
+                tables.append(
+                    loc_lib.localize_instances_table(
+                        lab, t=t + source.frame_offset,
+                        intensity=inten, min_area=min_area,
+                    )
+                )
+        rep.step()
+
     try:
         with source:
             rep = jobs_lib.ProgressReporter(job, n_frames)
-            results = _stream(job, device, segment, source.frames())
-            for t in range(n_frames):
-                with timer.phase("infer"):
-                    out = next(results)
-                with timer.phase("fetch"):
-                    a_np, b_np = (np.asarray(o) for o in out)
-                with timer.phase(group_phase):
-                    lab, prob_np = to_labels(a_np, b_np)
-                n_objects += int(lab.max())
-                with timer.phase("write"):
-                    labels_w.append(lab.astype(np.uint16, copy=False))
-                    if prob_w is not None:
-                        prob_w.append(prob_np.astype(np.float32, copy=False))
-                if do_localize:
-                    inten = source.frame(t)
-                    if inten.ndim == 3:
-                        inten = inten.mean(axis=-1)
-                    with timer.phase("localize"):
-                        tables.append(
-                            loc_lib.localize_instances_table(
-                                lab, t=t + source.frame_offset,
-                                intensity=inten, min_area=min_area,
-                            )
-                        )
-                rep.step()
+            if use_dp:
+                # frames sharded over the devices: one whole frame a device
+                # a dispatch; the grouping stays per frame on the host
+                results = _stream(job, device, segment.sharded(), source.chunks(n_dev))
+                t = 0
+                while t < n_frames:
+                    with timer.phase("infer"):
+                        out = next(results)
+                    with timer.phase("fetch"):
+                        a_np, b_np = (np.asarray(o) for o in out)
+                    for k in range(min(n_dev, n_frames - t)):
+                        handle(t, a_np[k], b_np[k])
+                        t += 1
+            else:
+                results = _stream(job, device, segment, source.frames())
+                for t in range(n_frames):
+                    with timer.phase("infer"):
+                        out = next(results)
+                    with timer.phase("fetch"):
+                        a_np, b_np = (np.asarray(o) for o in out)
+                    handle(t, a_np, b_np)
             rep.finish()
     except BaseException:
         labels_w.abort()
@@ -235,7 +282,8 @@ def segment_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     frame range / roi, ``n_iter`` / ``step_size`` / ``integrator``
     (``euler`` or ``doubling``), ``cellprob_threshold``, ``min_sink`` /
     ``min_area`` / ``snap_radius`` (sink grouping), ``save_prob``,
-    ``localize`` (default true), ``data_parallel`` (one card only).
+    ``localize`` (default true), ``data_parallel`` (2D: one frame a device
+    of the pool).
     Outputs: labels.tif (uint16, ids renumbered 1..N per frame), objects.h5
     (btrack layout), optionally prob.tif.
 
@@ -246,7 +294,6 @@ def segment_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     z centroids.
     """
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     paths = _resolve_inputs(job)
     cfg_probe, _ = _require_model(job, config, "flows")
     if cfg_probe.dims == 3:
@@ -598,7 +645,9 @@ def _stars_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
     if tc.polyphase:
         _require_polyphase_model(cfg)
     try:
-        pred = infer_lib.cached_stars_predictor(cfg, tc, tuple(spatial), device)
+        predict = _FramePass(
+            model, lambda dev: infer_lib.cached_stars_predictor(cfg, tc, tuple(spatial), dev), device
+        )
     except ValueError as e:
         # bad patch/overlap/head combos are deterministic — never retry
         raise jobs_lib.JobError(str(e))
@@ -614,7 +663,7 @@ def _stars_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
             peak_window=peak_window,
         )
 
-    return (lambda frame: pred(model, frame)), to_labels
+    return predict, to_labels
 
 
 @register("segment_stars")
@@ -627,12 +676,12 @@ def segment_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     (patch, overlap, normalize, p_lo/p_hi, polyphase), frame range / roi,
     ``prob_threshold`` (default 0.5), ``nms_threshold`` (default 0.3),
     ``peak_window`` (default 5), ``min_area``, ``save_prob``, ``localize``
-    (default true), ``data_parallel`` (one card only). Outputs: labels.tif
+    (default true), ``data_parallel`` (one frame a device of the pool).
+    Outputs: labels.tif
     (uint16, ids renumbered 1..N per frame), objects.h5 (btrack layout),
     optionally prob.tif.
     """
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     source = _frame_source(job)
     predict, to_labels = _stars_serving(job, config, source.spatial, source.n_channels, device)
     return _serve_frames(
@@ -814,7 +863,6 @@ def train_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     )
 
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     p = job.params
     dims = int(p.get("dims", 2))
     if dims not in (2, 3):
@@ -879,7 +927,6 @@ def train_stars(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     )
 
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     p = job.params
     if int(p.get("dims", 2)) != 2:
         raise jobs_lib.JobError(

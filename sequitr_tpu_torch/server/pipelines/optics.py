@@ -12,10 +12,11 @@ the device in their native dtype, streamed ``infer.stream_frames``-style
 (reads and the next item's work queued ahead); a localized frame comes
 back in one copy (its valid mask and fields packed), a deconvolved frame
 in one. The robust threshold (median + k*MAD) is host numpy over the
-host frame, as in the JAX server. ``data_parallel`` across more than one
-card is a later slice of the port (``_require_one_card``); on one card it
-serves single-device with output identical to streaming, as the JAX
-server does on one chip. The illumination job's estimate pass samples
+host frame, as in the JAX server. ``data_parallel`` on a pool of more
+than one device (``parallel.device_pool``) gives each device its own frame
+(volume) a dispatch (``parallel.make_dp_localizer*``,
+``make_dp_deconvolver``) and reports ``n_devices``; on one device it
+streams, as the JAX server does on one chip. The illumination job's estimate pass samples
 frames on the host (``ops.illumination.fit_shading`` /
 ``estimate_bleach_exp``, numpy); its streaming pass runs every frame
 through ``ops.illumination.make_corrector`` on the device.
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from sequitr_tpu_torch import localize as loc_lib
-from sequitr_tpu_torch import psf
+from sequitr_tpu_torch import parallel, psf
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.data import tiff
 from sequitr_tpu_torch.data.source import FrameSource, VolumeSequence
@@ -50,14 +51,16 @@ from sequitr_tpu_torch.server.server import (
     _append_writer,
     _apply_frame_range,
     _apply_roi,
+    _dp_chunk_stream,
     _expand_inputs_entry,
+    _n_devices,
     _out_compression,
     _parse_z_pages,
     _read_stack_or_fail,
     _reads_fail_fast,
-    _require_one_card,
     _resolve_inputs,
     _robust_threshold,
+    _volume_chunks,
     register,
 )
 from sequitr_tpu_torch.utils import PhaseTimer, resolve_device
@@ -351,6 +354,23 @@ def correct_illumination_job(job: Job, config: ServerConfiguration) -> Dict[str,
     return outputs
 
 
+def _localize_dp(job: Job, chunks, n: int, n_dev: int, thr_abs, k_sig: float, dp, keys, emit,
+                 phase: str = "chunks") -> None:
+    """The data-parallel form of ``_localize_stream``: ``n_dev`` items a
+    chunk (the tail padded), each item's threshold taken on the host,
+    ``dp(chunk, thresholds) -> (coords, valid, fits)`` with one item a
+    device of the pool, the chunk's rows back in one copy."""
+    done = 0
+    for chunk, n_real in _dp_chunk_stream(job, chunks, n, n_dev, phase=phase):
+        chunk = np.asarray(chunk, np.float32)
+        thrs = np.asarray([_robust_threshold(a, thr_abs, k_sig) for a in chunk], np.float32)
+        _, valid, fits = dp(chunk, thrs)
+        packed = psf.pack_valid(valid, fits, keys).cpu().numpy()  # (1 + keys, D, K)
+        for k in range(n_real):
+            emit(done, psf.unpack_valid(packed[:, k], keys))
+            done += 1
+
+
 def _localize_stream(job: Job, arrays, n: int, thr_abs, k_sig: float, fit, keys, emit, device,
                      phase: str = "frames") -> None:
     """Stream host items (frames or volumes) through ``fit`` on ``device``.
@@ -471,8 +491,8 @@ def localize_emitters_job(job: Job, config: ServerConfiguration) -> Dict[str, st
             "e.g. 1/pixel_size_nm for z in nm) so tracking gates on "
             "consistent units"
         )
-    _require_one_card(job, device, "data_parallel")
     n_frames = len(source)
+    n_dev = _n_devices(device) if p.get("data_parallel") else 1
 
     out_path = os.path.join(job.output, "emitters.csv")
     tmp = out_path + ".tmp"
@@ -511,7 +531,21 @@ def localize_emitters_job(job: Job, config: ServerConfiguration) -> Dict[str, st
                     zs = got["z"].astype(np.float64) * z_scale if calib is not None else None
                     tables.append(_btrack_table(t, got["x"], got["y"], got["amplitude"], zs))
 
-            _localize_stream(job, source.frames(), n_frames, thr_abs, k_sig, fit, keys, emit, device)
+            if n_dev > 1:
+                # frames sharded over the devices: one frame a device a
+                # dispatch
+                mesh = parallel.make_mesh(device=device)
+                if calib is not None:
+                    dp = parallel.make_dp_localizer_astig(
+                        mesh, calib, max_peaks=max_peaks, min_distance=min_distance, window=astig_window,
+                    )
+                else:
+                    dp = parallel.make_dp_localizer(
+                        mesh, max_peaks=max_peaks, min_distance=min_distance, window=window, sigma=sigma,
+                    )
+                _localize_dp(job, source.chunks(n_dev), n_frames, n_dev, thr_abs, k_sig, dp, keys, emit)
+            else:
+                _localize_stream(job, source.frames(), n_frames, thr_abs, k_sig, fit, keys, emit, device)
     except BaseException:
         try:
             os.unlink(tmp)
@@ -520,6 +554,8 @@ def localize_emitters_job(job: Job, config: ServerConfiguration) -> Dict[str, st
         raise
     os.replace(tmp, out_path)
     outputs = {"emitters": out_path, "n_emitters": str(n_rows), "n_frames": str(n_frames)}
+    if n_dev > 1:
+        outputs["n_devices"] = str(n_dev)
     if tables is not None:
         h5_path = os.path.join(job.output, "objects.h5")
         loc_lib.export_btrack_h5_tables(h5_path, tables, n_frames=source.frame_offset + n_frames)
@@ -580,8 +616,8 @@ def _localize_volume_timelapse(job: Job, path: str, device: torch.device) -> Dic
     k_sig = float(p.get("threshold_sigmas", 5.0))
     want_btrack = bool(p.get("btrack"))
     z_scale = float(p.get("z_scale", 1.0))
-    _require_one_card(job, device, "data_parallel")
     n_t = len(seq)
+    n_dev = _n_devices(device) if p.get("data_parallel") else 1
 
     out_path = os.path.join(job.output, "emitters.csv")
     tmp = out_path + ".tmp"
@@ -607,7 +643,16 @@ def _localize_volume_timelapse(job: Job, path: str, device: torch.device) -> Dic
                 if tables is not None:
                     tables.append(_btrack_table(t, got["x"], got["y"], got["amplitude"], got["z"] * z_scale))
 
-            _localize_stream(job, seq.volumes(), n_t, thr_abs, k_sig, fit, keys, emit, device, phase="volumes")
+            if n_dev > 1:
+                # TIMEPOINTS sharded over the devices
+                dp = parallel.make_dp_localizer3d(
+                    parallel.make_mesh(device=device), max_peaks=max_peaks, min_distance=min_distance,
+                    min_distance_z=min_distance_z, window=window, window_z=window_z,
+                    sigma=sigma, sigma_z=sigma_z,
+                )
+                _localize_dp(job, _volume_chunks(seq, n_dev), n_t, n_dev, thr_abs, k_sig, dp, keys, emit)
+            else:
+                _localize_stream(job, seq.volumes(), n_t, thr_abs, k_sig, fit, keys, emit, device, phase="volumes")
     except BaseException:
         try:
             os.unlink(tmp)
@@ -618,6 +663,8 @@ def _localize_volume_timelapse(job: Job, path: str, device: torch.device) -> Dic
         seq.close()
     os.replace(tmp, out_path)
     outputs = {"emitters": out_path, "n_emitters": str(n_rows), "n_frames": str(n_t)}
+    if n_dev > 1:
+        outputs["n_devices"] = str(n_dev)
     if tables is not None:
         h5_path = os.path.join(job.output, "objects.h5")
         loc_lib.export_btrack_h5_tables(h5_path, tables, n_frames=seq.frame_offset + n_t)
@@ -826,7 +873,7 @@ def deconvolve_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
                 f"job {job.id}: cannot read inputs {paths}: {e}"
             )
         source = _apply_roi(job, _apply_frame_range(job, source))
-        _require_one_card(job, device, "data_parallel")
+        n_dev = _n_devices(device) if job.params.get("data_parallel") else 1
         n_chan = source.n_channels
         kernel = psf.gaussian_psf_2d(psf_size, sigma, device)
         n_frames = len(source)
@@ -846,20 +893,33 @@ def deconvolve_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
                 pth = out_path if name == "deconvolved" else os.path.join(job.output, f"{name}.tif")
                 writers.append((name, pth, _append_writer(pth, est, comp)))
             with source:
-                for out in jobs_lib.track(
-                    job,
-                    infer_lib.stream_frames(
-                        lambda f: psf.richardson_lucy_frame(f, kernel, iterations),
-                        _reads_fail_fast(job, source.frames()),
-                        prefetch_host=infer_lib._copy_to_host_async,
-                        device=device,
-                    ),
-                    total=n_frames,
-                ):
-                    with timer.phase("fetch"):
-                        got = np.asarray(out, dtype=np.float32)
-                    with timer.phase("write"):
-                        write_frame(got)
+                if n_dev > 1:
+                    # frames sharded over the devices: one frame a device a
+                    # dispatch
+                    dp = parallel.make_dp_deconvolver(parallel.make_mesh(device=device), kernel, iterations)
+                    for chunk, n_real in _dp_chunk_stream(job, source.chunks(n_dev), n_frames, n_dev):
+                        with timer.phase("infer"):
+                            out = dp(np.asarray(chunk, np.float32))
+                        with timer.phase("fetch"):
+                            got = out.cpu().numpy()
+                        with timer.phase("write"):
+                            for k in range(n_real):
+                                write_frame(got[k])
+                else:
+                    for out in jobs_lib.track(
+                        job,
+                        infer_lib.stream_frames(
+                            lambda f: psf.richardson_lucy_frame(f, kernel, iterations),
+                            _reads_fail_fast(job, source.frames()),
+                            prefetch_host=infer_lib._copy_to_host_async,
+                            device=device,
+                        ),
+                        total=n_frames,
+                    ):
+                        with timer.phase("fetch"):
+                            got = np.asarray(out, dtype=np.float32)
+                        with timer.phase("write"):
+                            write_frame(got)
         except BaseException:
             for _name, _pth, w in writers:
                 w.abort()
@@ -870,6 +930,8 @@ def deconvolve_job(job: Job, config: ServerConfiguration) -> Dict[str, str]:
             outputs[name] = pth
     total_s = time.time() - t0
     metrics = dict(timer.summary(), total_s=round(total_s, 4), n_frames=n_frames)
+    if dims != 3 and n_dev > 1:
+        metrics["n_devices"] = n_dev
     if total_s > 0:
         metrics["frames_per_sec"] = round(n_frames / total_s, 3)
     if dims == 3:

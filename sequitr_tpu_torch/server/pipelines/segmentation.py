@@ -23,6 +23,7 @@ from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.server import jobs as jobs_lib
@@ -33,6 +34,7 @@ from sequitr_tpu_torch.server.server import (
     _apply_roi,
     _check_truth_shape,
     _expand_inputs_entry,
+    _n_devices,
     _normalized_entropy,
     _out_compression,
     _parse_eval_ignore,
@@ -40,10 +42,10 @@ from sequitr_tpu_torch.server.server import (
     _read_stack_or_fail,
     _reads_fail_fast,
     _require_model,
-    _require_one_card,
     _require_polyphase_model,
     _resolve_inputs,
     _run_frames,
+    _spatial_ways,
     _tile_config,
     _truth_reader,
     register,
@@ -694,13 +696,35 @@ def segmentation_unet3d(job: Job, config: ServerConfiguration) -> Dict[str, str]
             "polyphase + spatial_parallel is not supported; the "
             "spatial path runs its own halo-exchange forward"
         )
-    _require_one_card(job, device, "spatial_parallel")
 
     timer = PhaseTimer()
     t0 = time.time()
-    fn = infer_lib.cached_frame_inferrer(cfg, tc, vol_spatial, device)
-    with timer.phase("infer"):
-        probs, labels = fn(model, vol)
+    sp = job.params.get("spatial_parallel")
+    n_dev = _n_devices(device)
+    if sp and n_dev > 1:
+        # the volume Z-sharded over the devices (plane halo exchange, the
+        # whole-volume result), normalized whole first
+        from sequitr_tpu_torch import parallel
+        from sequitr_tpu_torch.parallel import spatial as spatial_lib
+
+        s_ways = _spatial_ways(sp, n_dev, divide=False, tc=tc)
+        mesh = parallel.make_mesh(s_ways, device=device)
+        try:
+            sp_fn = spatial_lib.spatial_unet3d_infer(
+                cfg, mesh, vol_spatial,
+                probs_dtype=tc.probs_dtype, labels_dtype=tc.labels_dtype,
+            )
+        except (ValueError, NotImplementedError) as e:
+            # bad shape/config for sharding is deterministic — no retry
+            raise jobs_lib.JobError(str(e))
+        with timer.phase("infer"):
+            v = torch.as_tensor(vol, device=device)
+            x = infer_lib._normalize((v if v.ndim == 4 else v[..., None])[None], tc)[0]
+            probs, labels = sp_fn(model, x)
+    else:
+        fn = infer_lib.cached_frame_inferrer(cfg, tc, vol_spatial, device)
+        with timer.phase("infer"):
+            probs, labels = fn(model, vol)
     with timer.phase("fetch"):
         labels_np = labels.cpu().numpy()
         probs_np = None if probs is None else probs.cpu().numpy()

@@ -13,9 +13,12 @@ through ``models.polyphase.apply_train`` (``apply3d_train``).
 ``train_n2v`` (2D and volumes, ``pipeline.fit.fit_n2v``) builds its own
 image-only shards on the host and registers kind ``n2v``; its helpers
 (``_family_train_config``, ``_fit_config``, ``_fit_and_register``)
-also serve ``train_flows`` and ``train_stars``. ``finetune_spatial`` (the
-halo-exchanged whole-frame trainer) and ``data_parallel`` across more
-than one card (a JobError) belong to the multi-card slice of the port.
+also serve ``train_flows`` and ``train_stars``. ``data_parallel: true``
+splits every batch over the device pool (``parallel.device_pool``; the
+global batch's statistics, ``server._train_mesh``) and trains
+single-device on a pool of one. ``finetune_spatial``
+(``pipeline.fit.fit_unet_spatial``) finetunes on whole giant frames, their
+rows halo-sharded over the pool.
 """
 
 from __future__ import annotations
@@ -32,15 +35,17 @@ from sequitr_tpu_torch.server.jobs import Job
 from sequitr_tpu_torch.server.server import (
     _check_ignore_collision,
     _ema_or_raw_params,
+    _n_devices,
     _parse_ema_decay,
     _parse_ignore_label,
     _parse_patience,
     _parse_z_pages,
-    _require_one_card,
     _require_param,
     _resolve_globs,
     _resolve_inputs,
+    _train_mesh,
     load_model_cached,
+    read_model,
     register,
     save_model,
     unet_config_from_params,
@@ -274,7 +279,6 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     from sequitr_tpu_torch.pipeline import train as train_lib
 
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     shard_paths: list = []
     for pattern in _resolve_globs(job):
         shard_paths.extend(sorted(glob_lib.glob(pattern)))
@@ -323,6 +327,7 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
             cfg, tc, fc, shard_paths, ckpt_dir=ckpt_dir, init_state=init_state,
             distill=distill, should_stop=lambda: jobs_lib.cancel_requested(job),
             progress=lambda s, _t: rep.step(s), device=device,
+            mesh=_train_mesh(p, fc.batch_size, device),
         )
     except fit_lib.TrainingCancelled as e:
         raise jobs_lib.JobCancelled(str(e))
@@ -334,6 +339,209 @@ def _train_unet(job: Job, config: ServerConfiguration) -> Dict[str, str]:
         state = train_lib.restore_checkpoint(best_path, state)
     model = _ema_or_raw_params(ckpt_dir, fc, state, used_best)
     model_dir = save_model(config.models_dir, _require_param(job, "model"), "unet", cfg, model)
+    return {"model": model_dir, "metrics_file": fc.metrics_path}
+
+
+@register("finetune_spatial")
+def finetune_spatial(job: Job, config: ServerConfiguration) -> Dict[str, str]:
+    """Finetune a U-Net on WHOLE giant frames, rows sharded over the devices.
+
+    The training counterpart of the ``spatial_parallel`` serve: frames too
+    large to train as one-device batches (16k x 16k slide-scanner mosaics)
+    train with their rows halo-sharded over the device pool
+    (``parallel.spatial_train``: the whole-frame step, batch-norm
+    statistics over the mesh). No record shards: the job reads the stacks.
+
+    input: [*image stacks (one per channel), labels stack]. params:
+    ``model`` (output name, required), ``from_model`` (a registered unet
+    model to start from, trained in f32 and registered again with its own
+    compute dtype; omit it to train from scratch with the architecture
+    params), ``weights_input`` (optional per-pixel loss-weight stack),
+    ``steps``, ``batch_size`` (default 1), ``learning_rate``,
+    ``grad_accum``, ``remat``, ``data_ways`` (hybrid: the batch split this
+    many ways and the rows over the rest; default 1, rows only),
+    ``normalize`` (default true: percentile [p_lo, p_hi] -> [0, 1] per
+    frame on the host, as ``build_records``), ``checkpoint_every``,
+    ``log_every``, ``keep_checkpoints``, ``seed`` (the frame order:
+    ``np.random.default_rng(seed)``), ``resume`` (default true). Frame
+    heights must divide the space ways times the model's pooling multiple.
+    Cancellation checkpoints first; a re-submitted job resumes.
+    Augmentation is off by design (warps cross shard boundaries).
+    """
+    import dataclasses
+
+    from sequitr_tpu_torch import parallel
+    from sequitr_tpu_torch.data import tiff
+    from sequitr_tpu_torch.data.source import FrameSource
+    from sequitr_tpu_torch.models import convert as convert_lib
+    from sequitr_tpu_torch.parallel.spatial import _validate_spatial
+    from sequitr_tpu_torch.pipeline import fit as fit_lib
+    from sequitr_tpu_torch.pipeline import train as train_lib
+
+    device = resolve_device(config.device)
+    paths = _resolve_inputs(job)
+    if len(paths) < 2:
+        raise jobs_lib.JobError(
+            "finetune_spatial needs [*image stacks, labels]"
+        )
+    *img_paths, lab_path = paths
+    p = job.params
+    try:
+        source = FrameSource(paths=img_paths)
+    except ValueError as e:
+        raise jobs_lib.JobError(f"job {job.id}: cannot read inputs: {e}")
+
+    def lazy_stack(path, dtype):
+        """Per-frame lazy reader (giant stacks are not read whole), the
+        bulk reader for other layouts; ``(shape, read_fn, close_fn)``."""
+        try:
+            r = tiff.TiffReader(path)
+            return (
+                tuple(r.shape),
+                lambda i: np.asarray(r.read_frame(i)).astype(dtype),
+                r.close,
+            )
+        except ValueError:
+            arr = np.asarray(tiff.read_stack(path)).astype(dtype)
+            if arr.ndim == 2:
+                arr = arr[None]
+            return tuple(arr.shape), (lambda i: arr[i]), (lambda: None)
+
+    closers = [source.close]
+    try:
+        lab_shape, read_lab, close_lab = lazy_stack(lab_path, np.int32)
+        closers.append(close_lab)
+        if (len(source),) + source.spatial != lab_shape:
+            raise jobs_lib.JobError(
+                f"image/label shape mismatch: "
+                f"{(len(source),) + source.spatial} vs {lab_shape}"
+            )
+        read_w = None
+        if p.get("weights_input"):
+            w_shape, read_w, close_w = lazy_stack(str(p["weights_input"]), np.float32)
+            closers.append(close_w)
+            if w_shape != lab_shape:
+                raise jobs_lib.JobError(
+                    f"weights/label shape mismatch: {w_shape} vs {lab_shape}"
+                )
+
+        steps = int(p.get("steps", 100))
+        batch_size = int(p.get("batch_size", 1))
+        tc = train_lib.TrainConfig(
+            learning_rate=float(p.get("learning_rate", 1e-5)),
+            augment=False,
+            grad_accum=int(p.get("grad_accum", 1)),
+            remat=bool(p.get("remat", False)),
+        )
+        init = None
+        if p.get("from_model"):
+            kind, cfg, flat = read_model(config.models_dir, str(p["from_model"]))
+            if kind != "unet":
+                raise jobs_lib.JobError(
+                    f"from_model={p['from_model']!r} is not a unet model"
+                )
+            save_cfg = cfg  # registered again with the SOURCE compute dtype
+            # halo-exchange training runs f32 (gradient fidelity on giant
+            # frames); serving keeps the source model's dtype
+            cfg = dataclasses.replace(cfg, compute_dtype="float32")
+            init = train_lib.create_unet_state(
+                cfg, tc, model=convert_lib.load_flat(cfg, flat, device=device)
+            )
+        else:
+            cfg = unet_config_from_params(p)
+            save_cfg = cfg
+
+        d_ways = int(p.get("data_ways", 1))
+        n_dev = _n_devices(device)
+        if d_ways > 1:
+            if n_dev % d_ways:
+                raise jobs_lib.JobError(
+                    f"data_ways={d_ways} does not divide {n_dev} devices"
+                )
+            mesh = parallel.make_mesh2d((d_ways, n_dev // d_ways), device=device)
+            data_axis, space_axis = "data", "space"
+        else:
+            mesh = parallel.make_mesh(device=device)
+            data_axis, space_axis = None, "data"
+        if batch_size > len(source):
+            raise jobs_lib.JobError(
+                f"batch_size={batch_size} exceeds the {len(source)}-frame stack"
+            )
+        try:
+            # a mesh/shape mismatch (H divisibility, pooling multiple, the
+            # hybrid batch factor) is deterministic: refused before training
+            _validate_spatial(cfg, mesh.shape[space_axis], source.spatial)
+            if batch_size % (mesh.shape[data_axis] if data_axis else 1):
+                raise ValueError(
+                    f"batch_size={batch_size} not divisible by {d_ways} data shards"
+                )
+        except (ValueError, NotImplementedError) as e:
+            raise jobs_lib.JobError(str(e))
+
+        fc = fit_lib.FitConfig(
+            steps=steps,
+            batch_size=batch_size,
+            checkpoint_every=int(p.get("checkpoint_every", 500)),
+            log_every=int(p.get("log_every", 50)),
+            metrics_path=os.path.join(job.output, "metrics.jsonl"),
+            seed=int(p.get("seed", 0)),
+            keep_checkpoints=int(p.get("keep_checkpoints", 3)),
+        )
+        ckpt_dir = os.path.join(job.output, "ckpts")
+        ckpt = fit_lib.latest_checkpoint(ckpt_dir) if p.get("resume", True) else None
+        if ckpt:
+            init = train_lib.restore_checkpoint(ckpt, train_lib.create_unet_state(cfg, tc, device=device))
+
+        normalize = bool(p.get("normalize", True))
+        p_lo, p_hi = float(p.get("p_lo", 5.0)), float(p.get("p_hi", 99.5))
+        n_frames = len(source)
+
+        def frame_batches():
+            """Whole frames in batches, cycled forever (the fit loop bounds
+            the steps); each frame normalizes on every visit (giant stacks
+            are not cached), as ``build_records`` maps it."""
+            order_rng = np.random.default_rng(fc.seed)
+            while True:
+                order = order_rng.permutation(n_frames)
+                for s in range(0, n_frames - batch_size + 1, batch_size):
+                    idx = order[s : s + batch_size]
+                    imgs = []
+                    for t in idx:
+                        img = np.asarray(source.frame(int(t)), dtype=np.float32)
+                        if normalize:
+                            axes = tuple(range(len(source.spatial)))
+                            lo = np.percentile(img, p_lo, axis=axes, keepdims=True)
+                            hi = np.percentile(img, p_hi, axis=axes, keepdims=True)
+                            img = np.clip(
+                                (img - lo) / np.maximum(hi - lo, 1e-8), 0.0, 1.0
+                            ).astype(np.float32)
+                        imgs.append(img)
+                    batch = {
+                        "image": np.stack(imgs),
+                        "labels": np.stack([read_lab(int(t)) for t in idx]),
+                    }
+                    if read_w is not None:
+                        batch["weights"] = np.stack([read_w(int(t)) for t in idx])
+                    yield batch
+
+        rep = jobs_lib.ProgressReporter(job, steps, phase="steps", raise_on_cancel=False)
+        try:
+            state = fit_lib.fit_unet_spatial(
+                cfg, tc, fc, frame_batches(), mesh, source.spatial,
+                ckpt_dir=ckpt_dir, init_state=init,
+                data_axis=data_axis, space_axis=space_axis,
+                should_stop=lambda: jobs_lib.cancel_requested(job),
+                progress=lambda s, _t: rep.step(s), device=device,
+            )
+        except fit_lib.TrainingCancelled as e:
+            raise jobs_lib.JobCancelled(str(e))
+    finally:
+        for close in closers:
+            close()
+    rep.finish()
+    model_dir = save_model(
+        config.models_dir, _require_param(job, "model"), "unet", save_cfg, state.model
+    )
     return {"model": model_dir, "metrics_file": fc.metrics_path}
 
 
@@ -402,7 +610,6 @@ def train_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     from sequitr_tpu_torch.pipeline import train as train_lib
 
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     shard_paths: list = []
     for pattern in _resolve_globs(job):
         shard_paths.extend(sorted(glob_lib.glob(pattern)))
@@ -445,6 +652,7 @@ def train_gan(job: Job, config: ServerConfiguration) -> Dict[str, str]:
             l1_weight=float(p.get("l1_weight", 100.0)),
             should_stop=lambda: jobs_lib.cancel_requested(job),
             progress=lambda s, _t: rep.step(s), device=device,
+            mesh=_train_mesh(p, fc.batch_size, device),
         )
     except fit_lib.TrainingCancelled as e:
         raise jobs_lib.JobCancelled(str(e))
@@ -569,12 +777,13 @@ def _fit_and_register(job: Job, config: ServerConfiguration, device, kind: str, 
     from sequitr_tpu_torch.pipeline import train as train_lib
 
     ckpt_dir = os.path.join(job.output, "ckpts")
+    mesh = _train_mesh(job.params, fc.batch_size, device)
     rep = jobs_lib.ProgressReporter(job, fc.steps, phase="steps", raise_on_cancel=False)
     try:
         state = fit(
             cfg, tc, fc, shard_paths, ckpt_dir=ckpt_dir, init_state=init_state,
             should_stop=lambda: jobs_lib.cancel_requested(job),
-            progress=lambda s, _t: rep.step(s), device=device, **fit_kw,
+            progress=lambda s, _t: rep.step(s), device=device, mesh=mesh, **fit_kw,
         )
     except fit_lib.TrainingCancelled as e:
         raise jobs_lib.JobCancelled(str(e))
@@ -622,7 +831,6 @@ def train_n2v(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     from sequitr_tpu_torch.pipeline import fit as fit_lib
 
     device = resolve_device(config.device)
-    _require_one_card(job, device, "data_parallel")
     p = job.params
     dims = int(p.get("dims", 2))
     if dims not in (2, 3):

@@ -17,7 +17,9 @@ imports with ``python -m sequitr_tpu_torch import-model``.
 Jobs run on ``config.device`` (default the CUDA card), training jobs too.
 The job param ``profile: true`` traces a job with ``torch.profiler``
 (``utils.trace``) into ``<output>/profile``.
-Multi-card data or spatial parallelism is a later slice of the port.
+``data_parallel`` and ``spatial_parallel`` shard over the devices of
+``parallel.device_pool(config.device)`` (every card; on a pool of one
+device the jobs stream single-device, as the JAX server does on one chip).
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import traceback
 from typing import Callable, Dict
 
 import numpy as np
-import torch
 
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.server import jobs as jobs_lib
@@ -541,22 +542,36 @@ def _robust_threshold(arr: np.ndarray, thr_abs, k_sig: float) -> float:
 
 
 def _volume_chunks(seq, n: int):
-    """float32 view of ``VolumeSequence.chunks`` (the JAX server's
-    data-parallel feed; copied for the multi-card slice)."""
+    """float32 view of ``VolumeSequence.chunks``: the feed of the
+    timepoint-sharded data-parallel jobs (3D localization, 3D denoise)."""
     for c in seq.chunks(n):
         yield np.asarray(c, np.float32)
 
 
-def _require_one_card(job: Job, device, key: str) -> None:
-    """``key`` across more than one CUDA card is a later slice of the port:
-    a JobError there; on one card it serves single-device, as the JAX
-    server does on one chip."""
-    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if job.params.get(key) and n_cards > 1:
-        raise jobs_lib.JobError(
-            f"{key} across {n_cards} CUDA devices is not ported yet "
-            "(a later slice of the port); omit it to serve on one device"
-        )
+def _dp_chunk_stream(job: Job, chunks_iter, n_items: int, chunk_n: int, phase: str = "chunks"):
+    """Yield ``(chunk, n_real)`` over a padded chunk stream: the shared
+    scaffolding of the chunked data-parallel loops (localization,
+    deconvolution, 3D denoise): disk reads two chunks ahead, progress and
+    cancellation a chunk, fail-fast reads, and the count of real (unpadded)
+    items in each chunk."""
+    from sequitr_tpu_torch.pipeline import infer as infer_lib
+
+    n_chunks = (n_items + chunk_n - 1) // chunk_n
+    it = jobs_lib.track(
+        job, infer_lib._iter_read_ahead(chunks_iter, 2), total=n_chunks, phase=phase,
+    )
+    left = n_items
+    for chunk in _reads_fail_fast(job, iter(it)):
+        yield chunk, min(chunk_n, left)
+        left -= chunk_n
+
+
+def _n_devices(device) -> int:
+    """How many devices a job on ``device`` may shard over
+    (``parallel.device_pool``)."""
+    from sequitr_tpu_torch.parallel import device_pool
+
+    return len(device_pool(device))
 
 
 def _require_param(job: Job, key: str):
@@ -834,47 +849,102 @@ def _run_frames(cfg, tc, model, source, job: Job, device):
     the whole stack's outputs. Frames run ``frame_batch`` at a time (auto:
     ~1M pixels per batch, at most 8) or one at a time, two ahead.
 
-    ``data_parallel`` / ``spatial_parallel`` on more than one CUDA card are
-    a later slice; on one card they serve single-device, as the JAX server
-    does on one chip.
+    On a pool of more than one device (``parallel.device_pool``):
+    ``spatial_parallel: true`` splits every frame's rows over all of them
+    (halo exchange, the whole-frame result), an integer S splits rows S
+    ways and runs n/S frames at once (hybrid), and ``data_parallel: true``
+    gives each device its own frame. On a single device both serve
+    streaming, as the JAX server does on one chip.
     """
     from sequitr_tpu_torch.pipeline import infer as infer_lib
 
     job_params = job.params
     spatial = tuple(source.spatial)
     n_frames = len(source)
-    for key in ("spatial_parallel", "data_parallel"):
-        _require_one_card(job, device, key)
-    fb = job_params.get("frame_batch")
-    fb = int(fb) if fb else _auto_frame_batch(spatial)
-    fb = max(1, min(fb, n_frames))  # never compute padded frames nobody asked for
     want_probs = bool(
         job_params.get("save_probs") or job_params.get("save_entropy")
     )
     # labels-only jobs run the labels-only graph (no softmax maps)
     tc = dataclasses.replace(tc, emit_probs=want_probs)
-    if fb > 1:
 
-        def _host_prefetch(out):
-            probs, labels = out
-            if want_probs:
-                probs = infer_lib._copy_to_host_async(probs)
-            return probs, infer_lib._copy_to_host_async(labels)
+    def _host_prefetch(out):
+        probs, labels = out
+        if want_probs:
+            probs = infer_lib._copy_to_host_async(probs)
+        return (probs if want_probs else None), infer_lib._copy_to_host_async(labels)
 
-        bfn = infer_lib.cached_batch_inferrer(cfg, tc, spatial, fb, device)
+    def _batched(fn, chunk_n):
         n_left = n_frames
         for probs, labels in infer_lib.stream_frames(
-            lambda c: bfn(model, c),
-            _reads_fail_fast(job, source.chunks(fb)),
-            prefetch_host=_host_prefetch,
-            device=device,
+            fn, _reads_fail_fast(job, source.chunks(chunk_n)),
+            prefetch_host=_host_prefetch, device=device,
         ):
-            for k in range(min(fb, n_left)):
+            for k in range(min(chunk_n, n_left)):
                 yield infer_lib.InferenceResult(
-                    probs=None if probs is None else probs[k],
-                    labels=labels[k],
+                    probs=None if probs is None else probs[k], labels=labels[k],
                 )
-            n_left -= fb
+            n_left -= chunk_n
+
+    n_dev = _n_devices(device)
+    sp = job_params.get("spatial_parallel")
+    if sp and n_dev > 1:
+        # huge frames split over the devices (halo exchange, the exact
+        # whole-frame result); each frame normalizes whole, then shards
+        from sequitr_tpu_torch import parallel
+        from sequitr_tpu_torch.parallel import spatial as spatial_lib
+
+        s_ways = _spatial_ways(sp, n_dev, tc=tc)
+        d_ways = n_dev // s_ways
+
+        def norm(frames):  # (B, H, W[, C]) on the device
+            x = frames if frames.ndim == 4 else frames[..., None]
+            return infer_lib._normalize(x, tc)
+
+        if d_ways > 1 and n_frames > 1:
+            mesh2 = parallel.make_mesh2d((d_ways, s_ways), device=device)
+            try:
+                hy_fn = spatial_lib.hybrid_unet2d_infer(
+                    cfg, mesh2, spatial, batch=d_ways,
+                    probs_dtype=tc.probs_dtype, labels_dtype=tc.labels_dtype,
+                )
+            except (ValueError, NotImplementedError) as e:
+                # bad shape/config for sharding is deterministic — no retry
+                raise jobs_lib.JobError(str(e))
+            # one quantile pass normalizes the whole chunk (per-frame
+            # percentiles)
+            yield from _batched(lambda c: hy_fn(model, norm(c)), d_ways)
+            return
+        mesh = parallel.make_mesh(s_ways, device=device)
+        try:
+            sp_fn = spatial_lib.spatial_unet2d_infer(
+                cfg, mesh, spatial,
+                probs_dtype=tc.probs_dtype, labels_dtype=tc.labels_dtype,
+            )
+        except (ValueError, NotImplementedError) as e:
+            raise jobs_lib.JobError(str(e))
+        for probs, labels in infer_lib.stream_frames(
+            lambda f: sp_fn(model, norm(f[None])[0]),
+            _reads_fail_fast(job, source.frames()),
+            prefetch_host=_host_prefetch, device=device,
+        ):
+            yield infer_lib.InferenceResult(probs=probs, labels=labels)
+        return
+    if job_params.get("data_parallel") and n_dev > 1:
+        # one frame a device a dispatch, weights copied to each device
+        from sequitr_tpu_torch import parallel
+
+        mesh = parallel.make_mesh(device=device)
+        dp = parallel.make_dp_frame_inferrer(
+            lambda d: infer_lib.cached_batch_inferrer(cfg, tc, spatial, 1, d), mesh
+        )
+        yield from _batched(lambda c: dp(model, c), n_dev)
+        return
+    fb = job_params.get("frame_batch")
+    fb = int(fb) if fb else _auto_frame_batch(spatial)
+    fb = max(1, min(fb, n_frames))  # never compute padded frames nobody asked for
+    if fb > 1:
+        bfn = infer_lib.cached_batch_inferrer(cfg, tc, spatial, fb, device)
+        yield from _batched(lambda c: bfn(model, c), fb)
         return
     fn = infer_lib.cached_frame_inferrer(cfg, tc, spatial, device)
     yield from infer_lib.infer_stack(
@@ -937,6 +1007,60 @@ def _auto_frame_batch(spatial) -> int:
     """Frames per batch: ~1M pixels in flight, capped at 8."""
     px = int(np.prod(spatial))
     return int(max(1, min(8, 1_000_000 // max(px, 1))))
+
+
+def _spatial_ways(sp, n_dev: int, divide: bool = True, tc=None) -> int:
+    """Parse the ``spatial_parallel`` job param into a shard count.
+
+    Malformed values (non-integer strings, counts that don't fit the
+    device pool) are deterministic JobErrors, never retried. ``tc``:
+    refuse combinations the halo-exchange forward does not implement
+    (tta) instead of silently ignoring them."""
+    if tc is not None and tc.tta != 1:
+        raise jobs_lib.JobError(
+            "tta is not supported with spatial_parallel (the halo-exchange "
+            "graph runs whole frames; use data_parallel or single-chip)"
+        )
+    if sp is True:
+        return n_dev
+    try:
+        s_ways = int(sp)
+    except (TypeError, ValueError):
+        raise jobs_lib.JobError(
+            f"spatial_parallel={sp!r} must be true or an integer"
+        )
+    if s_ways < 2 or (divide and n_dev % s_ways) or s_ways > n_dev:
+        raise jobs_lib.JobError(
+            f"spatial_parallel={sp!r} must be >=2 and "
+            + ("divide" if divide else "fit")
+            + f" the {n_dev} available devices"
+        )
+    return s_ways
+
+
+def _train_mesh(p: dict, batch_size: int, device):
+    """The mesh of a ``data_parallel: true`` training job: the batch split
+    over every device of the pool; None (single-device) when the pool has
+    one device. The batch must divide evenly over the mesh: refused up
+    front, not mid-job."""
+    if not p.get("data_parallel"):
+        return None
+    if _n_devices(device) <= 1:
+        return None
+    if p.get("polyphase"):
+        raise jobs_lib.JobError(
+            "polyphase training does not combine with data_parallel on more "
+            "than one device; train polyphase single-device"
+        )
+    from sequitr_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(device=device)
+    n = mesh.size
+    if batch_size % n:
+        raise jobs_lib.JobError(
+            f"data_parallel: batch_size {batch_size} not divisible by {n} devices"
+        )
+    return mesh
 
 
 def _reads_fail_fast(job: Job, it):

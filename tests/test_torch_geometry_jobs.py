@@ -510,18 +510,30 @@ def test_job_errors(env, case):
     ("register_stack", {"mode": "first", "data_parallel": True}),
     ("stitch_mosaic", {"grid": [2, 3], "overlap": 16, "data_parallel": True}),
 ])
-def test_data_parallel_across_cards_is_refused(env, monkeypatch, module, params):
-    """More than one card: a JobError before any device work (a later slice
-    of the port); one card serves single-device (the cases above)."""
-    from sequitr_tpu_torch.server import jobs as jobs_lib
-    from sequitr_tpu_torch.server.jobs import Job
-    from sequitr_tpu_torch.server.pipelines import geometry
+def test_data_parallel_on_two_devices_equals_single_device(env, module, params):
+    """On a pool of two devices (``parallel.virtual_devices(2)``) the job
+    takes its data-parallel path (frames, or seam pairs, split over the
+    devices) and writes the single-device outputs: the shifts, positions
+    and seams within the JAX comparisons' bars, the images within
+    ``PIXEL_TOL``, the metrics equal but ``n_devices`` (the stitch reports
+    the pool it sharded over)."""
+    from sequitr_tpu_torch import parallel
 
-    monkeypatch.setattr(geometry, "resolve_device", lambda device: torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    job = Job(id="x", module=module, func="run", params=params,
-              input=[env["stack" if module == "register_stack" else "tiles"]],
-              output=str(env["tmp"] / f"refused_{module}"))
-    run = geometry.register_stack_job if module == "register_stack" else geometry.stitch_mosaic_job
-    with pytest.raises(jobs_lib.JobError, match="data_parallel across 2 CUDA devices is not ported yet"):
-        run(job, TorchConfig(device="cpu"))
+    inputs = ["stack" if module == "register_stack" else "tiles"]
+    one = _serve(env, "torch", f"dp1_{module}", module, params, inputs)
+    with parallel.virtual_devices(2):
+        two = _serve(env, "torch", f"dp2_{module}", module, params, inputs)
+    assert one["state"] == two["state"] == "complete", (one.get("error"), two.get("error"))
+    o1, o2 = one["outputs"], two["outputs"]
+    assert set(o2) == set(o1)
+    m1, m2 = json.loads(o1["metrics"]), json.loads(o2["metrics"])
+    if module == "stitch_mosaic":
+        assert m2.pop("n_devices") == 2 and "n_devices" not in m1
+        _same_csv(o1["positions"], o2["positions"], POS_COLS)
+        _same_csv(o1["seams"], o2["seams"], SEAM_COLS)
+    else:
+        _same_csv(o1["shifts"], o2["shifts"], SHIFT_COLS)
+    _same_metrics(m1, m2)
+    for key in o1:
+        if key.startswith(("registered", "mosaic")) and not os.path.isdir(o1[key]):
+            _same_tiff(o1[key], o2[key], False)

@@ -60,6 +60,10 @@ MODULES = [
     "sequitr_tpu_torch.pipeline.optim",
     "sequitr_tpu_torch.pipeline.train",
     "sequitr_tpu_torch.pipeline.fit",
+    "sequitr_tpu_torch.parallel",
+    "sequitr_tpu_torch.parallel.mesh",
+    "sequitr_tpu_torch.parallel.spatial",
+    "sequitr_tpu_torch.parallel.spatial_train",
     "sequitr_tpu_torch.server",
     "sequitr_tpu_torch.server.jobs",
     "sequitr_tpu_torch.server.server",
@@ -111,6 +115,7 @@ for job in (
     "stitch_mosaic", "correct_illumination", "localize_emitters",
     "calibrate_astigmatism", "deconvolve", "measure_objects", "count_spots",
     "measure_tracks", "track_objects", "export_ctc", "qc_stack", "project_stack",
+    "finetune_spatial",
 ):
     assert job in REGISTRY.names(), job
 # the test hooks register only under SEQUITR_TEST_WEDGE / SEQUITR_TEST_SLOW
@@ -118,7 +123,7 @@ assert "__test_wedge__" not in REGISTRY.names() and "__test_slow__" not in REGIS
 
 import torch
 torch.cuda.is_available = lambda: False  # the check holds with or without a card
-from sequitr_tpu_torch import fidelity, mosaic, psf, utils
+from sequitr_tpu_torch import fidelity, mosaic, parallel, psf, utils
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
@@ -183,6 +188,9 @@ calls = [
     lambda: fidelity.emitter_fidelity(n=1, shape=(32, 32), n_emitters=2),
     lambda: fidelity.emitter3d_fidelity(n=1, shape=(8, 32, 32), n_emitters=2),
     lambda: fidelity.astig_fidelity(n=1, shape=(32, 32), n_emitters=2),
+    lambda: parallel.device_pool(),
+    lambda: parallel.make_mesh(),
+    lambda: parallel.make_mesh2d((1, 1)),
 ]
 for call in calls:
     try:

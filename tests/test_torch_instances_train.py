@@ -154,6 +154,18 @@ def test_bce_is_optax_sigmoid_binary_cross_entropy():
         assert abs(got - want) <= 1e-6 * want
 
 
+def test_bce_gradient_is_optax_at_zero_logits():
+    """At z == 0 (a pixel whose features a ReLU zeroed, before a zero head
+    bias) the gradient is sigmoid(0) - t, as optax's, not a subgradient of
+    the max/abs form."""
+    targets = np.array([0.0, 0.3, 1.0], np.float32)
+    want = np.asarray(jax.grad(lambda z: jnp.sum(optax.sigmoid_binary_cross_entropy(z, jnp.asarray(targets))))(
+        jnp.zeros(3, jnp.float32)))
+    z = torch.zeros(3, requires_grad=True)
+    (losses.sigmoid_bce_with_logits(z, torch.from_numpy(targets)) * 3).backward()
+    np.testing.assert_allclose(z.grad.numpy(), want, rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # three steps from the same weights
 # ---------------------------------------------------------------------------
