@@ -236,7 +236,21 @@ on failure:
    halos, gathers and gradient returns of a multi-card pool): the spatial
    forward and data-parallel serving at 512x512 against the card alone,
    and the data-parallel and spatial train steps, 3 each, at the train
-   phase's bars.
+   phase's bars; (i) ``train_unet2d`` ``polyphase`` + ``data_parallel`` at
+   f32, 4 ways against 1 (the phase-domain forward shard by shard, its
+   batch norms over the global batch): loss within 1e-5, statistics within
+   1e-4; its step's wall ms at 1 and 4 ways and at 1 way on batch 2.
+21. quant phase, the int8 kernel ``csrc/qconv.cu`` and the quantization
+   studies: ``qconv`` against its plain version on the card (float64
+   cuDNN, exact) with int32 sums equal on every ``int8_conv.SHAPES`` shape,
+   ragged 2D and 3D shapes, the 2D and 3D transposed convs and the head,
+   the dequant and requant epilogues bit-equal; the ``int8_conv`` rows and
+   the ``roofline`` table at 1024x1024 (CUDA-graph timing); PTQ of the
+   folded ``unet2d_cells`` calibrated on 4 normalized ``cells_frame``s, its
+   1024x1024 int8 forward (the main path: ``qconv``'s launch count read
+   around it) bit-equal to the port's forward on the CPU on the same
+   qparams and input, its labels against the f32 folded forward's (>=
+   0.98), its time against the bf16 forward's.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
@@ -248,7 +262,7 @@ runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
 ``family_train``, ``geometry``, ``optics``, ``quantify``, ``ops``,
-``parallel``) after the build, for work on one kernel or path, and prints neither of the
+``parallel``, ``quant``) after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
 
@@ -4562,6 +4576,8 @@ PAR_PIXEL_REL = 1e-5  # (e): registered / mosaic pixels, DP against one device, 
 
 
 RESP_REL = 1e-4  # (e): a seam's or a frame's PSR response, DP against one device (tests/test_torch_geometry_jobs.py)
+PAR_POLY_LOSS_RTOL = 1e-5  # (i): polyphase DP loss, 4 ways against 1 (P7's hold for (g))
+PAR_POLY_STATS_BAR = 1e-4  # (i): running statistics, 4 ways against 1 (P7's hold)
 
 
 def _csv_gap(np, path_a, path_b, abs_bar, rel_bar):
@@ -4637,7 +4653,7 @@ def parallel_phase(torch, hist, conv, smi_line):
             return np.clip(np.round(a), 0, 65535).astype(np.uint16)
 
         halo = {"rows": 0, "bytes": 0}
-        neighbor_rows = spatial._neighbor_rows
+        neighbor_rows = unet_lib._neighbor_rows
         halo_fn = {"rows": neighbor_rows}
 
         def counted(row, j):
@@ -4651,7 +4667,7 @@ def parallel_phase(torch, hist, conv, smi_line):
             """One job, every kernel's count reset just before it and read just
             after; ``ways`` > 1 serves it on a virtual pool of that many
             devices, 1 on the card alone; ``rows`` is the halo exchange
-            (``spatial._neighbor_rows``, or a planted fault). Returns
+            (``unet_lib._neighbor_rows``, or a planted fault). Returns
             (outputs, wall s, peak GB, device ms or None, halo rows)."""
             out = os.path.join(tmp, f"out_{name}")
             submit_job(jobs, {"module": module, "params": params, "input": inputs, "output": out})
@@ -4666,7 +4682,7 @@ def parallel_phase(torch, hist, conv, smi_line):
             halo.update(rows=0, bytes=0)
             pool = parallel.virtual_devices(ways) if ways > 1 else contextlib.nullcontext()
             prof = torch.profiler.profile(activities=acts) if profile else contextlib.nullcontext()
-            spatial._neighbor_rows = counted
+            unet_lib._neighbor_rows = counted
             halo_fn["rows"] = rows
             try:
                 t0 = time.perf_counter()
@@ -4676,7 +4692,7 @@ def parallel_phase(torch, hist, conv, smi_line):
                     torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
-                spatial._neighbor_rows = neighbor_rows
+                unet_lib._neighbor_rows = neighbor_rows
                 halo_fn["rows"] = neighbor_rows
             peak = (torch.cuda.max_memory_allocated() - base) / 1e9
             if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
@@ -5011,6 +5027,61 @@ def parallel_phase(torch, hist, conv, smi_line):
         if rel > TRAIN_UPDATE_BAR or stats > TRAIN_STATS_BAR:
             raise AssertionError(f"(g) weights: 4 ways and 1 part beyond the train phase's bars ({rel}, {stats})")
 
+        # (i) the same job with polyphase: the phase-domain training forward
+        # shard by shard, its batch norms over the global batch
+        tp = {}
+        for ways in (1, PAR_WAYS):
+            params = dict(arch, model=f"trp_{ways}", steps=3, batch_size=8, log_every=1, augment=False,
+                          learning_rate=TRAIN_LR, seed=5, data_parallel=True, polyphase=True,
+                          compute_dtype="float32")
+            outs, wall, peak, _, _ = serve(f"i_train_poly_{ways}way", "train_unet2d", params, [recs["shards"]],
+                                           ways=ways)
+            with open(outs["metrics_file"]) as f:
+                tp[ways] = [json.loads(line) for line in f if '"train"' in line]
+            print(f"parallel (i) train_unet2d polyphase data_parallel f32 {ways} way(s): {wall:.3f} s wall, "
+                  f"peak {peak:.3f} GB")
+        for a, b in zip(tp[PAR_WAYS], tp[1]):
+            print(f"parallel (i) step {a['step']}: loss {a['loss']:.7f} / {b['loss']:.7f}, grad_norm "
+                  f"{a['grad_norm']:.7f} / {b['grad_norm']:.7f} (4 ways / 1)")
+            if abs(a["loss"] - b["loss"]) > PAR_POLY_LOSS_RTOL * abs(b["loss"]) \
+                    or abs(a["grad_norm"] - b["grad_norm"]) > TRAIN_GRAD_NORM_RTOL * abs(b["grad_norm"]):
+                raise AssertionError(f"(i) step {a['step']}: 4 ways and 1 part beyond the bars")
+        if len(tp[PAR_WAYS]) != 3 or len(tp[1]) != 3:
+            raise AssertionError(f"(i): {len(tp[PAR_WAYS])} and {len(tp[1])} train rows, not 3")
+        trained = {w: convert.load_flat(cfg_tr, read_model(models, f"trp_{w}")[2], device="cpu") for w in (1, PAR_WAYS)}
+        rel, over, nulled, stats = _weights_vs(np, convert, trained[PAR_WAYS], trained[1], start)
+        print(f"parallel (i) polyphase weights 4 ways against 1: update L2 {rel:.4g}, share beyond lr/10 "
+              f"{over:.4g}, BN-nulled biases {nulled:.3g}, statistics (global batch) {stats:.3g}")
+        if rel > TRAIN_UPDATE_BAR or stats > PAR_POLY_STATS_BAR:
+            raise AssertionError(f"(i) weights: 4 ways and 1 part beyond the bars ({rel}, {stats})")
+        # (i) the polyphase step's wall ms at 1 way and 4 (batch 8, 2 a shard),
+        # and at 1 way on batch 2: a shard's batch on the card alone, which
+        # parts cuDNN's choice at N = 2 from the sharded path
+        from functools import partial
+
+        tc_poly = train.TrainConfig(learning_rate=TRAIN_LR, augment=False, polyphase=True)
+        batch_p = {"image": torch.from_numpy(np.stack([c[0] for c in cells]).astype(np.float32)[..., None] / 4000.0).cuda(),
+                   "labels": torch.from_numpy(np.stack([c[1] for c in cells]).astype(np.int64)).cuda()}
+        step_ms = {}
+        for ways, nb in ((1, len(cells)), (1, len(cells) // PAR_WAYS), (PAR_WAYS, len(cells))):
+            with parallel.virtual_devices(ways):
+                state = train.create_unet_state(cfg_tr, tc_poly, torch.Generator().manual_seed(5), "cuda")
+                make = partial(train.make_unet_train_step, cfg_tr, tc_poly)
+                step = parallel.make_dp_train_step(make, parallel.make_mesh(device="cuda")) if ways > 1 else make()
+                b = {k: v[:nb] for k, v in batch_p.items()}
+                state, _ = step(state, b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    state, _ = step(state, b)
+                torch.cuda.synchronize()
+                step_ms[ways, nb] = (time.perf_counter() - t0) / 3 * 1e3
+            del state, step
+        print("parallel (i) polyphase f32 step wall ms, " + ", ".join(
+            f"{ways} way(s) batch {nb}: {ms:.3f}" for (ways, nb), ms in step_ms.items())
+            + f"; {PAR_WAYS} ways / 1 at batch {len(cells)} x{step_ms[PAR_WAYS, len(cells)] / step_ms[1, len(cells)]:.3f}"
+            + f" on {smi_line}")
+
         # (h) a mesh of two distinct devices, cuda:0 and the CPU: the weight
         # copies (mesh.replica, spatial_train._Placed), the cross-device halo
         # exchanges, gathers and gradient returns of a multi-card pool, which
@@ -5093,6 +5164,184 @@ def parallel_phase(torch, hist, conv, smi_line):
     return counts
 
 
+QUANT_PTQ_FRAME = (1024, 1024)  # the PTQ forward's frame: the served shape
+QUANT_CALIB_FRAMES = 4  # normalized cells_frames, one a calibration batch
+QUANT_PTQ_SEED = 535_000
+QUANT_AGREE_BAR = 0.98  # int8 labels against the f32 folded forward's (tests/test_studies.py)
+QUANT_ITERS = 16  # calls in a timed CUDA graph (int8_conv, roofline)
+# ragged and odd shapes for qconv against its plain version: (x shape, w shape, transposed)
+QCONV_CASES = [
+    ((2, 37, 53, 7), (3, 3, 7, 5), False),
+    ((1, 33, 65, 33), (3, 3, 33, 17), False),
+    ((1, 1024, 1024, 32), (1, 1, 32, 3), False),  # the head
+    ((1, 128, 128, 256), (2, 2, 256, 128), True),  # dec2's up-conv
+    ((1, 31, 29, 12), (2, 2, 12, 8), True),
+    ((1, 9, 23, 31, 5), (3, 3, 3, 5, 6), False),
+    ((2, 8, 16, 16, 16), (3, 3, 3, 16, 32), False),
+    ((1, 5, 11, 13, 9), (1, 1, 1, 9, 4), False),
+    ((1, 4, 8, 8, 32), (2, 2, 2, 32, 16), True),
+]
+
+
+def quant_phase(torch, qk, hist, smi_line):
+    """The int8 kernel and the quantization studies (docstring item 21).
+    Returns the ``qconv`` entry of the ``kernels`` line and the quantile
+    passes of the PTQ path (normalize, calibrate, the int8 forward)."""
+    import numpy as np
+
+    from sequitr_tpu_torch.data import synthetic
+    from sequitr_tpu_torch.models import fixtures
+    from sequitr_tpu_torch.models import unet as unet_lib
+    from sequitr_tpu_torch.pipeline import infer
+    from sequitr_tpu_torch.studies import int8_conv, ptq_unet, roofline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(QUANT_PTQ_SEED)
+
+    def ints(shape):
+        return torch.as_tensor(rng.integers(-127, 128, size=shape).astype(np.int8), device="cuda")
+
+    errs = []  # |kernel - plain version| at every hold, each output as its own type
+
+    def gap(got, want):
+        return float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+
+    def hold(what, x, w, transpose=False):
+        """Every epilogue of ``qconv`` against the plain version on the card."""
+        c_out = w.shape[-1]
+        scale = torch.as_tensor(rng.uniform(1e-5, 1e-3, c_out).astype(np.float32), device="cuda")
+        bias = torch.as_tensor(rng.normal(0, 0.5, c_out).astype(np.float32), device="cuda")
+        got = qk.qconv(x, w, transpose)
+        want = qk.qconv_reference(x, w, transpose)
+        errs.append(gap(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"qconv {what}: int32 sums differ by {int((got - want).abs().max())}")
+        for epi, relu, inv in (("dequant", False, None), ("dequant", True, None), ("requant", True, 25.0)):
+            g = qk.qconv(x, w, transpose, epi, scale, bias, relu, inv)
+            r = qk.qconv_reference(x, w, transpose, epi, scale, bias, relu, inv)
+            errs.append(gap(g, r))
+            same = torch.equal(g.view(torch.int32), r.view(torch.int32)) if epi == "dequant" else torch.equal(g, r)
+            if not same:
+                raise AssertionError(f"qconv {what}: the {epi} epilogue (relu={relu}) is not bit-equal")
+        return int(want.abs().max())
+
+    t0 = time.perf_counter()
+    for label, spatial, cin, cout in int8_conv.SHAPES:
+        big = hold(label, ints((1, *spatial, cin)), ints((3, 3, cin, cout)))
+        print(f"quant qconv {label}: int32 equal to the plain version (largest |sum| {big}), epilogues bit-equal")
+    for xs, ws, tr in QCONV_CASES:
+        hold(f"x {xs} w {ws}{' transposed' if tr else ''}", ints(xs), ints(ws), tr)
+    print(f"quant qconv: {len(QCONV_CASES)} ragged, 3D, transposed and head shapes equal to the plain version "
+          f"(largest gap over {len(errs)} outputs {max(errs)}; {time.perf_counter() - t0:.1f} s for all checks)")
+
+    # the study rows at the U-Net's conv shapes, CUDA-graph timed
+    rows = int8_conv.run(iters=QUANT_ITERS, device="cuda")
+    for r in rows:
+        print(f"quant int8_conv {r['shape']}: bf16 {r['bf16_ms']:.5f} ms, int8 {r['int8_ms']:.5f} ms "
+              f"(x{r['speedup_raw']:.3f}), ptq layer {r['ptq_layer_ms']:.5f} ms (x{r['speedup_ptq']:.3f}), "
+              f"_int_mm {r['int_mm_ms'] if r['int_mm_ms'] is None else round(r['int_mm_ms'], 5)} ms, bound "
+              f"{r['bound_ms']:.5f} / {r['bound_ptq_ms']:.5f} ms ({r['bound_by']}) on {smi_line}")
+    troof, summary = roofline.run(size=QUANT_PTQ_FRAME[0], iters=QUANT_ITERS, device="cuda")
+    for r in troof:
+        print(f"quant roofline {r['stage']}: {r['ms']:.5f} ms, {r['gflop']} GFLOP, {r['tflops']:.3f} TFLOP/s, "
+              f"ceiling {r['ceiling_ms']:.5f} ms ({r['pct_of_ceiling']:.1f}%)")
+    print(f"quant roofline total: sliced {summary['ms']:.5f} ms, whole inferrer {summary['fused_ms']:.5f} ms "
+          f"(coverage {summary['coverage_pct']:.1f}%), {summary['gflop']} GFLOP, sliced chain's labels "
+          f"{summary['chain_argmax_agreement']:.6f} of the forward's, on {smi_line}")
+    if summary["chain_argmax_agreement"] != 1.0:
+        raise AssertionError("roofline: the sliced chain parts from the forward")
+
+    # PTQ of the folded unet2d_cells on normalized cells_frames: the main
+    # path, every count set to 0 just before it and read just after
+    tc = infer.TileConfig(patch=QUANT_PTQ_FRAME, overlap=(0, 0))
+    frames = [synthetic.cells_frame(QUANT_PTQ_SEED + i, QUANT_PTQ_FRAME)[0] for i in range(QUANT_CALIB_FRAMES + 1)]
+    _, _, model32, _ = fixtures.load("unet2d_cells", compute_dtype="float32", device="cuda")
+    torch.cuda.synchronize()
+    hist.histogram_2d.launches = 0
+    hist.quantile_pass.launches = 0
+    qk.qconv.launches = 0
+    with torch.inference_mode():
+        normed = [infer._normalize(torch.as_tensor(f[None, ..., None].astype(np.float32), device="cuda"), tc)
+                  for f in frames]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qcfg, qparams = ptq_unet.quantize(model32, normed[:QUANT_CALIB_FRAMES])
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    x = normed[-1]
+    with torch.inference_mode():
+        logits_q = ptq_unet.apply(qcfg, qparams, x)
+        torch.cuda.synchronize()
+    launches = qk.qconv.launches
+    passes = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+    want_launches = 2 * qcfg.depth + 3 * (qcfg.depth - 1) + 1
+    if launches != want_launches:
+        raise AssertionError(f"the int8 forward launched qconv {launches} times, not {want_launches}")
+    if passes != (len(frames), len(frames)):
+        raise AssertionError(f"the PTQ path ran {passes} quantile passes, not one a frame ({len(frames)})")
+    t0 = time.perf_counter()
+    logits_cpu = ptq_unet.apply(qcfg, ptq_unet._map_tree(lambda t: t.cpu(), qparams), x.cpu())
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(logits_q.cpu().view(torch.int32), logits_cpu.view(torch.int32)):
+        raise AssertionError(f"the card's int8 logits part from the CPU port's by "
+                             f"{float((logits_q.cpu() - logits_cpu).abs().max())}")
+    folded32 = unet_lib.fold_batchnorm(model32)
+    with torch.inference_mode():
+        logits_f = folded32(x)
+        agree = float((torch.argmax(logits_q, -1) == torch.argmax(logits_f, -1)).float().mean())
+        diff = (logits_q - logits_f).abs()
+        err = float(diff.max())
+        err_q = float(torch.quantile(diff.reshape(-1)[:: max(1, diff.numel() // 2**24)], 0.9999))
+        ref = float(logits_f.abs().max())
+        _, _, bf16_model, _ = fixtures.load("unet2d_cells", device="cuda")
+        bf16_model = unet_lib.fold_batchnorm(bf16_model)
+        int8_ms = _median_ms(lambda: ptq_unet.apply(qcfg, qparams, x), n=20)
+        bf16_ms = _median_ms(lambda: bf16_model(x), n=20)
+        f32_ms = _median_ms(lambda: folded32(x), n=20)
+    size = f"{QUANT_PTQ_FRAME[0]}x{QUANT_PTQ_FRAME[1]}"
+    print(f"quant ptq unet2d_cells: quantize (fold + calibrate on {QUANT_CALIB_FRAMES} normalized {size} "
+          f"cells_frames) {quant_s:.2f} s; the int8 forward {size}: "
+          f"{launches} qconv launches, {passes[1]} quantile passes (one a normalized frame), logits bit-equal to "
+          f"the CPU port's ({cpu_s:.1f} s there), labels "
+          f"{agree:.6f} of the f32 folded forward's (bar {QUANT_AGREE_BAR}), |logit diff| max {err:.4g}, 99.99th "
+          f"percentile {err_q:.4g} (largest |logit| {ref:.4g})")
+    print(f"quant ptq forward {size}: int8 {int8_ms:.4f} ms, bf16 {bf16_ms:.4f} ms (x{bf16_ms / int8_ms:.3f}), "
+          f"f32 {f32_ms:.4f} ms, on {smi_line}")
+    if agree < QUANT_AGREE_BAR:
+        raise AssertionError(f"the int8 forward's labels part from the f32 forward's ({agree})")
+
+    # the kernel's entry, at enc0b (1024x1024, 32 -> 32, int32 out)
+    label, spatial, cin, cout = int8_conv.SHAPES[1]
+    xb, wb = ints((1, *spatial, cin)), ints((3, 3, cin, cout))
+    ms = _median_ms(lambda: qk.qconv(xb, wb), n=50)
+    plain_ms = _median_ms(lambda: qk.qconv_reference(xb, wb), n=10)
+    bound, bound_by = int8_conv.bound_ms(spatial, cin, cout, 4)
+    enc0b = rows[1]
+    entry = {
+        "name": "qconv",
+        "route": "cuda",
+        "source": "sequitr_tpu_torch/csrc/qconv.cu",
+        "replaces": "none: XLA's int8 conv (sequitr_tpu/studies/ptq_unet.py:75, sequitr_tpu/studies/int8_conv.py:63)",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "kernel_ms": enc0b["int8_ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": enc0b["int_mm_ms"],
+        "shape": label,
+        "ptq_forward_ms": int8_ms,
+        "bf16_forward_ms": bf16_ms,
+        "label_agreement": agree,
+    }
+    print(f"quant qconv {label} int32 out: {ms:.5f} ms as called, {enc0b['int8_ms']:.5f} ms in a CUDA graph, "
+          f"plain {plain_ms:.5f} ms, im2col + _int_mm {enc0b['int_mm_ms']} ms, bound {bound:.5f} ms ({bound_by}) "
+          f"on {smi_line}")
+    return entry, passes
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
@@ -5100,7 +5349,7 @@ def params_summary(params):
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
     "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify", "ops",
-    "parallel",
+    "parallel", "quant",
 )
 
 
@@ -5126,6 +5375,7 @@ def main(argv=None) -> int:
         from sequitr_tpu_torch.ops.kernels import build
         from sequitr_tpu_torch.ops.kernels import conv3x3 as conv
         from sequitr_tpu_torch.ops.kernels import histogram as hist
+        from sequitr_tpu_torch.ops.kernels import qconv as qk
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
 
@@ -5140,7 +5390,7 @@ def main(argv=None) -> int:
     # one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("histogram", "conv3x3")
+    names = ("histogram", "conv3x3", "qconv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         logs = list(pool.map(lambda name: build.build(name, force=True), names))
@@ -5171,6 +5421,7 @@ def main(argv=None) -> int:
             "quantify": lambda: quantify_phase(torch, hist, conv, smi_line),
             "ops": lambda: ops_phase(torch, hist, conv, smi_line),
             "parallel": lambda: parallel_phase(torch, hist, conv, smi_line),
+            "quant": lambda: quant_phase(torch, qk, hist, smi_line),
         }
         for name in phases:
             run[name]()
@@ -5203,6 +5454,7 @@ def main(argv=None) -> int:
     counts.update(timed("quantify", quantify_phase, hist, conv, smi_line))
     counts.update(timed("ops", ops_phase, hist, conv, smi_line))
     counts.update(timed("parallel", parallel_phase, hist, conv, smi_line))
+    qconv_entry, counts["ptq_path"] = timed("quant", quant_phase, qk, hist, smi_line)
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -5237,9 +5489,14 @@ def main(argv=None) -> int:
         "the card (spatial: one pass a frame normalized whole before it is sharded, a pass a chunk of 2 "
         "frames for the hybrid; data_parallel: one a frame, as single-device) and their 1-way twins; the conv3x3 "
         "entries' launches are those of the studies path (enc0 chained through each entry "
-        "point); the served and training jobs launch the conv3x3 kernels 0 times"
+        "point); the served and training jobs launch the conv3x3 kernels 0 times; qconv's launches are those of "
+        "the quant phase's 1024x1024 int8 forward of the quantized unet2d_cells (one a conv; the weights packed "
+        "once, in torch ops, at the first call), its ms and plain_ms at enc0b (1024x1024, 32 -> 32, int32 out) as "
+        "called, kernel_ms the same from a CUDA graph, library_ms im2col + torch._int_mm there; no served or "
+        "training job launches it; ptq_path is the histogram's passes on that PTQ path (one a normalized frame: 4 "
+        "calibration frames and the forward's)"
     )
-    print(json.dumps({"kernels": [entry] + conv_entries}))
+    print(json.dumps({"kernels": [entry] + conv_entries + [qconv_entry]}))
     print(json.dumps({
         "ok": True,
         "device": {

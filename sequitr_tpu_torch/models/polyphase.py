@@ -41,6 +41,9 @@ batch norm and builds the phase kernels from its live parameters on each
 call, inside autograd; it returns ``(logits, statistics)`` as
 ``UNet.forward_train`` does, and its up-conv and head keep their f32
 products unrounded, as the JAX package's training einsums do.
+``apply_train_shards`` runs the same forward over batch shards on several
+devices in lockstep, its batch norms over every shard
+(``parallel.spatial_train``'s data-parallel step).
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ from sequitr_tpu_torch.utils import derived, f32_entry, ieee_f32
 __all__ = [
     "eligible", "eligible3d", "phase_kernel", "phase_up_kernel",
     "phase_kernel3d", "phase_up_kernel3d", "Polyphase", "Polyphase3d",
-    "serving", "apply", "apply_train", "apply3d", "apply3d_train",
+    "serving", "apply", "apply_train", "apply3d", "apply3d_train", "apply_train_shards",
 ]
 
 
@@ -484,114 +487,158 @@ class _PhaseTrain:
     domain, its phase kernels built from the model's live parameters on each
     call (a linear rearrangement, so gradients reach the original weights).
     Activations are NC[D]HW views with channels-last strides, phase channel
-    ``(a*2 + b)*C + c``."""
+    ``(a*2 + b)*C + c``.
 
-    def __init__(self, model: UNet, stats: List[BNStats]):
+    It runs over a list of batch shards, layer by layer, every shard of a
+    layer before the next layer (one shard: the plain training forward).
+    ``wt(t, device)`` is the weight ``t`` on a shard's device (default ``t``
+    itself); ``norm(shards, bn, groups)`` is the train-mode batch norm of the
+    shards together, ``groups`` blocks of the norm's channels on the channel
+    axis (4 in the phase domain), returning ``(shards, (new_mean,
+    new_var))`` (default: one shard's own statistics)."""
+
+    def __init__(self, model: UNet, stats: List[BNStats], wt=None, norm=None):
         self.net, self.cfg, self.stats = model, model.cfg, stats
         self.three = model.cfg.dims == 3
         self.sp = (1,) * model.cfg.dims  # trailing singleton axes of a channel vector
+        self.wt = wt or (lambda t, device: t)
+        self.norm = norm or self._norm_one
 
-    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _conv(self, xs: List[torch.Tensor], w: torch.Tensor, b: torch.Tensor) -> List[torch.Tensor]:
         """3x3 phase conv + bias with the casts of ``UNet._conv``."""
         dt = self.cfg.torch_dtype
-        kernel = phase_kernel3d(w) if self.three else phase_kernel(w)
+        kernel = _channels_last(phase_kernel3d(w) if self.three else phase_kernel(w))
+        bias = b.repeat(4).view((1, -1) + self.sp)
         conv = F.conv3d if self.three else F.conv2d
-        y = conv(x.to(dt), _channels_last(kernel).to(dt), padding=1)
-        return y.to(torch.float32) + b.repeat(4).view((1, -1) + self.sp)
+        return [
+            conv(x.to(dt), self.wt(kernel, x.device).to(dt), padding=1).to(torch.float32)
+            + self.wt(bias, x.device)
+            for x in xs
+        ]
 
-    def _matmul(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def _matmul(self, xs: List[torch.Tensor], w: torch.Tensor, b: torch.Tensor, groups: int = 1) -> List[torch.Tensor]:
         """A 1x1 conv on compute-dtype inputs with an f32 result, unrounded:
         the JAX package's ``einsum(..., preferred_element_type=f32)``. Run on
         the inputs rounded to the compute dtype and widened to f32 (the
         products of two bf16 values are exact in f32)."""
         dt = self.cfg.torch_dtype
         conv = F.conv3d if self.three else F.conv2d
-        y = conv(x.to(dt).to(torch.float32), w.to(dt).to(torch.float32), groups=groups)
-        return y + b.view((1, -1) + self.sp)
+        w = w.to(dt).to(torch.float32)
+        bias = b.view((1, -1) + self.sp)
+        return [
+            conv(x.to(dt).to(torch.float32), self.wt(w, x.device), groups=groups) + self.wt(bias, x.device)
+            for x in xs
+        ]
 
-    def _bn(self, y: torch.Tensor, bn) -> torch.Tensor:
-        """Train-mode batch norm with full-resolution statistics: per channel
-        over (N, phase, *spatial), the same pixels as the full-resolution
-        tensor's (N, *spatial); biased variance, momentum ``bn_momentum``."""
+    def _norm_one(self, xs: List[torch.Tensor], bn, groups: int):
+        """The batch norm of one shard: ``UNet``'s own at full resolution;
+        in the phase domain per channel over (N, phase, *spatial), the same
+        pixels as the full-resolution tensor's (N, *spatial); biased
+        variance, momentum ``bn_momentum``."""
+        (y,) = xs
+        if groups == 1:
+            y, stats = bn.forward_train(y, self.cfg.bn_eps, self.cfg.bn_momentum)
+            return [y], stats
         n, c4 = y.shape[:2]
         c = c4 // 4
         y5 = y.reshape((n, 4, c) + tuple(y.shape[2:]))
         var, mean = torch.var_mean(y5, dim=[0, 1] + list(range(3, y5.ndim)), correction=0)
         m = self.cfg.bn_momentum
         with torch.no_grad():
-            self.stats.append((m * bn.mean + (1 - m) * mean, m * bn.var + (1 - m) * var))
+            stats = (m * bn.mean + (1 - m) * mean, m * bn.var + (1 - m) * var)
 
         def ch(t):
             return t.view((1, 1, -1) + self.sp)
 
         inv = torch.rsqrt(var + self.cfg.bn_eps)
         out = (y5 - ch(mean)) * ch(inv) * ch(bn.scale) + ch(bn.bias)
-        return out.reshape(y.shape)
+        return [out.reshape(y.shape)], stats
 
-    def _block(self, x: torch.Tensor, blk) -> torch.Tensor:
+    def _relu_norm(self, xs: List[torch.Tensor], bn, groups: int) -> List[torch.Tensor]:
+        if self.cfg.norm == "batch":
+            xs, stats = self.norm(xs, bn, groups)
+            self.stats.append(stats)
+        return [torch.relu(x) for x in xs]
+
+    def _block(self, xs: List[torch.Tensor], blk) -> List[torch.Tensor]:
         """conv -> norm -> relu, twice, in the phase domain."""
         for i in (1, 2):
             conv = getattr(blk, f"conv{i}")
-            x = self._conv(x, conv.w, conv.b)
-            if self.cfg.norm == "batch":
-                x = self._bn(x, getattr(blk, f"bn{i}"))
-            x = torch.relu(x)
-        return x
+            xs = self._relu_norm(self._conv(xs, conv.w, conv.b), getattr(blk, f"bn{i}", None), 4)
+        return xs
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def _grid_norm(self, grid, bn):
+        """``norm`` at full resolution on a grid of one-shard rows (the form
+        ``unet.block_shards`` takes)."""
+        xs, stats = self.norm([row[0] for row in grid], bn, 1)
+        self.stats.append(stats)
+        return [[x] for x in xs]
+
+    def __call__(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         net, cfg = self.net, self.cfg
+        three = self.three
         # NHWC (NDHWC) -> the phase tensor, NC[D]HW with channels-last strides
-        x = torch.movedim(x.to(torch.float32), -1, 1)
-        xp = _space_to_depth_hw(x) if self.three else unet_lib._space_to_depth(x, 2)
-        e0 = self._block(_channels_last(xp), net.enc[0])
-        n, c4 = e0.shape[:2]
-        sp = tuple(e0.shape[2:])  # (h, w) or (Z, h, w)
-        f0 = c4 // 4
-        # phase groups as an axis of their own on the channels-last view
-        e0_p = torch.movedim(e0, 1, -1).reshape((n,) + sp + (4, f0))
-        xmid = _first_max(e0_p, -2)  # the 2x2 pool: max over the phase groups
-        if self.three:
-            # the z half of the 2x2x2 pool: first tie over z pairs; composed
-            # with the phase max it routes to the window's row-major first tie
-            xmid = _first_max(xmid.reshape((n, sp[0] // 2, 2) + sp[1:] + (f0,)), 2)
-        xmid = torch.movedim(xmid, -1, 1)
+        xp = []
+        for x in xs:
+            x = torch.movedim(x.to(torch.float32), -1, 1)
+            xp.append(_channels_last(_space_to_depth_hw(x) if three else unet_lib._space_to_depth(x, 2)))
+        e0 = self._block(xp, net.enc[0])
+        e0_p, xmid = [], []
+        for e in e0:
+            n, c4 = e.shape[:2]
+            sp = tuple(e.shape[2:])  # (h, w) or (Z, h, w)
+            f0 = c4 // 4
+            # phase groups as an axis of their own on the channels-last view
+            p = torch.movedim(e, 1, -1).reshape((n,) + sp + (4, f0))
+            m = _first_max(p, -2)  # the 2x2 pool: max over the phase groups
+            if three:
+                # the z half of the 2x2x2 pool: first tie over z pairs; composed
+                # with the phase max it routes to the window's row-major first tie
+                m = _first_max(m.reshape((n, sp[0] // 2, 2) + sp[1:] + (f0,)), 2)
+            e0_p.append(p)
+            xmid.append(torch.movedim(m, -1, 1))
+        del e0
 
-        # middle levels: the model's own train-mode path
-        skips = []
+        # middle levels: the model's own train-mode path, one shard a row
+        norm = self._grid_norm if cfg.norm == "batch" else None
+        grid, skips = [[x] for x in xmid], []
         for lvl in range(1, cfg.depth):
             if lvl > 1:
-                xmid = net._pool(xmid)
-            xmid = net._block(xmid, net.enc[lvl], self.stats)
+                grid = [[net._pool(x)] for (x,) in grid]
+            grid = unet_lib.block_shards(cfg, grid, net.enc[lvl], self.wt, norm)
             if lvl < cfg.depth - 1:
-                skips.append(xmid)
+                skips.append(grid)
         for i, lvl in enumerate(reversed(range(1, cfg.depth - 1))):
-            skip = skips[lvl - 1]
-            xmid = net._upsample(xmid, net.up[i])
-            xmid = torch.cat([skip, xmid.to(skip.dtype)], dim=1)
-            xmid = net._block(xmid, net.dec[i], self.stats)
+            grid = unet_lib.up_block_shards(cfg, grid, skips[lvl - 1], net.up[i], net.dec[i], self.wt, norm)
+        xmid = [x for (x,) in grid]
 
         # up-conv into the phase domain: one 1x1 map making every phase
         up0 = net.up[-1]
-        if self.three:
-            up = self._matmul(xmid, phase_up_kernel3d(up0.w), up0.b.repeat(8))
-            up_p = torch.movedim(up, 1, -1).reshape((n, sp[0] // 2) + sp[1:] + (2, 4, f0))
-            up_p = torch.movedim(up_p, -3, 2).reshape((n,) + sp + (4, f0))
+        if three:
+            ups = self._matmul(xmid, phase_up_kernel3d(up0.w), up0.b.repeat(8))
         else:
-            up = self._matmul(xmid, phase_up_kernel(up0.w), up0.b.repeat(4))
-            up_p = torch.movedim(up, 1, -1).reshape((n,) + sp + (4, f0))
-        # phase-aware concat: [skip, up] within each phase group
-        cat = torch.cat([e0_p, up_p], dim=-1).reshape((n,) + sp + (8 * f0,))
-        d0 = self._block(torch.movedim(cat, -1, 1), net.dec[-1])
+            ups = self._matmul(xmid, phase_up_kernel(up0.w), up0.b.repeat(4))
+        cats = []
+        for up, p in zip(ups, e0_p):
+            n, sp, f0 = p.shape[0], tuple(p.shape[1:-2]), p.shape[-1]
+            if three:
+                up_p = torch.movedim(up, 1, -1).reshape((n, sp[0] // 2) + sp[1:] + (2, 4, f0))
+                up_p = torch.movedim(up_p, -3, 2).reshape((n,) + sp + (4, f0))
+            else:
+                up_p = torch.movedim(up, 1, -1).reshape((n,) + sp + (4, f0))
+            # phase-aware concat: [skip, up] within each phase group
+            cat = torch.cat([p, up_p], dim=-1).reshape((n,) + sp + (8 * f0,))
+            cats.append(torch.movedim(cat, -1, 1))
+        d0 = self._block(cats, net.dec[-1])
 
         # head: the model's 1x1 conv on each phase group, then depth-to-space
         head = net.head
         reps = (4,) + (1,) * (head.w.ndim - 1)
-        logits_p = self._matmul(d0, head.w.repeat(reps), head.b.repeat(4), groups=4)
-        if self.three:
-            logits = _depth_to_space_hw(logits_p)
-        else:
-            logits = unet_lib._depth_to_space(logits_p, 2)
-        return torch.movedim(logits, 1, -1).to(torch.float32)
+        out = []
+        for logits_p in self._matmul(d0, head.w.repeat(reps), head.b.repeat(4), groups=4):
+            logits = _depth_to_space_hw(logits_p) if three else unet_lib._depth_to_space(logits_p, 2)
+            out.append(torch.movedim(logits, 1, -1).to(torch.float32))
+        return out
 
 
 def apply_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStats]]:
@@ -608,9 +655,8 @@ def apply_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStat
     package's einsums do. Raises ValueError for models outside its cover.
     """
     _check_train(model, x, 2)
-    stats: List[BNStats] = []
-    with ieee_f32(model.cfg.compute_dtype == "float32"):
-        return _PhaseTrain(model, stats)(x), stats
+    (logits,), stats = apply_train_shards(model, [x])
+    return logits, stats
 
 
 def apply3d_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNStats]]:
@@ -620,6 +666,19 @@ def apply3d_train(model: UNet, x: torch.Tensor) -> Tuple[torch.Tensor, List[BNSt
     over z pairs: together they route the gradient to the 2x2x2 window's
     first maximum in row-major order, as the standard pool does."""
     _check_train(model, x, 3)
+    (logits,), stats = apply_train_shards(model, [x])
+    return logits, stats
+
+
+def apply_train_shards(
+    model: UNet, xs: List[torch.Tensor], wt=None, norm=None
+) -> Tuple[List[torch.Tensor], List[BNStats]]:
+    """``apply_train`` / ``apply3d_train`` over batch shards ``xs`` (NHWC /
+    NDHWC, each on its device) in lockstep: the f32 logits of each shard on
+    its device and the new running statistics. ``wt`` places a weight on a
+    shard's device and ``norm`` is the batch norm over every shard
+    (``_PhaseTrain``; ``parallel.spatial_train`` gives the mesh's). The
+    caller checks the shapes (``_check_train``)."""
     stats: List[BNStats] = []
     with ieee_f32(model.cfg.compute_dtype == "float32"):
-        return _PhaseTrain(model, stats)(x), stats
+        return _PhaseTrain(model, stats, wt, norm)(xs), stats

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from sequitr_tpu_torch.utils import f32_entry, resolve_device
 
-__all__ = ["UNetConfig", "UNet", "conv", "fold_batchnorm", "init"]
+__all__ = ["UNetConfig", "UNet", "conv", "block_shards", "up_block_shards", "fold_batchnorm", "init"]
 
 BNStats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -176,7 +176,7 @@ def conv(
     input and weights in ``cfg.compute_dtype``, the conv's output in that
     dtype, the bias added in f32. A transposed conv is kernel 2, stride 2;
     any other is SAME (``padding`` overrides it: the halo convs of
-    ``parallel.spatial`` pad only the unsharded axes)."""
+    ``block_shards`` pad only the unsharded axes)."""
     dt = cfg.torch_dtype
     w = w.to(dt)
     three = cfg.dims == 3
@@ -187,6 +187,64 @@ def conv(
         conv_fn = F.conv3d if three else F.conv2d
         y = conv_fn(x.to(dt), w, padding=w.shape[-1] // 2 if padding is None else padding)
     return y.to(torch.float32) + b.view((1, -1) + (1,) * cfg.dims)
+
+
+# The forward over a grid of NC[D]HW shards, x[i][j] = batch slice i, axis-0
+# slice j (each on its device), layer by layer, every shard of a layer before
+# the next layer: the halo-exchanged forwards of ``parallel.spatial`` and the
+# middle levels of the polyphase training forward on a mesh. ``wt(t,
+# device)`` is the weight ``t`` on a shard's device; ``norm(grid, bn)`` the
+# train-mode batch norm of the whole grid (None: no norm layers).
+
+
+def _neighbor_rows(row: List[torch.Tensor], j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(last row of shard j-1, first row of shard j+1) on shard j's device;
+    the edge shards get zero rows, reproducing SAME zero padding globally.
+    The sharded axis is dim 2."""
+    x = row[j]
+    zero = torch.zeros_like(x[:, :, :1])
+    top = row[j - 1][:, :, -1:].to(x.device) if j > 0 else zero
+    bot = row[j + 1][:, :, :1].to(x.device) if j < len(row) - 1 else zero
+    return top, bot
+
+
+def _conv3x3_halo(cfg: UNetConfig, row: List[torch.Tensor], j: int, w, b) -> torch.Tensor:
+    """SAME 3^dims conv of shard j: the sharded axis padded with the
+    neighbours' rows (VALID there), SAME (1, 1) on the rest. A row of one
+    shard is the plain SAME conv."""
+    if len(row) == 1:
+        return conv(cfg, row[0], w, b)
+    top, bot = _neighbor_rows(row, j)
+    padded = channels_last(torch.cat([top, row[j], bot], dim=2))
+    return conv(cfg, padded, w, b, padding=(0,) + (1,) * (cfg.dims - 1))
+
+
+def block_shards(cfg: UNetConfig, x, blk, wt, norm=None):
+    """``UNet._block`` over a grid: conv -> [norm] -> relu, twice, every
+    conv with its halo exchange."""
+    for i in (1, 2):
+        c = getattr(blk, f"conv{i}")
+        x = [
+            [_conv3x3_halo(cfg, row, j, wt(c.w, t.device), wt(c.b, t.device)) for j, t in enumerate(row)]
+            for row in x
+        ]
+        if norm is not None:
+            x = norm(x, getattr(blk, f"bn{i}"))
+        x = [[torch.relu(t) for t in row] for row in x]
+    return x
+
+
+def up_block_shards(cfg: UNetConfig, x, skip, up, blk, wt, norm=None):
+    """A decoder level over a grid: each shard's transposed up-conv (kernel
+    2, stride 2: rows map to rows, no halo), the concat after its skip
+    shard, then ``block_shards``."""
+    x = [
+        [torch.cat([s, conv(cfg, t, wt(up.w, t.device), wt(up.b, t.device), transpose=True).to(s.dtype)], dim=1)
+         for s, t in zip(srow, row)]
+        for srow, row in zip(skip, x)
+    ]
+    del skip  # the concat holds it: free the grid before the block
+    return block_shards(cfg, x, blk, wt, norm)
 
 
 def _space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:

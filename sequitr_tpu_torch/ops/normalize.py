@@ -30,6 +30,7 @@ from sequitr_tpu_torch.ops.kernels.histogram import invert_cdf, kernel_quantiles
 
 __all__ = [
     "percentile_linear",
+    "quantile_linear",
     "percentile_normalize",
     "percentile_normalize_fast",
     "percentile_normalize_pallas",
@@ -51,19 +52,29 @@ def percentile_linear(x: torch.Tensor, qs: Sequence[float], dim: int = 0) -> tor
 
     Returns (len(qs), *x's shape without ``dim``). JAX's linear method in
     f32: q = p / 100 (folded exactly: eager JAX multiplies by 0.01 and
-    lands an ulp off), the position q * (f32(n) - 1), the sorted values at
-    its floor and ceil, then ``low * (1 - w) + high * w`` with w the
-    position's fraction, the sum fused with the first product as XLA's CPU
-    backend emits it (``fma_f32``). A slice holding a NaN gives NaN,
-    as in JAX. One sort serves every q; the positions are host numbers
-    (``n`` is static), so nothing syncs.
+    lands an ulp off), then ``quantile_linear``.
+    """
+    return quantile_linear(x, [np.float32(np.float32(p) / np.float32(100.0)) for p in qs], dim)
+
+
+def quantile_linear(x: torch.Tensor, qs: Sequence[float], dim: int = 0) -> torch.Tensor:
+    """``jnp.quantile(x, qs, axis=dim)`` of f32 ``x`` as it runs under
+    ``jax.jit`` with constant ``qs`` (fractions, taken as f32), bit for bit.
+
+    Returns (len(qs), *x's shape without ``dim``): the position
+    q * (f32(n) - 1), the sorted values at its floor and ceil, then
+    ``low * (1 - w) + high * w`` with w the position's fraction, the sum
+    fused with the first product as XLA's CPU backend emits it
+    (``fma_f32``). A slice holding a NaN gives NaN, as in JAX. One sort
+    serves every q; the positions are host numbers (``n`` is static), so
+    nothing syncs.
     """
     n = x.shape[dim]
     n_f = np.float32(n)
     ordered = torch.sort(x, dim=dim).values
     out = []
-    for p in qs:
-        pos = np.float32(np.float32(p) / np.float32(100.0)) * (n_f - np.float32(1.0))
+    for q in qs:
+        pos = np.float32(q) * (n_f - np.float32(1.0))
         low = min(max(np.floor(pos), np.float32(0.0)), n_f - np.float32(1.0))
         high = min(max(np.ceil(pos), np.float32(0.0)), n_f - np.float32(1.0))
         high_w = np.float32(pos - np.floor(pos))

@@ -15,8 +15,10 @@ result is the whole-frame forward, not an overlap-stitch approximation:
 As in the JAX package everything runs in one process: the shards of a
 layer are computed one after another (lockstep), a neighbour row is a
 ``.to(device)`` copy, and the weights are copied once to each distinct
-device. Each conv goes through ``models.unet.conv``, ``UNet._conv``'s own
-rounding points, so a shard rounds where the whole-frame forward rounds.
+device. The blocks are ``models.unet.block_shards`` and
+``up_block_shards`` (shared with the polyphase training forward on a mesh),
+each conv ``models.unet.conv``, ``UNet._conv``'s own rounding points, so a
+shard rounds where the whole-frame forward rounds.
 These functions fold batch norm themselves (``unet.fold_batchnorm``, once per
 model state) so that the sharded graph is only convs and ReLUs; the
 training form (global batch-norm statistics) is ``parallel.spatial_train``.
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from sequitr_tpu_torch.models import unet
-from sequitr_tpu_torch.models.unet import UNetConfig, channels_last
+from sequitr_tpu_torch.models.unet import UNetConfig
 from sequitr_tpu_torch.parallel.mesh import Mesh, replica
 from sequitr_tpu_torch.utils import derived
 
@@ -83,43 +85,6 @@ def _concat(grid: Grid, home: torch.device, axis: int = 1) -> torch.Tensor:
     )
 
 
-def _neighbor_rows(row: List[torch.Tensor], j: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(last row of shard j-1, first row of shard j+1) on shard j's device;
-    the edge shards get zero rows, reproducing SAME zero padding globally.
-    Shards are NC[D]HW: the sharded axis is dim 2."""
-    x = row[j]
-    zero = torch.zeros_like(x[:, :, :1])
-    top = row[j - 1][:, :, -1:].to(x.device) if j > 0 else zero
-    bot = row[j + 1][:, :, :1].to(x.device) if j < len(row) - 1 else zero
-    return top, bot
-
-
-def _conv3x3_halo(row: List[torch.Tensor], j: int, w, b, cfg: UNetConfig) -> torch.Tensor:
-    """SAME 3^dims conv of shard j: the sharded axis padded with the
-    neighbours' rows (VALID there), SAME (1, 1) on the rest. A row of one
-    shard is the plain SAME conv."""
-    if len(row) == 1:
-        return unet.conv(cfg, row[0], w, b)
-    top, bot = _neighbor_rows(row, j)
-    padded = channels_last(torch.cat([top, row[j], bot], dim=2))
-    return unet.conv(cfg, padded, w, b, padding=(0,) + (1,) * (cfg.dims - 1))
-
-
-def _block_halo(x: Grid, blk, cfg: UNetConfig, wt: Weights, norm: Optional[Callable]) -> Grid:
-    """conv -> [norm] -> relu, twice, every conv with its halo exchange;
-    ``norm(grid, bn)`` is the cross-shard batch norm of training."""
-    for i in (1, 2):
-        c = getattr(blk, f"conv{i}")
-        x = [
-            [_conv3x3_halo(row, j, wt(c.w, t.device), wt(c.b, t.device), cfg) for j, t in enumerate(row)]
-            for row in x
-        ]
-        if norm is not None:
-            x = norm(x, getattr(blk, f"bn{i}"))
-        x = _each(torch.relu, x)
-    return x
-
-
 def _maxpool_local(x: torch.Tensor, dims: int) -> torch.Tensor:
     """2^dims max pool of one shard: local on the sharded axis because the
     local row count stays even through every level."""
@@ -139,15 +104,11 @@ def grid_logits(cfg: UNetConfig, model: unet.UNet, x: Grid, wt: Weights, norm: O
     for lvl in range(cfg.depth):
         if lvl > 0:
             x = _each(lambda t: _maxpool_local(t, cfg.dims), x)
-        x = _block_halo(x, model.enc[lvl], cfg, wt, norm)
+        x = unet.block_shards(cfg, x, model.enc[lvl], wt, norm)
         if lvl < cfg.depth - 1:
             skips.append(x)
     for i, lvl in enumerate(reversed(range(cfg.depth - 1))):
-        skip, up = skips.pop(lvl), model.up[i]
-        x = _each(lambda t: unet.conv(cfg, t, wt(up.w, t.device), wt(up.b, t.device), transpose=True), x)
-        x = [[torch.cat([s, t.to(s.dtype)], dim=1) for s, t in zip(srow, row)] for srow, row in zip(skip, x)]
-        del skip
-        x = _block_halo(x, model.dec[i], cfg, wt, norm)
+        x = unet.up_block_shards(cfg, x, skips.pop(lvl), model.up[i], model.dec[i], wt, norm)
     head = model.head
     logits = _each(lambda t: unet.conv(cfg, t, wt(head.w, t.device), wt(head.b, t.device)), x)
     if s2d > 1:

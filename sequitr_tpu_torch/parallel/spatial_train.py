@@ -26,7 +26,10 @@ pre-augment on the host. A hybrid data x space step takes a 2-D mesh: the
 batch splits over the data axis and the statistics and the loss sum over
 both. Plain data parallelism is the same forward with one space way
 (``TrainMesh`` with only a data axis, ``forward_train_gathered``), which
-``mesh.make_dp_train_step`` hands to every train step of the port.
+``mesh.make_dp_train_step`` hands to every train step of the port; with
+``polyphase`` it is the phase-domain forward
+(``models.polyphase.apply_train_shards``) over the batch shards, its batch
+norms through the same global sums over the 4 phase groups.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from sequitr_tpu_torch.models import polyphase as polyphase_lib
 from sequitr_tpu_torch.models import unet
 from sequitr_tpu_torch.parallel.mesh import Mesh, _canonical
 from sequitr_tpu_torch.parallel.spatial import (
@@ -85,18 +89,24 @@ def _psum(parts: List[torch.Tensor], home: torch.device) -> torch.Tensor:
     return total
 
 
-def _batch_norm_psum(x: Grid, bn, cfg: unet.UNetConfig, wt, home: torch.device):
+def _batch_norm_psum(x: Grid, bn, cfg: unet.UNetConfig, wt, home: torch.device, groups: int = 1):
     """Train-mode batch norm with mesh-global statistics over (batch,
     *spatial): per-shard sums added on ``home`` and divided by the global
-    element count. Returns ``(grid, (new_mean, new_var))``, the running
-    statistics moved ``bn_momentum`` of the way, as
-    ``_BatchNorm.forward_train`` returns them."""
+    element count. ``groups``: the channel axis holds that many blocks of
+    the norm's channels (``g*C + c``; the polyphase forward's 4 phase
+    groups), reduced over with the pixels. Returns ``(grid, (new_mean,
+    new_var))``, the running statistics moved ``bn_momentum`` of the way,
+    as ``_BatchNorm.forward_train`` returns them."""
     flat = [t.to(torch.float32) for row in x for t in row]
-    axes = [0] + list(range(2, flat[0].ndim))
-    count = sum(t.numel() // t.shape[1] for t in flat)
+    if groups > 1:
+        # (N, G*C, *sp) -> (N, G, C, *sp): a view, channels-last strides kept
+        flat = [t.reshape((t.shape[0], groups, -1) + tuple(t.shape[2:])) for t in flat]
+    chan = 1 if groups == 1 else 2
+    axes = [d for d in range(flat[0].ndim) if d != chan]
+    count = sum(t.numel() // t.shape[chan] for t in flat)
 
     def ch(t, like):
-        return wt(t, _canonical(like.device)).view((1, -1) + (1,) * (like.ndim - 2))
+        return wt(t, _canonical(like.device)).view((1,) * chan + (-1,) + (1,) * (like.ndim - chan - 1))
 
     mean = _psum([t.sum(axes) for t in flat], home) / count
     var = _psum([torch.square(t - ch(mean, t)).sum(axes) for t in flat], home) / count
@@ -104,11 +114,11 @@ def _batch_norm_psum(x: Grid, bn, cfg: unet.UNetConfig, wt, home: torch.device):
     with torch.no_grad():
         stats = (m * bn.mean + (1 - m) * mean, m * bn.var + (1 - m) * var)
     inv = torch.rsqrt(var + cfg.bn_eps)
-    out = [
-        [(t.to(torch.float32) - ch(mean, t)) * ch(inv, t) * ch(bn.scale, t) + ch(bn.bias, t) for t in row]
-        for row in x
-    ]
-    return out, stats
+    normed = iter([
+        ((t - ch(mean, t)) * ch(inv, t) * ch(bn.scale, t) + ch(bn.bias, t)).reshape(orig.shape)
+        for t, orig in zip(flat, (t for row in x for t in row))
+    ])
+    return [[next(normed) for _ in row] for row in x], stats
 
 
 def sharded_forward_train(model: unet.UNet, images: torch.Tensor, tmesh: TrainMesh):
@@ -131,13 +141,35 @@ def sharded_forward_train(model: unet.UNet, images: torch.Tensor, tmesh: TrainMe
     return logits, stats
 
 
-def forward_train_gathered(model: unet.UNet, images: torch.Tensor, tmesh: TrainMesh):
+def forward_train_gathered(model: unet.UNet, images: torch.Tensor, tmesh: TrainMesh, polyphase: bool = False):
     """``sharded_forward_train`` with the logits gathered on the model's
     device: ``(logits (N, *spatial, K), statistics)``, a drop-in for
-    ``UNet.forward_train`` in every train step."""
-    logits, stats = sharded_forward_train(model, images, tmesh)
+    ``UNet.forward_train`` in every train step. ``polyphase``: the phase
+    domain training forward (``models.polyphase.apply_train`` /
+    ``apply3d_train``) over the data axis, shard by shard in lockstep, its
+    batch norms over the global batch (``mesh.make_dp_train_step``'s
+    meshes split no rows)."""
     home = _canonical(next(model.parameters()).device)
-    return _concat(logits, home), stats
+    if not polyphase:
+        logits, stats = sharded_forward_train(model, images, tmesh)
+        return _concat(logits, home), stats
+    if tmesh.devices.shape[1] != 1:
+        raise ValueError(
+            "polyphase + spatial_parallel is not supported; the polyphase "
+            f"training forward splits only the batch (a mesh of {tmesh.devices.shape[1]} space ways)"
+        )
+    polyphase_lib._check_train(model, images, model.cfg.dims)
+    devices = tmesh.devices[:, 0]
+    nb = images.shape[0] // len(devices)
+    shards = [images[i * nb:(i + 1) * nb].to(dev) for i, dev in enumerate(devices)]
+    wt = _Placed()
+
+    def norm(xs, bn, groups):
+        out, stats = _batch_norm_psum([[t] for t in xs], bn, model.cfg, wt, home, groups)
+        return [row[0] for row in out], stats
+
+    logits, stats = polyphase_lib.apply_train_shards(model, shards, wt, norm)
+    return torch.cat([t.to(home) for t in logits], dim=0), stats
 
 
 def _split_plain(x: torch.Tensor, devices: np.ndarray) -> Grid:

@@ -199,28 +199,23 @@ def _train_forward(cfg: unet.UNetConfig, tc: TrainConfig, mesh=None) -> Callable
     the polyphase cover is refused here, when the step is built. ``mesh``
     (a ``parallel.spatial_train.TrainMesh``): the batch runs sharded over
     its devices with batch-norm statistics of the global batch
-    (``spatial_train.forward_train_gathered``)."""
+    (``spatial_train.forward_train_gathered``), polyphase or not."""
+    if tc.polyphase and (
+        cfg.space_to_depth != 1 or cfg.upsample != "transpose"
+        or cfg.depth < 2 or cfg.dims not in (2, 3)
+    ):
+        raise ValueError(
+            "polyphase training requires a space_to_depth=1 "
+            f"transpose-upsample model of depth >= 2; got "
+            f"dims={cfg.dims} s2d={cfg.space_to_depth} "
+            f"upsample={cfg.upsample!r} depth={cfg.depth}"
+        )
     if mesh is not None:
-        if tc.polyphase:
-            raise ValueError(
-                "polyphase training does not run on a device mesh: train "
-                "polyphase on one device, or data-parallel without polyphase"
-            )
         from sequitr_tpu_torch.parallel import spatial_train
 
         def fwd(model, images):
-            return spatial_train.forward_train_gathered(model, images, mesh)
+            return spatial_train.forward_train_gathered(model, images, mesh, polyphase=tc.polyphase)
     elif tc.polyphase:
-        if (
-            cfg.space_to_depth != 1 or cfg.upsample != "transpose"
-            or cfg.depth < 2 or cfg.dims not in (2, 3)
-        ):
-            raise ValueError(
-                "polyphase training requires a space_to_depth=1 "
-                f"transpose-upsample model of depth >= 2; got "
-                f"dims={cfg.dims} s2d={cfg.space_to_depth} "
-                f"upsample={cfg.upsample!r} depth={cfg.depth}"
-            )
         fwd = polyphase.apply3d_train if cfg.dims == 3 else polyphase.apply_train
     else:
         fwd = unet.UNet.forward_train

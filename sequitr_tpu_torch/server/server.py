@@ -1047,11 +1047,6 @@ def _train_mesh(p: dict, batch_size: int, device):
         return None
     if _n_devices(device) <= 1:
         return None
-    if p.get("polyphase"):
-        raise jobs_lib.JobError(
-            "polyphase training does not combine with data_parallel on more "
-            "than one device; train polyphase single-device"
-        )
     from sequitr_tpu_torch import parallel
 
     mesh = parallel.make_mesh(device=device)

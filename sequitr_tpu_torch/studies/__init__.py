@@ -14,6 +14,12 @@
 * ``flow_gather`` — the flow integrator's row gather in each form PyTorch
   offers, timed against its byte bound on the card:
   ``python -m sequitr_tpu_torch.studies.flow_gather``.
-
-``roofline``, ``int8_conv`` and ``ptq_unet`` are not ported yet.
+* ``ptq_unet`` — post-training int8 quantization of the U-Net (calibrate,
+  quantize, the int8 forward) on the int8 conv kernel of ``csrc/qconv.cu``.
+* ``int8_conv`` — int8 against bf16 convs at the U-Net's conv shapes, with
+  the kernel's bound and cuBLASLt's int8 GEMM beside them:
+  ``python -m sequitr_tpu_torch.studies.int8_conv``.
+* ``roofline`` — the 1024x1024 forward sliced into its nine stages, each
+  timed against its raw convs' ceiling:
+  ``python -m sequitr_tpu_torch.studies.roofline``.
 """

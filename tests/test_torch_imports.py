@@ -55,6 +55,7 @@ MODULES = [
     "sequitr_tpu_torch.ops.kernels.build",
     "sequitr_tpu_torch.ops.kernels.histogram",
     "sequitr_tpu_torch.ops.kernels.conv3x3",
+    "sequitr_tpu_torch.ops.kernels.qconv",
     "sequitr_tpu_torch.pipeline",
     "sequitr_tpu_torch.pipeline.infer",
     "sequitr_tpu_torch.pipeline.optim",
@@ -85,6 +86,9 @@ MODULES = [
     "sequitr_tpu_torch.studies.conv3x3_parts",
     "sequitr_tpu_torch.studies.normalize_pass",
     "sequitr_tpu_torch.studies.flow_gather",
+    "sequitr_tpu_torch.studies.ptq_unet",
+    "sequitr_tpu_torch.studies.int8_conv",
+    "sequitr_tpu_torch.studies.roofline",
 ] + [
     f"sequitr_tpu_torch.examples.{name}"
     for name in (
@@ -128,7 +132,7 @@ from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
 from sequitr_tpu_torch.pipeline import fit, infer, train
-from sequitr_tpu_torch.studies import flow_gather, polyphase_conv
+from sequitr_tpu_torch.studies import flow_gather, int8_conv, polyphase_conv, roofline
 from sequitr_tpu_torch.server import ImageServer
 
 assert utils.DEFAULT_DEVICE == "cuda"
@@ -155,6 +159,8 @@ calls = [
     lambda: polyphase_conv.run(size=16, iters=1),
     lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
     lambda: flow_gather.run(iters=1),
+    lambda: roofline.run(size=16, iters=1),
+    lambda: int8_conv.run(iters=1, shapes=[("a", (8, 8), 1, 8)]),
     lambda: ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r})),
     lambda: unet.init(cfg),
     lambda: train.create_unet_state(cfg, train.TrainConfig()),

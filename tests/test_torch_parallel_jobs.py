@@ -21,7 +21,9 @@ the JAX ``ImageServer`` on the 8 virtual CPU devices of
   step's bars of ``test_torch_spatial_train.py``); the port's resume
   against its uninterrupted run; every JobError with the JAX text;
 * ``train_unet2d`` data-parallel against the port's single-device run from
-  the same init (the JAX server draws its init from ``jax.random``).
+  the same init (the JAX server draws its init from ``jax.random``), and
+  with ``polyphase`` against the JAX server's job from one step-0
+  checkpoint.
 """
 
 import json
@@ -399,17 +401,59 @@ def test_train_unet2d_data_parallel_equals_single_device(env, records):
             np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=1e-6, err_msg=k)
 
 
+def _polyphase_dp_job(env, records):
+    """``train_unet2d`` with ``polyphase`` and ``data_parallel`` through both
+    servers (the JAX server's DP step over its 8 devices, the port at 4
+    ways) from one init: each server's step-0 checkpoint of the JAX init's
+    weights, which the job resumes from. The ``metrics.jsonl`` train rows
+    and the registered weights at the bars of the U-Net DP job test."""
+    from sequitr_tpu.pipeline import train as jax_train
+    from sequitr_tpu_torch.pipeline import train as torch_train
+
+    arch = {"depth": 2, "base_features": 4, "num_classes": 3}
+    params = dict(arch, model="tr_poly", steps=3, batch_size=8, log_every=1, augment=False, learning_rate=1e-3,
+                  compute_dtype="float32", polyphase=True, data_parallel=True)
+    jcfg = jax_unet.UNetConfig(compute_dtype=jnp.float32, **arch)
+    jtc = jax_train.TrainConfig(learning_rate=1e-3, augment=False, polyphase=True)
+    jstate = jax_train.create_unet_state(jax.random.PRNGKey(11), jcfg, jtc)
+    tstate = torch_convert.load_train_state(
+        torch_unet.UNetConfig(compute_dtype="float32", **arch),
+        torch_train.TrainConfig(learning_rate=1e-3, augment=False, polyphase=True),
+        _flat(jstate.params, jstate.model_state), device="cpu")
+    rows, models = {}, {}
+    for which, state in (("jax", jstate), ("torch", tstate)):
+        ckpt = str(env["tmp"] / f"{which}_tr_poly" / "ckpts" / "step_00000000")
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        (jax_train if which == "jax" else torch_train).save_checkpoint(ckpt, state)
+        st = _serve(env, which, "tr_poly", "train_unet2d", params, [records], ways=4)
+        assert st["state"] == "complete", st.get("error")
+        with open(st["outputs"]["metrics_file"]) as f:
+            rows[which] = [json.loads(line) for line in f if '"train"' in line]
+    assert len(rows["torch"]) == len(rows["jax"]) == 3
+    for a, b in zip(rows["torch"], rows["jax"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=1e-4)
+    _, _, got = torch_read_model(env["torch_models"], "tr_poly")
+    _, _, jparams, jstate_ = jax_load_model(env["jax_models"], "tr_poly")
+    want = _flat(jparams, jstate_)
+    assert set(got) == set(want)
+    for k in want:
+        if k.endswith(("conv1/b", "conv2/b", "/mean")):
+            assert np.abs(got[k] - want[k]).max() <= 2 * 3 * 1e-3, k
+        else:
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-6, err_msg=k)
+
+
 @pytest.mark.parametrize("module", ["train_unet2d", "train_unet2d_polyphase"])
 def test_train_data_parallel_refusals(env, records, module):
     """A batch that does not split over the pool is the JAX server's
-    JobError; polyphase does not train on a mesh in the port (a JobError
-    where the JAX package trains it)."""
+    JobError; polyphase training on the pool is no refusal but the JAX
+    server's DP job (``_polyphase_dp_job``)."""
+    if module.endswith("polyphase"):
+        _polyphase_dp_job(env, records)
+        return
     params = {"model": "tr_bad", "steps": 1, "batch_size": 3, "data_parallel": True, "depth": 2,
               "base_features": 4}
-    if module.endswith("polyphase"):
-        st = _serve(env, "torch", "tr_poly", "train_unet2d", dict(params, batch_size=8, polyphase=True), [records])
-        assert "polyphase training does not combine with data_parallel" in _job_error(st)
-        return
     sj, st = (_serve(env, w, "tr_bad", module, params, [records]) for w in ("jax", "torch"))
     assert _job_error(st) == _job_error(sj)
 

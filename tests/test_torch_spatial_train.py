@@ -375,13 +375,76 @@ def _compare_family(tstate, tm, want, wm, steps, first):
 
 
 def test_polyphase_on_a_mesh_is_refused():
-    cfg = torch_unet.UNetConfig(depth=2, base_features=4, compute_dtype="float32")
+    """A model outside the polyphase cover is refused on a mesh as on one
+    device, with the JAX package's message (the cover itself trains on a
+    mesh: ``test_dp_polyphase_steps_match_the_jax_dp_step``)."""
+    cfg = torch_unet.UNetConfig(depth=2, base_features=4, upsample="resize", compute_dtype="float32")
     tc = torch_train.TrainConfig(augment=False, polyphase=True)
+    jcfg = jax_unet.UNetConfig(depth=2, base_features=4, upsample="resize", compute_dtype=jnp.float32)
+    with pytest.raises(ValueError) as want:
+        jax_train._train_forward(jcfg, jax_train.TrainConfig(augment=False, polyphase=True))
     with parallel.virtual_devices(2):
-        with pytest.raises(ValueError, match="polyphase training does not run on a device mesh"):
+        with pytest.raises(ValueError) as got:
             parallel.make_dp_train_step(
                 functools.partial(torch_train.make_unet_train_step, cfg, tc), parallel.make_mesh(device="cpu"))
+    assert str(got.value) == str(want.value)
 
+
+def test_polyphase_on_a_hybrid_mesh_is_refused():
+    """The polyphase training forward splits only the batch: a mesh with
+    space ways is refused, not trained on its first column."""
+    cfg = torch_unet.UNetConfig(depth=2, base_features=4, compute_dtype="float32")
+    model = torch_unet.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    images = torch.zeros((2, 16, 16, 1))
+    with parallel.virtual_devices(4):
+        tmesh = spatial_train.TrainMesh(parallel.make_mesh2d((2, 2), device="cpu"), "data", "space")
+        with pytest.raises(ValueError, match="polyphase \\+ spatial_parallel is not supported"):
+            spatial_train.forward_train_gathered(model, images, tmesh, polyphase=True)
+
+
+def _polyphase_family(family, seed=40, batch=8):
+    """``_family``'s tuple for a polyphase step (augment off): the U-Net 2D
+    (16x16) and 3D (4x8x8) steps and the flows step."""
+    spatial = (4, 8, 8) if family == "unet3d" else (16, 16)
+    kw = dict(depth=2, dims=3) if family == "unet3d" else dict(depth=2)
+    if family == "flows":
+        kw["num_classes"] = 3
+    jcfg, tcfg, _, _, jstate, _, b = _setup(seed=seed, batch=batch, spatial=spatial, **kw)
+    jtc = jax_train.TrainConfig(learning_rate=LR, augment=False, polyphase=True)
+    ttc = torch_train.TrainConfig(learning_rate=LR, augment=False, polyphase=True)
+    tstate = torch_convert.load_train_state(tcfg, ttc, _flat(jstate.params, jstate.model_state), device="cpu")
+    name = "flows" if family == "flows" else "unet"
+    if family == "flows":
+        rng = np.random.default_rng(seed + 2)
+        b = {"image": b["image"], "flow": rng.normal(size=(batch, *spatial, 2)).astype(np.float32),
+             "prob": (rng.random((batch, *spatial)) > 0.5).astype(np.float32)}
+    return (getattr(jax_train, f"make_{name}_train_step")(jcfg, jtc),
+            functools.partial(getattr(torch_train, f"make_{name}_train_step"), tcfg, ttc), jstate, tstate, b)
+
+
+@pytest.mark.parametrize("ways", [2, 4])
+@pytest.mark.parametrize("family", ["unet2d", "unet3d", "flows"])
+def test_dp_polyphase_steps_match_the_jax_dp_step(family, ways):
+    """Polyphase training on a mesh: three DP steps of the phase-domain
+    forward (batch norms over the global batch, counted N*4*h*w a shard
+    in the phase domain; the first-tie pool inside each shard; weights on
+    other devices through ``_Placed``) against the JAX package's DP step
+    over its 8 devices, from the same converted weights, at the U-Net DP
+    test's bars; the port's single-device polyphase step is held to the DP
+    step at the same bars."""
+    jmake, make, jstate, tstate, b = _polyphase_family(family)
+    single = copy.deepcopy(tstate)
+    jstep = jax_parallel.make_dp_train_step(jmake, jax_parallel.make_mesh())
+    sstep = make()
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    with parallel.virtual_devices(ways):
+        dp = parallel.make_dp_train_step(make, parallel.make_mesh(device="cpu"))
+        for i in range(3):
+            jstate, jm = jstep(jstate, _jax_batch(b), jax.random.PRNGKey(0))
+            tstate, tm = dp(tstate, tb)
+            single, sm = sstep(single, tb)
+            _compare_family(tstate, tm, _flat(jstate.params, jstate.model_state), jm, i + 1, first=i == 0)
+            _compare_family(single, sm, torch_convert.to_flat(tstate.model), tm, i + 1, first=i == 0)
 
 
 def test_placed_weights_copy_once_and_return_their_gradient():

@@ -1,5 +1,5 @@
-// Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu and
-// csrc/histogram.cu for the CPU: one std::thread per CUDA thread of a block,
+// Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu,
+// csrc/histogram.cu and csrc/qconv.cu for the CPU: one std::thread per CUDA thread of a block,
 // blocks one after another (launches too), a std::barrier for __syncthreads
 // and one per warp for __syncwarp, the shuffles and the warp-wide operations
 // of ptx_emulation.h; atomics as std::atomic_ref. It rehearses index
@@ -40,6 +40,9 @@ struct uint4 {
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
 struct float4 {
   float x, y, z, w;
+};
+struct int4 {
+  int x, y, z, w;
 };
 
 using std::fmaf;
@@ -177,6 +180,18 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __int2float_rn(int v) { return static_cast<float>(v); }
+// cvt.rni.s32.f32: nearest, ties to even, saturating; NaN gives 0
+inline int __float2int_rn(float f) {
+  if (std::isnan(f)) return 0;
+  const float r = std::nearbyint(f);
+  if (r >= 2147483648.0f) return 2147483647;
+  if (r < -2147483648.0f) return -2147483647 - 1;
+  return static_cast<int>(r);
+}
+// loads through the read-only cache: plain loads here
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
   std::memcpy(&u, &f, 4);

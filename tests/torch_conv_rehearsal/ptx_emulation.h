@@ -1,4 +1,4 @@
-// The PTX operations of csrc/conv3x3.cu and csrc/histogram.cu on the CPU, as
+// The PTX operations of csrc/conv3x3.cu, csrc/histogram.cu and csrc/qconv.cu on the CPU, as
 // the PTX manual defines them. cp.async copies are carried out as late as the
 // program allows: when the thread waits for their group. A tile that is read
 // without that wait (and a barrier) holds the poison of emu_launch, not data.
@@ -207,4 +207,14 @@ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t
     d[i] = s;
   }
   w.bar.arrive_and_wait();
+}
+
+// dp4a.s32.s32 (csrc/qconv.cu's __dp4a): the four signed bytes of a times
+// those of b, summed into c; the sum wraps modulo 2^32 as the int32 add does
+inline int __dp4a(int a, int b, int c) {
+  int64_t s = c;
+  for (int k = 0; k < 4; ++k) {
+    s += static_cast<int64_t>(static_cast<int8_t>(a >> (8 * k))) * static_cast<int8_t>(b >> (8 * k));
+  }
+  return static_cast<int>(static_cast<uint32_t>(static_cast<uint64_t>(s)));
 }
