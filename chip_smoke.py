@@ -251,8 +251,20 @@ on failure:
    around it) bit-equal to the port's forward on the CPU on the same
    qparams and input, its labels against the f32 folded forward's (>=
    0.98), its time against the bf16 forward's.
+22. fixtures phase, the fixture factory: ``python -m
+   sequitr_tpu_torch.tools.make_fixtures --quick`` through its ``main``,
+   all eight recipes at bf16 on the card into a temporary directory (each
+   fixture's steps, wall seconds, median step ms and holdout metrics
+   printed beside the committed manifest's; every metric finite), each
+   fixture loaded back through ``fixtures.load(directory=...)`` and run on
+   the card, the committed ``gan_denoise`` and ``n2v_cells`` scored by the
+   factory's scorers at bf16 (within 1 dB of their manifest), the quick
+   ``unet2d_cells`` served through
+   ``segmentation_unet2d`` on one 1024x1024 ``cells_frame`` (one quantile
+   pass: the histogram kernel launched, counted as job (a)'s are), all
+   within ``FIXTURES_BUDGET_S``.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+Prints the whole command's time, then a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
 
@@ -262,7 +274,7 @@ runs only the named phases (of ``histogram``, ``conv``, ``studies``,
 ``model``, ``polyphase``, ``volume``, ``enhance``, ``profile``,
 ``instances``, ``serve``, ``evaluate``, ``train``, ``gan_train``,
 ``family_train``, ``geometry``, ``optics``, ``quantify``, ``ops``,
-``parallel``, ``quant``) after the build, for work on one kernel or path, and prints neither of the
+``parallel``, ``quant``, ``fixtures``) after the build, for work on one kernel or path, and prints neither of the
 two closing lines.
 """
 
@@ -273,6 +285,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+T_START = time.perf_counter()
 
 MIOU_BAR = 0.997
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -4486,7 +4500,9 @@ def ops_phase(torch, hist, conv, smi_line):
             try:
                 # until every worker has served one (claims are first come, first served)
                 for attempt in range(8):
-                    wait_for(lambda: all((read_status(o) or {}).get("state") == "complete" for o in warm_outs),
+                    # a job's status reads complete before the worker appends its ledger row
+                    wait_for(lambda: all((read_status(o) or {}).get("state") == "complete" for o in warm_outs)
+                             and set(warm_ids) <= set(ledger_rows()),
                              180, f"the warm-up jobs under {workers} worker(s)")
                     warmed = {str(ledger_rows()[i]["worker"]) for i in warm_ids}
                     if len(warmed) == workers:
@@ -5342,6 +5358,105 @@ def quant_phase(torch, qk, hist, smi_line):
     return entry, passes
 
 
+FIXTURES_BUDGET_S = 45.0  # the fixtures phase, factory and serve together
+FIXTURES_FRAME = (1024, 1024)  # the served frame: the serve phase's shape
+FIXTURES_SEED = 454_000
+FIXTURES_COMMITTED_DB = 1.0  # a committed fixture's PSNR by the factory's scorer against its manifest (the margin)
+
+
+def fixtures_phase(torch, hist, conv, smi_line):
+    """The fixture factory at ``--quick`` on the card (docstring item 22).
+    Returns {"fixtures_serve": (histogram_2d launches, quantile passes)} of
+    the quick teacher's served frame."""
+    import numpy as np
+
+    from sequitr_tpu_torch.config import ServerConfiguration
+    from sequitr_tpu_torch.data import synthetic, tiff
+    from sequitr_tpu_torch.models import fixtures, gan
+    from sequitr_tpu_torch.server import ImageServer, submit_job
+    from sequitr_tpu_torch.server.server import save_model
+    from sequitr_tpu_torch.tools import make_fixtures
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fixtures")
+        rows = make_fixtures.main(["--out", out, "--quick", "--device", "cuda"])
+        factory_s = time.perf_counter() - t0
+        want = ["unet2d_cells", "unet2d_cells_fast", "unet2d_cells_fast4", "unet3d_cells", "gan_denoise",
+                "n2v_cells", "flows_cells", "stars_cells"]
+        if [r["fixture"] for r in rows] != want or fixtures.names(out) != sorted(want):
+            raise AssertionError(f"the factory wrote {fixtures.names(out)}")
+        for r in rows:
+            print(f"fixtures {r['fixture']} (--quick, bf16): {r['steps']} steps in {r['wall_s']:.2f} s, median "
+                  f"step {r['step_ms']:.2f} ms, holdout {json.dumps(r['metrics'])} (committed full run "
+                  f"{json.dumps(r['committed'])}) on {smi_line}")
+            if not all(np.isfinite(v) for v in r["metrics"].values()):
+                raise AssertionError(f"fixture {r['fixture']}: a holdout metric is not finite")
+        steps = {r["fixture"]: r["steps"] for r in rows}
+        for name in want:
+            kind, cfg, model, meta = fixtures.load(name, device="cuda", directory=out)
+            if cfg.compute_dtype != "bfloat16" or meta["recipe"]["steps"] != steps[name]:
+                raise AssertionError(f"fixture {name}: stored {cfg.compute_dtype}, {meta['recipe']}")
+            spatial = (16, 64, 64) if getattr(cfg, "dims", 2) == 3 else (256, 256)
+            x = torch.rand((1, *spatial, 1), device="cuda")
+            with torch.inference_mode():
+                y = gan.generator_apply(model, x) if kind == "gan" else model(x)
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"fixture {name}: the loaded model's output is not finite")
+
+        # the factory's scorers on the committed GAN and N2V weights at bf16 on
+        # the card, against what the manifest recorded for them
+        for name, score in (("gan_denoise", make_fixtures._eval_gan), ("n2v_cells", make_fixtures._eval_n2v)):
+            _, _, model, meta = fixtures.load(name, device="cuda")
+            got = score(model, torch.device("cuda"))
+            got = got if isinstance(got, float) else got[0]
+            print(f"fixtures committed {name} scored by the factory at bf16: holdout_psnr {got:.4f} dB "
+                  f"(manifest {meta['holdout_psnr']}) on {smi_line}")
+            if abs(got - meta["holdout_psnr"]) > FIXTURES_COMMITTED_DB:
+                raise AssertionError(f"the committed {name} scores {got} dB, not its manifest's "
+                                     f"{meta['holdout_psnr']}")
+
+        # the quick teacher served as job (a) serves the committed one
+        jobs, models = os.path.join(tmp, "jobs"), os.path.join(tmp, "models")
+        kind, cfg, model, _ = fixtures.load("unet2d_cells", device="cpu", directory=out)
+        save_model(models, "quick_teacher", kind, cfg, model)
+        frame = synthetic.cells_frame(FIXTURES_SEED, FIXTURES_FRAME)[0].clip(0, 65535).astype(np.uint16)
+        path = os.path.join(tmp, "frame.tif")
+        tiff.write_stack(path, frame[None])
+        server = ImageServer(ServerConfiguration(jobs_dir=jobs, models_dir=models, device="cuda"))
+        submit_job(jobs, {
+            "module": "segmentation_unet2d", "params": {"model": "quick_teacher", "localize": False},
+            "input": [path], "output": os.path.join(tmp, "out"),
+        })
+        torch.cuda.synchronize()
+        hist.histogram_2d.launches = 0
+        hist.quantile_pass.launches = 0
+        conv.conv3x3_nhwc.launches = 0
+        conv.conv3x3_flat_chw.launches = 0
+        if not server.poll_once():
+            raise AssertionError("fixtures: no job to run")
+        torch.cuda.synchronize()
+        counts = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+        conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
+        with open(os.path.join(tmp, "out", "status.json")) as f:
+            status = json.load(f)
+        if status["state"] != "complete":
+            raise AssertionError(f"fixtures: the quick teacher's job failed: {status.get('error')}")
+        labels = tiff.read_stack(status["outputs"]["labels"])
+        if labels.shape[-2:] != FIXTURES_FRAME or labels.dtype != np.uint16 or int(labels.max()) > 2:
+            raise AssertionError(f"fixtures: labels {labels.shape} {labels.dtype} max {labels.max()}")
+        if counts != (1, 1) or conv_launches:
+            raise AssertionError(f"fixtures: {counts} histogram launches / passes and {conv_launches} conv "
+                                 "launches serving one frame, not (1, 1) and 0")
+    elapsed = time.perf_counter() - t0
+    print(f"fixtures: the factory (8 recipes, --quick) {factory_s:.2f} s, with the loads and the served frame "
+          f"{elapsed:.2f} s (budget {FIXTURES_BUDGET_S} s); the quick teacher's job: histogram_2d launches "
+          f"{counts[0]} in {counts[1]} quantile passes, labels {labels.shape} on {smi_line}")
+    if elapsed > FIXTURES_BUDGET_S:
+        raise AssertionError(f"the fixtures phase took {elapsed:.1f} s, over its {FIXTURES_BUDGET_S} s budget")
+    return {"fixtures_serve": counts}
+
+
 def params_summary(params):
     return {k: v for k, v in params.items() if k != "localize"}
 
@@ -5349,7 +5464,7 @@ def params_summary(params):
 PHASES = (
     "histogram", "conv", "studies", "model", "polyphase", "volume", "enhance", "profile", "instances",
     "serve", "evaluate", "train", "gan_train", "family_train", "geometry", "optics", "quantify", "ops",
-    "parallel", "quant",
+    "parallel", "quant", "fixtures",
 )
 
 
@@ -5422,6 +5537,7 @@ def main(argv=None) -> int:
             "ops": lambda: ops_phase(torch, hist, conv, smi_line),
             "parallel": lambda: parallel_phase(torch, hist, conv, smi_line),
             "quant": lambda: quant_phase(torch, qk, hist, smi_line),
+            "fixtures": lambda: fixtures_phase(torch, hist, conv, smi_line),
         }
         for name in phases:
             run[name]()
@@ -5455,6 +5571,7 @@ def main(argv=None) -> int:
     counts.update(timed("ops", ops_phase, hist, conv, smi_line))
     counts.update(timed("parallel", parallel_phase, hist, conv, smi_line))
     qconv_entry, counts["ptq_path"] = timed("quant", quant_phase, qk, hist, smi_line)
+    counts.update(timed("fixtures", fixtures_phase, hist, conv, smi_line))
     entry["launches"] = counts["a"][0]
     entry["launches_by_job"] = {job: c[0] for job, c in counts.items()}
     entry["passes_by_job"] = {job: c[1] for job, c in counts.items()}
@@ -5494,8 +5611,10 @@ def main(argv=None) -> int:
         "once, in torch ops, at the first call), its ms and plain_ms at enc0b (1024x1024, 32 -> 32, int32 out) as "
         "called, kernel_ms the same from a CUDA graph, library_ms im2col + torch._int_mm there; no served or "
         "training job launches it; ptq_path is the histogram's passes on that PTQ path (one a normalized frame: 4 "
-        "calibration frames and the forward's)"
+        "calibration frames and the forward's); fixtures_serve is the fixtures phase's segmentation_unet2d of the "
+        "quick-trained unet2d_cells on one 1024x1024 frame (one pass, as job a's frames)"
     )
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": [entry] + conv_entries + [qconv_entry]}))
     print(json.dumps({
         "ok": True,

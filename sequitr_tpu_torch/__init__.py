@@ -10,16 +10,10 @@ helpers it shares with the JAX package are copies. Entry points run on the
 card (``device="cuda"``) unless the caller passes ``device="cpu"``; without
 a CUDA device they raise instead of quietly running on the CPU.
 
-Ported so far (34 of the JAX server's 37 jobs): the ``segmentation_unet2d``
-serving path (percentile normalize on the histogram kernel, U-Net2D,
-standard or polyphase forward, tiling/stitch, labels.tif and objects.h5),
-3D segmentation, GAN and N2V serving, the instance families' serving
-(``segment_flows``, ``segment_stars``), the evaluation and parity jobs with
-the fidelity meters (``fidelity``), the training jobs (standard or
-polyphase forward), geometry and illumination, the PSF jobs, acquisition
-QC and z-projection on the card (``ops.qc``, ``ops.projection``), the host
-quantification and tracking jobs (``tracking``) and the conv studies
-(``studies``: the fused 3x3 conv kernels, Winograd, the polyphase A/B).
+Every module of the JAX package has its counterpart here (the public
+names are held complete by ``tests/test_torch_api_surface.py``): all 37
+jobs of the JAX server, the CLI, the studies, the examples and the fixture
+factory (``python -m sequitr_tpu_torch.tools.make_fixtures``).
 Subpackages import lazily so ``import sequitr_tpu_torch`` stays
 light.
 """
@@ -27,8 +21,8 @@ light.
 __version__ = "0.1.0"
 
 _LAZY = (
-    "config", "data", "fidelity", "localize", "models", "native", "ops", "pipeline",
-    "server", "studies", "utils",
+    "client", "config", "data", "fidelity", "localize", "models", "native", "ops", "parallel",
+    "pipeline", "psf", "server", "studies", "utils",
 )
 
 __all__ = ["__version__", *_LAZY]

@@ -20,12 +20,42 @@ import torch
 from sequitr_tpu_torch.data import records
 from sequitr_tpu_torch.utils import resolve_device
 
-__all__ = ["prefetch_to_device", "ShardIterator", "load_holdout", "stack_examples"]
+__all__ = ["prefetch_to_device", "batch_iterator", "ShardIterator", "load_holdout", "stack_examples"]
 
 
 def stack_examples(examples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack a list of {key: array} examples into one {key: batch} dict."""
     return {k: np.stack([ex[k] for ex in examples]) for k in examples[0]}
+
+
+def _stack_tree(items: Sequence[Any]) -> Any:
+    """Stack matching leaves of equally structured examples (dicts, lists,
+    tuples of arrays) with ``np.stack``."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([it[k] for it in items]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_tree([it[i] for it in items]) for i in range(len(first)))
+    return np.stack(items)
+
+
+def batch_iterator(
+    examples: Sequence[Any],
+    batch_size: int,
+    key: Optional[np.random.Generator] = None,
+    collate: Optional[Callable] = None,
+    drop_remainder: bool = True,
+) -> Iterator[Any]:
+    """Shuffled epoch batching of in-memory examples into stacked examples:
+    ``key`` shuffles the order in place of an epoch, ``collate(chunk)``
+    replaces the stacking, ``drop_remainder`` drops a last short batch."""
+    idx = np.arange(len(examples))
+    if key is not None:
+        key.shuffle(idx)
+    stop = len(idx) - (len(idx) % batch_size) if drop_remainder else len(idx)
+    for start in range(0, stop, batch_size):
+        chunk = [examples[i] for i in idx[start : start + batch_size]]
+        yield collate(chunk) if collate is not None else _stack_tree(chunk)
 
 
 def prefetch_to_device(

@@ -6,9 +6,11 @@ a flat dict of numpy arrays keyed by the parameter path joined with '/'
 under ``gen/`` and ``disc/``), conv kernels in HWIO (``(kh, kw, c_in,
 c_out)``; DHWIO for 3D; the transposed conv's too), and batch-norm running
 statistics under a ``state/`` prefix (``state/enc/0/bn1/mean``,
-``state/gen/enc/0/bn1/mean``). It is what ``flatten_params`` gives, what the
-committed fixtures store and what ``python -m sequitr_tpu export-model``
-writes.
+``state/gen/enc/0/bn1/mean``). It is what the JAX ``flatten_params`` gives,
+what the committed fixtures store and what ``python -m sequitr_tpu
+export-model`` writes; here ``to_flat`` writes it and ``load_flat`` reads
+it, and ``flatten_params`` / ``unflatten_like`` / ``load_npz_weights`` are
+the JAX names over the parameters alone.
 
 The path names are the module's own state-dict names with '/' for '.';
 only the kernels change layout: a conv's HWIO (DHWIO) kernel becomes
@@ -23,7 +25,8 @@ package's three kernel maps, copied, on the same keys.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+import copy
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -34,7 +37,7 @@ from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
-    "build", "load_flat", "to_flat", "nest_flat", "load_train_state", "conv_to_torch",
+    "build", "load_flat", "to_flat", "flatten_params", "unflatten_like", "load_npz_weights", "nest_flat", "load_train_state", "conv_to_torch",
     "conv_from_torch", "pack_conv3x3", "tf_transpose_kernel_to_jax", "torch_kernel_to_jax",
     "torch_transpose_kernel_to_jax", "from_layout", "LAYOUTS",
 ]
@@ -182,8 +185,16 @@ def load_flat(
     return model.to(resolve_device(device))
 
 
+def _tree_key(name: str):
+    """The place of a flat path in the JAX package's pytree flattening:
+    dict keys in sorted order, list items by index."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in name.split("/"))
+
+
 def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse of ``load_flat``: {flat/path: f32 numpy array}."""
+    """The inverse of ``load_flat``: {flat/path: f32 numpy array}, the
+    parameters then the ``state/`` statistics, each in the order the JAX
+    package flattens its pytrees."""
     flat = {}
     for key, t in model.state_dict().items():
         arr = t.detach().to("cpu", torch.float32).numpy()
@@ -191,7 +202,71 @@ def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
         if axes is not None:
             arr = np.transpose(arr, _inverse(axes))
         flat[_flat_key(key)] = np.ascontiguousarray(arr)
-    return flat
+    params = sorted((k for k in flat if not k.startswith(_STATE)), key=_tree_key)
+    state = sorted((k for k in flat if k.startswith(_STATE)), key=_tree_key)
+    return {k: flat[k] for k in params + state}
+
+
+def flatten_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The parameters alone as the flat dict (``sequitr_tpu.models.convert.
+    flatten_params`` of the JAX params pytree): f32, kernels HWIO, no
+    ``state/`` statistics."""
+    return {k: v for k, v in to_flat(model).items() if not k.startswith(_STATE)}
+
+
+def unflatten_like(model: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:
+    """A copy of ``model`` with its parameters taken from the flat dict
+    (kernels HWIO; a parameter keeps its dtype); the batch-norm statistics
+    stay the model's (``load_flat`` reads both). Every parameter must be
+    present with its shape: raises ValueError listing each missing or
+    mis-shaped name. Extra keys are ignored. ``model`` is left as it was."""
+    out = copy.deepcopy(model)
+    problems = []
+    with torch.no_grad():
+        # in the JAX pytree's order, so the problems are listed as it lists them
+        for key, p in sorted(out.named_parameters(), key=lambda kv: _tree_key(_flat_key(kv[0]))):
+            name = _flat_key(key)
+            axes = _axes(out, key, p.ndim)
+            want = tuple(p.shape) if axes is None else tuple(p.shape[i] for i in _inverse(axes))
+            if name not in flat:
+                problems.append(f"missing: {name} {want}")
+                continue
+            arr = np.asarray(flat[name])
+            if arr.shape != want:
+                problems.append(f"shape mismatch at {name}: got {arr.shape}, want {want}")
+                continue
+            if axes is not None:
+                arr = np.transpose(arr, axes)
+            p.copy_(torch.as_tensor(np.ascontiguousarray(arr)).to(p.dtype))
+    if problems:
+        raise ValueError("weight conversion failed:\n  " + "\n  ".join(problems))
+    return out
+
+
+def load_npz_weights(
+    npz_path: str,
+    model: nn.Module,
+    name_map: Optional[Callable[[str], Optional[str]]] = None,
+    kernel_map: Optional[Callable[[str, np.ndarray], np.ndarray]] = None,
+) -> nn.Module:
+    """Load a flat npz of reference weights into a copy of ``model``'s
+    parameters (``unflatten_like``). ``name_map``: external name ->
+    canonical path (None drops the entry), identity by default.
+    ``kernel_map(path, array)``: a transform of each entry on its canonical
+    path, the array still in the npz's layout (e.g.
+    ``tf_transpose_kernel_to_jax`` on ``up/*`` kernels); what it returns is
+    read as canonical (HWIO kernels)."""
+    flat: Dict[str, np.ndarray] = {}
+    with np.load(npz_path) as raw:
+        for name in raw.files:
+            target = name_map(name) if name_map else name
+            if target is None:
+                continue
+            arr = raw[name]
+            if kernel_map is not None:
+                arr = kernel_map(target, arr)
+            flat[target] = arr
+    return unflatten_like(model, flat)
 
 
 def nest_flat(flat: Mapping[str, np.ndarray]):

@@ -4,9 +4,9 @@ second parity target of ``parity_check`` (``reference: "keras"``).
 A copy of ``sequitr_tpu.models.tf_reference``: the same topology (SAME
 padding, batch-norm semantics, transposed-conv geometry) rebuilt in Keras,
 with weight injection from the nested (params, state) pytrees of the
-interchange layout (``models.convert.nest_flat``). The JAX module's CPU
-throughput baseline (``measure_tf_cpu_fps``) is bench code and waits for
-the port's bench.
+interchange layout (``models.convert.nest_flat``), and the reference's CPU
+throughput (``measure_tf_cpu_fps``: normalize + U-Net in TensorFlow on the
+host's CPU).
 
 TensorFlow is only imported inside functions; an ``ImportError`` there is
 what ``parity_check`` reports as the reference being unavailable.
@@ -22,7 +22,7 @@ from sequitr_tpu_torch.models.unet import UNetConfig
 
 __all__ = [
     "build_tf_unet", "build_tf_patchgan", "inject_weights", "inject_patchgan_weights",
-    "tf_forward",
+    "tf_forward", "measure_tf_cpu_fps",
 ]
 
 
@@ -164,3 +164,43 @@ def tf_forward(model, x: np.ndarray) -> np.ndarray:
     import tensorflow as tf
 
     return model(tf.convert_to_tensor(np.asarray(x, np.float32)), training=False).numpy()
+
+
+def measure_tf_cpu_fps(
+    frame: int = 1024, iters: int = 3, depth: int = 4, base_features: int = 32
+) -> float:
+    """Reference-equivalent CPU throughput in frames/s: the percentile
+    normalize and the f32 Keras U-Net (random weights) on one ``frame``
+    square frame, TensorFlow's GPUs hidden, after one warm-up call."""
+    import time
+
+    import tensorflow as tf
+
+    tf.config.set_visible_devices([], "GPU")
+    cfg = UNetConfig(
+        in_channels=1, num_classes=3, depth=depth, base_features=base_features,
+        compute_dtype="float32",
+    )
+    model = build_tf_unet(cfg, (frame, frame))
+    rng = np.random.default_rng(0)
+    x = rng.gamma(2.0, 100.0, (frame, frame)).astype(np.float32)
+
+    def percentile(t, q):
+        flat = tf.sort(tf.reshape(t, [-1]))
+        n = tf.cast(tf.size(flat) - 1, tf.float32)
+        return flat[tf.cast(tf.round(q / 100.0 * n), tf.int32)]
+
+    @tf.function
+    def run(img):
+        lo = percentile(img, 5.0)
+        hi = percentile(img, 99.5)
+        norm = tf.clip_by_value((img - lo) / (hi - lo + 1e-8), 0.0, 1.0)
+        logits = model(norm[None, :, :, None], training=False)
+        return tf.argmax(logits[0], axis=-1)
+
+    run(tf.convert_to_tensor(x)).numpy()  # trace + warm-up
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = run(tf.convert_to_tensor(x))
+    _ = out.numpy()
+    return iters / (time.perf_counter() - t0)

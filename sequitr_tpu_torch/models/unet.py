@@ -38,7 +38,10 @@ import torch.nn.functional as F
 
 from sequitr_tpu_torch.utils import f32_entry, resolve_device
 
-__all__ = ["UNetConfig", "UNet", "conv", "block_shards", "up_block_shards", "fold_batchnorm", "init"]
+__all__ = [
+    "UNetConfig", "UNet", "conv", "block_shards", "up_block_shards", "fold_batchnorm", "init",
+    "param_count",
+]
 
 BNStats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -383,6 +386,13 @@ class UNet(nn.Module):
         if s2d > 1:
             logits = _depth_to_space(logits, s2d)
         return torch.movedim(logits, 1, -1).to(torch.float32)
+
+
+def param_count(model: nn.Module) -> int:
+    """The number of trained values: parameters, not the batch norms'
+    running statistics (buffers), as ``unet.param_count`` counts the params
+    pytree."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def fold_batchnorm(model: UNet) -> UNet:

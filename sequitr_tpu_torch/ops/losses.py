@@ -1,6 +1,7 @@
 """Losses and segmentation metrics (port of ``sequitr_tpu.ops.losses``).
 
-Per-pixel weighted softmax cross-entropy (the U-Net loss), sigmoid BCE and
+Per-pixel weighted softmax cross-entropy (the U-Net loss), the softmax
+label map, sigmoid BCE and
 L1 (the GAN and N2V losses of the training slices), and the label-map
 metrics: per-class IoU and Dice on tensors, and the streaming confusion
 matrix and its metrics on the host (copied: numpy). Losses compute in
@@ -9,7 +10,7 @@ float32 whatever the logits' dtype, as the JAX package does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "weighted_softmax_cross_entropy",
+    "softmax_label_map",
     "sigmoid_bce_with_logits",
     "gan_discriminator_loss",
     "gan_generator_loss",
@@ -49,6 +51,14 @@ def weighted_softmax_cross_entropy(
         return ce.mean()
     w = weights.to(torch.float32)
     return (w * ce).sum() / torch.clamp(w.sum(), min=1e-8)
+
+
+def softmax_label_map(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax probabilities and their argmax label map (sequitr's output
+    contract) over the last (class) axis: ``(probs, labels)``, f32
+    per-pixel class probabilities and the int32 label map."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    return probs, torch.argmax(probs, dim=-1).to(torch.int32)
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ import torch
 
 __all__ = [
     "hann_window",
+    "hann2d",
     "phase_correlate",
     "apply_shift",
     "register_step",
@@ -81,6 +82,11 @@ def hann_window(shape: Tuple[int, ...], device=None) -> torch.Tensor:
     shape = tuple(int(n) for n in shape)
     dev = torch.device("cpu" if device is None else device)
     return _constant(("hann", shape, dev), lambda: _hann(shape, dev))
+
+
+def hann2d(shape: Tuple[int, int], device=None) -> torch.Tensor:
+    """2D alias of ``hann_window`` (the original public name)."""
+    return hann_window(shape, device)
 
 
 def _hann(shape: Tuple[int, ...], device) -> torch.Tensor:

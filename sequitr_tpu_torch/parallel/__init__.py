@@ -14,6 +14,7 @@ from sequitr_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
     make_dp_train_step,
     make_dp_frame_inferrer,
+    make_dp_frame_mapper,
     make_dp_registerer,
     make_dp_localizer,
     make_dp_localizer3d,

@@ -21,9 +21,10 @@ one device. Nothing else turns it on.
 The data-parallel wrappers keep the JAX names. Each runs the port's own
 per-batch function on each device's slice (``_dp_apply``); frames are
 independent, so no shard reads another's. ``make_dp_frame_inferrer``
-takes a function of any output structure, so it also serves what the JAX
-package's ``make_dp_frame_mapper`` serves (the enhancer, the denoiser,
-the flows and stars passes). ``make_dp_train_step`` builds a
+takes a per-device batch function of any output structure (the jobs'
+enhancer, denoiser, flows and stars passes ride it);
+``make_dp_frame_mapper`` is the JAX name's one-output form over a
+per-frame function. ``make_dp_train_step`` builds a
 step whose forward runs on the mesh with batch-norm statistics over the
 global batch (``spatial_train.sharded_forward_train``), as XLA runs the
 JAX package's sharded step as the unsharded one.
@@ -52,6 +53,7 @@ __all__ = [
     "frame_by_frame",
     "make_dp_train_step",
     "make_dp_frame_inferrer",
+    "make_dp_frame_mapper",
     "make_dp_registerer",
     "make_dp_localizer",
     "make_dp_localizer3d",
@@ -283,6 +285,27 @@ def make_dp_frame_inferrer(make_infer: Callable, mesh: Mesh) -> Callable:
     """
     fn_for = _per_device(make_infer)
     return lambda model, frames: _dp_apply(mesh, fn_for, model, frames)
+
+
+def make_dp_frame_mapper(fn: Callable, mesh: Mesh) -> Callable:
+    """The data-parallel form of a single-output per-frame function.
+
+    ``fn(model, frame) -> tensor`` becomes ``mapped(model, frames)`` over
+    (D, *spatial[, C]) frames, D a multiple of the mesh size: each device
+    maps its contiguous slice frame by frame with the weights copied to it
+    (``model`` may be None), and the (D, ...) outputs come back stacked in
+    order on the job's device; an ``fn`` that returns anything but one
+    tensor is a TypeError.
+    """
+    run = frame_by_frame(fn)
+
+    def mapped(model, frames):
+        out = _dp_apply(mesh, lambda _dev: run, model, frames)
+        if not isinstance(out, torch.Tensor):
+            raise TypeError(f"make_dp_frame_mapper's fn must return one tensor, not {type(out).__name__}")
+        return out
+
+    return mapped
 
 
 def make_dp_registerer(

@@ -86,9 +86,12 @@ MODULES = [
     "sequitr_tpu_torch.studies.conv3x3_parts",
     "sequitr_tpu_torch.studies.normalize_pass",
     "sequitr_tpu_torch.studies.flow_gather",
+    "sequitr_tpu_torch.studies.fixture_init",
     "sequitr_tpu_torch.studies.ptq_unet",
     "sequitr_tpu_torch.studies.int8_conv",
     "sequitr_tpu_torch.studies.roofline",
+    "sequitr_tpu_torch.tools",
+    "sequitr_tpu_torch.tools.make_fixtures",
 ] + [
     f"sequitr_tpu_torch.examples.{name}"
     for name in (
@@ -134,6 +137,7 @@ from sequitr_tpu_torch.ops import flows
 from sequitr_tpu_torch.pipeline import fit, infer, train
 from sequitr_tpu_torch.studies import flow_gather, int8_conv, polyphase_conv, roofline
 from sequitr_tpu_torch.server import ImageServer
+from sequitr_tpu_torch.tools import make_fixtures
 
 assert utils.DEFAULT_DEVICE == "cuda"
 assert ServerConfiguration().device == "cuda"
@@ -197,6 +201,7 @@ calls = [
     lambda: parallel.device_pool(),
     lambda: parallel.make_mesh(),
     lambda: parallel.make_mesh2d((1, 1)),
+    lambda: make_fixtures.main(["--out", {models!r}, "--quick", "--only", "n2v_cells"]),
 ]
 for call in calls:
     try:
