@@ -22,7 +22,7 @@ __version__ = "0.1.0"
 
 _LAZY = (
     "client", "config", "data", "fidelity", "localize", "models", "native", "ops", "parallel",
-    "pipeline", "psf", "server", "studies", "utils",
+    "pipeline", "psf", "server", "studies", "tracing", "utils",
 )
 
 __all__ = ["__version__", *_LAZY]

@@ -69,6 +69,8 @@ def _serve_workers(args, early_drain) -> int:
         base += ["--config", args.config]
     if args.device:
         base += ["--device", args.device]
+    if args.trace_spans:
+        base += ["--trace-spans"]
     log = logging.getLogger(f"{PROG}.supervisor")
 
     def spawn(i):
@@ -450,6 +452,12 @@ def _parser() -> argparse.ArgumentParser:
              " claimer per card scales serving across cards)",
     )
     ap_serve.add_argument(
+        "--trace-spans", action="store_true",
+        help="keep the server's and the jobs' spans in memory and write them"
+             " as a Chrome trace, spans.json in the log dir (else the jobs"
+             " dir), on exit (forwarded to every worker)",
+    )
+    ap_serve.add_argument(
         "--pin-env", default=None, metavar="VAR",
         help="env var set to the worker index in each worker, e.g."
              " CUDA_VISIBLE_DEVICES to pin one card per worker",
@@ -599,6 +607,8 @@ def _cmd_serve(args, early_drain) -> int:
         )
     if args.device:
         cfg.device = args.device
+    if args.trace_spans:
+        cfg.trace_spans = True
     # pidfile: lets `drain` find this serve process without the operator
     # hunting pids. One serve entry (supervisor OR single worker) per jobs
     # dir is the deployment model; a stale file from a crashed serve is

@@ -45,6 +45,10 @@ class ServerConfiguration:
     ``device``: the torch device jobs run on. ``"cuda"`` (default) needs a
     CUDA card and the server refuses to start without one; ``"cpu"`` must
     be asked for explicitly.
+    ``trace_spans``: keep the process's spans (``tracing``) in memory from
+    start to drain and write them as a Chrome trace, ``spans.json`` in
+    ``log_dir`` (else ``jobs_dir``), on exit. No trace per job (the job
+    param ``profile: true`` exports one).
     """
 
     jobs_dir: str = "./jobs"
@@ -57,6 +61,7 @@ class ServerConfiguration:
     stale_claim_timeout: Optional[float] = 300.0
     log_dir: Optional[str] = None
     device: str = "cuda"
+    trace_spans: bool = False
 
     @classmethod
     def from_json(cls, path: str) -> "ServerConfiguration":

@@ -25,6 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from sequitr_tpu_torch import tracing
+
 __all__ = [
     "read_stack",
     "write_stack",
@@ -547,7 +549,8 @@ class TiffAppendWriter:
 
             # fixed level -> deterministic bytes (the writers' byte-identity
             # contract extends to compressed output)
-            data = zlib.compress(data, 6)
+            with tracing.span("tiff.deflate"):
+                data = zlib.compress(data, 6)
 
         n_entries = 9
         if self.bigtiff:

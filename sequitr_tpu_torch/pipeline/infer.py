@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple, Uni
 import numpy as np
 import torch
 
+from sequitr_tpu_torch import tracing
 from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import polyphase
 from sequitr_tpu_torch.models import unet as unet_lib
@@ -305,7 +306,9 @@ def _make_batch_infer(
 ) -> Callable:
     """``infer(model, frames) -> (probs | None, labels)`` over a leading
     frame axis: frames (B, *spatial) or (B, *spatial, C), spatial (H, W) or
-    (Z, H, W)."""
+    (Z, H, W). Each build adds 1 to the counter ``inferrer.builds`` (a miss
+    of ``cached_frame_inferrer`` / ``cached_batch_inferrer``)."""
+    tracing.count("inferrer.builds")
     frame_spatial = tuple(frame_spatial)
     nd = len(frame_spatial)
     edge_pad = tuple(max(0, p - s) for s, p in zip(frame_spatial, tc.patch))
@@ -735,7 +738,9 @@ def _iter_read_ahead(it: Iterator, depth: int) -> Iterator:
     Disk reads inside ``next()`` overlap the dispatch loop. A bounded queue
     keeps memory at ``depth`` items. Exceptions in the producer re-raise at
     the consumer's ``next()``. If the consumer abandons the generator, the
-    finally-block stops the producer so no thread leaks.
+    finally-block stops the producer so no thread leaks. Spans: each read
+    is ``frame.read`` on the reader thread (under the consumer's job id),
+    each wait for one ``stream.read_wait`` on the consumer's.
     """
     import queue as queue_mod
     import threading
@@ -756,17 +761,22 @@ def _iter_read_ahead(it: Iterator, depth: int) -> Iterator:
 
     def produce():
         try:
-            for item in it:
+            while True:
+                with tracing.span("frame.read"):
+                    item = next(it, done)
+                if item is done:
+                    _put(done)
+                    return
                 if not _put(item):
                     return
-            _put(done)
         except BaseException as e:  # re-raised consumer-side
             _put(_ReadError(e))
 
-    threading.Thread(target=produce, daemon=True, name="frame-reader").start()
+    threading.Thread(target=tracing.bind(produce), daemon=True, name="frame-reader").start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("stream.read_wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, _ReadError):
@@ -790,7 +800,8 @@ class HostArray:
         return HostArray(self._host, self._event, self._index + (k,))
 
     def __array__(self, dtype=None, copy=None):
-        self._event.synchronize()
+        with tracing.span("stream.fetch_wait"):
+            self._event.synchronize()
         a = self._host.numpy()
         for k in self._index:
             a = a[k]
@@ -841,7 +852,8 @@ def stream_frames(
     ``prefetch_host(result) -> result``: called right after each queueing;
     it starts the card->host copies of exactly the outputs the caller will
     fetch (``_copy_to_host_async``) and returns what to yield in their
-    place. Yields results in order.
+    place. Yields results in order. Each queueing (the host->card copy, ``fn``
+    and ``prefetch_host``) is the span ``stream.launch``.
     """
     device = resolve_device(device)
     frames = _iter_read_ahead(iter(frames), depth=prefetch)
@@ -849,17 +861,18 @@ def stream_frames(
     queue: deque = deque()
 
     def launch(host_frame):
-        t = torch.from_numpy(np.ascontiguousarray(host_frame))
-        if h2d is not None:
-            compute = torch.cuda.current_stream(device)
-            with torch.cuda.stream(h2d):
-                t = t.pin_memory().to(device, non_blocking=True)
-            compute.wait_stream(h2d)
-            t.record_stream(compute)
-        out = fn(t)
-        if prefetch_host is not None:
-            out = prefetch_host(out)
-        return out
+        with tracing.span("stream.launch"):
+            t = torch.from_numpy(np.ascontiguousarray(host_frame))
+            if h2d is not None:
+                compute = torch.cuda.current_stream(device)
+                with torch.cuda.stream(h2d):
+                    t = t.pin_memory().to(device, non_blocking=True)
+                compute.wait_stream(h2d)
+                t.record_stream(compute)
+            out = fn(t)
+            if prefetch_host is not None:
+                out = prefetch_host(out)
+            return out
 
     for _ in range(prefetch):
         try:

@@ -31,6 +31,8 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from sequitr_tpu_torch import tracing
+
 log = logging.getLogger("sequitr_tpu_torch.jobs")
 
 __all__ = [
@@ -637,7 +639,8 @@ def write_status(
     outputs: Optional[Dict[str, str]] = None,
     warnings: Optional[List[str]] = None,
 ) -> None:
-    """Atomically write the job's status marker into its output directory."""
+    """Atomically write the job's status marker into its output directory
+    (the span ``server.status``)."""
     status = {
         "id": job.id,
         "module": job.module,
@@ -654,7 +657,8 @@ def write_status(
     if warnings:
         status["warnings"] = list(warnings)
     out_dir = job.output or os.path.dirname(job.path)
-    _atomic_write(os.path.join(out_dir, "status.json"), json.dumps(status, indent=2))
+    with tracing.span("server.status"):
+        _atomic_write(os.path.join(out_dir, "status.json"), json.dumps(status, indent=2))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from sequitr_tpu_torch import tracing
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.server import jobs as jobs_lib
 from sequitr_tpu_torch.server.jobs import Job
@@ -176,7 +177,7 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
                         inten = inten.mean(axis=-1)
                     futures.append(
                         pool.submit(
-                            loc_lib.localize_frame_table, labels_np,
+                            tracing.bind(loc_lib.localize_frame_table), labels_np,
                             # ABSOLUTE frame index, so frame_range segments
                             # splice back into full-timelapse tracks
                             t=t + source.frame_offset,
@@ -211,7 +212,7 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
     n_objects = sum(len(tb) for tb in tables)
     metrics = dict(timer.summary(), n_frames=n_frames, n_objects=n_objects)
     # work is queued asynchronously: throughput = frames over queue + fetch time
-    total_s = sum(timer._acc.get(k, 0.0) for k in ("infer", "fetch"))
+    total_s = timer.total("infer", "fetch")
     if total_s > 0:
         metrics["frames_per_sec"] = round(n_frames / total_s, 3)
     metrics["device"] = str(device)

@@ -20,6 +20,13 @@ The job param ``profile: true`` traces a job with ``torch.profiler``
 ``data_parallel`` and ``spatial_parallel`` shard over the devices of
 ``parallel.device_pool(config.device)`` (every card; on a pool of one
 device the jobs stream single-device, as the JAX server does on one chip).
+``config.trace_spans`` (``serve --trace-spans``) keeps the process's spans
+(``tracing``) from start to drain and writes them to ``spans.json`` in
+``log_dir`` (else ``jobs_dir``) on exit: this thread's ``server.poll``,
+``server.job``, ``server.status`` and ``server.ledger``, and the jobs'.
+Without it, the server keeps them in memory only while a ``torch.profiler``
+session runs in its process (one started around ``run_forever``), so that
+session's trace carries them.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Callable, Dict
 
 import numpy as np
 
+from sequitr_tpu_torch import tracing
 from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.server import jobs as jobs_lib
 from sequitr_tpu_torch.server.jobs import Job
@@ -102,6 +110,46 @@ class ImageServer:
         self.registry = registry
         self.device = resolve_device(config.device)
         config.ensure_dirs()
+        # the tracer this server turned on: for its whole life with
+        # ``trace_spans``, else while a profiler session runs (``_follow_profiler``)
+        self._tracer = tracing.enable() if config.trace_spans else None
+
+    def _spans_path(self) -> str:
+        """Where ``close`` writes the spans (``trace_spans``): ``spans.json``
+        in ``log_dir`` (else ``jobs_dir``); a supervised worker's carries
+        its id, ``spans.w<id>.json``."""
+        worker = os.environ.get("SEQUITR_WORKER_ID")
+        name = "spans.json" if worker is None else f"spans.w{worker}.json"
+        return os.path.join(self.config.log_dir or self.config.jobs_dir, name)
+
+    def _follow_profiler(self) -> None:
+        """Without ``trace_spans``, keep spans while a ``torch.profiler``
+        session runs in this process, so a profiled server's device trace
+        carries them (each bridged span is a ``user_annotation``); checked
+        at each claim, before the job's spans open. The records stay in
+        memory (``tracing.latest()``); nothing is written."""
+        if self.config.trace_spans:
+            return
+        if tracing.profiling():
+            if tracing.active() is None:
+                self._tracer = tracing.enable()
+        elif self._tracer is not None and tracing.active() is self._tracer:
+            tracing.disable()
+
+    def close(self) -> None:
+        """Stop keeping spans, and write them with ``trace_spans``.
+        ``run_forever`` calls it on its way out."""
+        tracer, self._tracer = self._tracer, None
+        if tracer is None:
+            return
+        if tracing.active() is tracer:
+            tracing.disable()
+        if not self.config.trace_spans:
+            return
+        try:
+            tracer.write_chrome(self._spans_path())
+        except OSError:
+            log.warning("could not write the spans", exc_info=True)
 
     def run_forever(self, early_drain=None) -> None:  # pragma: no cover - interactive loop
         """Poll loop with graceful drain.
@@ -128,17 +176,20 @@ class ImageServer:
             "server watching %s on %s (pipelines: %s)",
             self.config.jobs_dir, self.device, self.registry.names(),
         )
-        while not self._draining:
-            ran = self.poll_once()
-            if self._draining:
-                break
-            if not ran:
-                deadline = time.monotonic() + self.config.poll_interval
-                while not self._draining:
-                    left = deadline - time.monotonic()
-                    if left <= 0:
-                        break
-                    time.sleep(min(left, 0.2))
+        try:
+            while not self._draining:
+                ran = self.poll_once()
+                if self._draining:
+                    break
+                if not ran:
+                    deadline = time.monotonic() + self.config.poll_interval
+                    while not self._draining:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            break
+                        time.sleep(min(left, 0.2))
+        finally:
+            self.close()
         log.info("drained: exiting cleanly")
 
     def poll_once(self) -> bool:
@@ -146,14 +197,30 @@ class ImageServer:
 
         A job file that cannot be parsed (invalid JSON, missing ``module``)
         is quarantined as ``<name>.rejected`` instead of crashing the loop.
+        Spans: the scan and claim are ``server.poll`` (``found``: the id of
+        the job claimed, or None), the job from claim to ledger row
+        ``server.job``.
         """
+        with tracing.span("server.poll") as poll:
+            job = self._claim_next()
+            poll.set(found=None if job is None else job.id)
+        if job is None:
+            return False
+        self._follow_profiler()
+        with tracing.job(job.id), tracing.span("server.job"):
+            self._execute(job)
+        return True
+
+    def _claim_next(self):
+        """Claim the first runnable queued job (failing those whose
+        dependencies failed on the way); None when there is none."""
         if self.config.stale_claim_timeout:
             jobs_lib.reclaim_stale_claims(
                 self.config.jobs_dir, self.config.stale_claim_timeout
             )
         for path in jobs_lib.scan_jobs(self.config.jobs_dir):
             if getattr(self, "_draining", False):
-                return False
+                return None
             dep_state, dep_detail = jobs_lib.check_dependencies(path)
             if dep_state == "wait":
                 continue
@@ -175,9 +242,8 @@ class ImageServer:
                 self._fail(job, started, f"job {job.id}: {dep_detail}")
                 self._ledger(job, "failed", started, 0)
                 continue
-            self._execute(job)
-            return True
-        return False
+            return job
+        return None
 
     def _execute(self, job: Job) -> None:
         started = time.time()
@@ -264,7 +330,8 @@ class ImageServer:
                 time.sleep(self.config.retry_backoff * attempts)
 
     def _ledger(self, job: Job, state: str, started: float, attempts: int) -> None:
-        """Append one JSONL row per finished job to ``log_dir/jobs.jsonl``."""
+        """Append one JSONL row per finished job to ``log_dir/jobs.jsonl``
+        (the span ``server.ledger``)."""
         if not self.config.log_dir:
             return
         row = {
@@ -278,7 +345,7 @@ class ImageServer:
             "worker": os.environ.get("SEQUITR_WORKER_ID"),
         }
         try:
-            with open(
+            with tracing.span("server.ledger"), open(
                 os.path.join(self.config.log_dir, "jobs.jsonl"), "a"
             ) as f:
                 f.write(json.dumps(row) + "\n")
@@ -313,7 +380,8 @@ class ImageServer:
 
         def work():
             try:
-                result.append(pipeline(job, self.config))
+                with tracing.job(job.id):
+                    result.append(pipeline(job, self.config))
             except BaseException as e:  # propagated below
                 error.append(e)
 

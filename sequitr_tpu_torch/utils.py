@@ -8,7 +8,9 @@ one raises — the port never falls back to the CPU on its own.
 f32 convs in TF32 by default); ``derived`` caches a module built from
 another (a folded copy, a polyphase module) for as long as the source
 module's tensors stay as they were.
-``PhaseTimer`` is the JAX package's structured phase timer, copied.
+``PhaseTimer`` is the JAX package's structured phase timer, copied; with
+tracing on (``tracing``, re-exported here: ``span``, ``count``) each phase
+is also a span ``job.<name>``.
 ``trace`` captures a ``torch.profiler`` trace around a block (the job
 param ``profile: true``). ``device_median_ms`` times calls on the card.
 """
@@ -25,9 +27,12 @@ from typing import Callable, Dict, Iterator, Union
 
 import torch
 
+from sequitr_tpu_torch import tracing
+from sequitr_tpu_torch.tracing import count, span
+
 __all__ = [
     "DEFAULT_DEVICE", "resolve_device", "ieee_f32", "f32_entry", "derived",
-    "PhaseTimer", "trace", "device_median_ms",
+    "PhaseTimer", "trace", "device_median_ms", "span", "count",
 ]
 
 DEFAULT_DEVICE = "cuda"
@@ -117,8 +122,16 @@ def derived(source: torch.nn.Module, name: str, build: Callable) -> torch.nn.Mod
     return hit[1]
 
 
+@functools.lru_cache(maxsize=None)
+def _phase_span(name: str) -> str:
+    return "job." + name
+
+
 class PhaseTimer:
     """Accumulate wall-clock per named phase; render a compact dict.
+
+    With tracing on, each phase is also the span ``job.<name>``; the sums
+    are the same either way.
 
     >>> t = PhaseTimer()
     >>> with t.phase("normalize"): ...
@@ -130,12 +143,18 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self._acc[name] = self._acc.get(name, 0.0) + dt
+        with tracing.span(_phase_span(name)):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self._acc[name] = self._acc.get(name, 0.0) + dt
+
+    def total(self, *names: str) -> float:
+        """Seconds summed over the phases ``names`` (a phase never entered
+        adds 0)."""
+        return sum(self._acc.get(k, 0.0) for k in names)
 
     def summary(self) -> Dict[str, float]:
         return {f"{k}_s": round(v, 4) for k, v in self._acc.items()}

@@ -23,6 +23,7 @@ MODULES = [
     "sequitr_tpu_torch.mosaic",
     "sequitr_tpu_torch.psf",
     "sequitr_tpu_torch.tracking",
+    "sequitr_tpu_torch.tracing",
     "sequitr_tpu_torch.data",
     "sequitr_tpu_torch.data.tiff",
     "sequitr_tpu_torch.data.source",
