@@ -21,7 +21,11 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import List, Optional, Tuple
+import threading
+import zlib
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +71,37 @@ _COMP_LZW = 5
 _COMP_DEFLATE_ADOBE = 8
 _COMP_DEFLATE_OLD = 32946  # pre-TIFF6 "32946" deflate, same zlib stream
 _COMP_PACKBITS = 32773
+
+
+# Deflate writers compress on a pool of threads shared by the process
+# (``zlib.compress`` releases the GIL) and write the strips in frame order;
+# a writer keeps at most ``_DEFLATE_IN_FLIGHT`` frames handed to the pool.
+# Two workers leave the card host's 8 cores to the job thread, the frame
+# reader and torch's threads.
+_DEFLATE_WORKERS = 2
+_DEFLATE_IN_FLIGHT = 4
+_POOL_LOCK = threading.Lock()
+_POOL: Optional[Tuple[int, ThreadPoolExecutor]] = None  # (pid, pool)
+
+
+def _deflate_pool() -> ThreadPoolExecutor:
+    """The process's deflate threads: made at first use, and made again in
+    a forked child (the parent's threads do not cross a fork)."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None or _POOL[0] != os.getpid():
+            _POOL = (
+                os.getpid(),
+                ThreadPoolExecutor(_DEFLATE_WORKERS, thread_name_prefix="tiff-deflate"),
+            )
+        return _POOL[1]
+
+
+def _deflate(data: bytes) -> bytes:
+    # fixed level -> deterministic bytes (the writers' byte-identity
+    # contract extends to compressed output)
+    with tracing.span("tiff.deflate"):
+        return zlib.compress(data, 6)
 
 
 def _lzw_decode(data: bytes) -> bytes:
@@ -490,7 +525,8 @@ class TiffReader:
 
 
 class TiffAppendWriter:
-    """Incremental page-append TIFF writer: O(1 frame) memory for any stack.
+    """Incremental page-append TIFF writer: O(frames in flight) memory for
+    any stack.
 
     ``write_stack`` needs the whole (T, H, W) array in RAM; serving a long
     timelapse would buffer every output frame before a byte hits disk
@@ -507,6 +543,19 @@ class TiffAppendWriter:
     module's reader). Segmentation label maps are mostly background and
     compress ~50x; raw fluorescence is noisy and gains little, so the
     default stays uncompressed (also the zero-decode mmap-friendly layout).
+
+    A deflate writer does not compress on the caller's thread: ``append``
+    copies the frame's bytes (the caller may reuse its array at once),
+    hands them to the process's deflate pool and writes the frames the pool
+    has finished, in frame order, so the file's bytes are those of the
+    synchronous writer (same level, one strip a frame, same IFDs). At most
+    4 frames are in flight, so memory is O(4 frames); ``append`` waits for
+    the oldest when it has 4, and ``close`` waits for them all before the
+    rename. A frame that fails (a compression error, or the classic-TIFF
+    4 GiB limit, checked when the frame is written) raises from a later
+    ``append`` or from ``close`` and aborts the file: no ``.tmp`` stays,
+    and a later ``close`` raises too. An uncompressed writer writes each
+    frame within its ``append``.
     """
 
     def __init__(
@@ -531,8 +580,12 @@ class TiffAppendWriter:
             self._f.write(_II + struct.pack("<HI", 42, 8))
             self._offset = 8  # where the next IFD will start
         self._patch_pos: Optional[int] = None  # previous IFD's next-ptr position
-        self._n = 0
+        self._n = 0  # frames written
         self._closed = False
+        # deflate: (h, w, bits, sample_format, strip) of each frame handed
+        # to the pool and not written yet, oldest first
+        self._pending: Deque[Tuple[int, int, int, int, Future]] = deque()
+        self._failed = False
 
     def append(self, frame: np.ndarray) -> None:
         frame = np.asarray(frame)
@@ -543,15 +596,38 @@ class TiffAppendWriter:
             raise ValueError(f"unsupported dtype {dt}; use uint8/16/32 or float16/32")
         bits, sample_format = _DTYPES[dt]
         h, w = frame.shape
-        data = np.ascontiguousarray(frame).astype("<" + dt.str[1:]).tobytes()
-        if self.compression == "deflate":
-            import zlib
+        data = frame.astype("<" + dt.str[1:], copy=False).tobytes()
+        if self.compression == "none":
+            self._write(h, w, bits, sample_format, data)
+            return
+        if self._closed:
+            raise ValueError(f"append to {self.path} after close or abort")
+        # write what the pool has finished, in order, and wait for the
+        # oldest while the writer has its fill in flight
+        while self._pending and (
+            self._pending[0][-1].done() or len(self._pending) >= _DEFLATE_IN_FLIGHT
+        ):
+            self._write_oldest()
+        strip = _deflate_pool().submit(tracing.bind(_deflate), data)
+        self._pending.append((h, w, bits, sample_format, strip))
+        tracing.count("tiff.deflate_pooled")
 
-            # fixed level -> deterministic bytes (the writers' byte-identity
-            # contract extends to compressed output)
-            with tracing.span("tiff.deflate"):
-                data = zlib.compress(data, 6)
+    def _write_oldest(self) -> None:
+        """Write the oldest pending frame once its deflate is done; a
+        failure aborts the file and raises."""
+        h, w, bits, sample_format, strip = self._pending.popleft()
+        try:
+            if not strip.done():
+                with tracing.span("tiff.deflate_wait"):
+                    strip.result()
+            self._write(h, w, bits, sample_format, strip.result())
+        except BaseException:
+            self._failed = True
+            self.abort()
+            raise
 
+    def _write(self, h: int, w: int, bits: int, sample_format: int, data: bytes) -> None:
+        """Append one frame's IFD and strip at the end of the file."""
         n_entries = 9
         if self.bigtiff:
             ifd_size = 8 + n_entries * 20 + 8
@@ -627,11 +703,16 @@ class TiffAppendWriter:
 
     @property
     def n_frames(self) -> int:
-        return self._n
+        """Frames appended (written, or in flight to the deflate pool)."""
+        return self._n + len(self._pending)
 
     def close(self) -> None:
         if self._closed:
+            if self._failed:
+                raise ValueError(f"a frame failed; not writing {self.path}")
             return
+        while self._pending:
+            self._write_oldest()
         self._closed = True
         self._f.close()
         if self._n == 0:
@@ -644,6 +725,10 @@ class TiffAppendWriter:
         if self._closed:
             return
         self._closed = True
+        # pending deflates finish unread; nothing waits on them
+        for *_, strip in self._pending:
+            strip.cancel()
+        self._pending.clear()
         self._f.close()
         try:
             os.unlink(self._tmp)

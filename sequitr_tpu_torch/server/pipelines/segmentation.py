@@ -195,6 +195,13 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
                 while futures:
                     tables.append(futures.popleft().result())
             rep.finish()
+        # the writers' drain of their last deflates is the job's write
+        with timer.phase("write"):
+            labels_w.close()
+            if probs_w is not None:
+                probs_w.close()
+            if entropy_w is not None:
+                entropy_w.close()
     except BaseException:
         labels_w.abort()
         if probs_w is not None:
@@ -202,11 +209,6 @@ def segmentation_unet2d(job: Job, config: ServerConfiguration) -> Dict[str, str]
         if entropy_w is not None:
             entropy_w.abort()
         raise
-    labels_w.close()
-    if probs_w is not None:
-        probs_w.close()
-    if entropy_w is not None:
-        entropy_w.close()
 
     outputs: Dict[str, str] = {}
     n_objects = sum(len(tb) for tb in tables)

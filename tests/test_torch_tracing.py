@@ -244,12 +244,18 @@ def test_a_served_job_writes_its_spans_only_when_asked(env, tmp_path, trace_span
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = [ev for ev in events if ev["ph"] == "X"]
-    assert {ev["name"] for ev in spans} == SERVED_SPANS
+    # the job thread waits on the deflate pool only where a frame's
+    # deflate is still running when the writer needs it
+    assert {ev["name"] for ev in spans} - {"tiff.deflate_wait"} == SERVED_SPANS
     poll = next(ev for ev in spans if ev["name"] == "server.poll")
     assert poll["args"]["found"] == job_id and poll["args"]["job"] is None
     assert {ev["args"]["job"] for ev in spans if ev["name"] != "server.poll"} == {job_id}
-    builds = [ev["args"]["inferrer.builds"] for ev in events if ev["ph"] == "C"]
-    assert builds == [1]
+    counts = [ev for ev in events if ev["ph"] == "C"]
+    assert [ev["args"][ev["name"]] for ev in counts if ev["name"] == "inferrer.builds"] == [1]
+    # the 3 label frames, each handed to the deflate pool
+    pooled = [ev["args"][ev["name"]] for ev in counts if ev["name"] == "tiff.deflate_pooled"]
+    assert pooled == [1, 2, 3]
+    assert {ev["name"] for ev in counts} == {"inferrer.builds", "tiff.deflate_pooled"}
 
 
 def test_a_profiled_server_keeps_its_spans_while_the_profiler_runs(env, tmp_path):
