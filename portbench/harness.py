@@ -7,15 +7,23 @@ under a fresh directory in ``TMPDIR``. A client thread plays the clients:
 it submits a warm-up job of the cell's own shape, then the window's jobs as
 ``submit`` files them, watches each job's ``status.json`` at the traffic
 mix's fixed interval, and ends the run with the real drain, SIGUSR1 to this
-process. The model's weights are drawn from the seed
-(``portbench/weights.py``) and laid out in the models directory as
-``import-model`` lays one out.
+process.
+
+What the harness knows of the model comes from the configuration's kind,
+``portbench/kinds/<kind>.py`` (``spec.kind_of``): the weights it draws from
+the seed, which are laid out in the models directory as ``import-model``
+lays one out; the FLOPs a served voxel; the judge of the jobs' outputs.
+The harness itself draws the seed's sample of completed jobs to judge and
+counts ``missing``; the numbers compared for ``correct`` are the keys of
+the cell's limits file.
 
 Traffic is a closed backlog (``loop.kind: "closed"``): ``loop.queued`` jobs
 kept queued beyond the running one; the window runs from the first timed
-submission to the last completion within ``--seconds``. The client thread
-reads one ``status.json`` a job an interval, so its polling takes little
-interpreter time from the server it shares the process with.
+submission to the last completion within ``--seconds``, or within the mix's
+``trace_seconds`` where that is shorter and the run is traced (the
+profiler's trace grows with the work it sees). The client thread reads one
+``status.json`` a job an interval, so its polling takes little interpreter
+time from the server it shares the process with.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from portbench import check, counts, inputs, spec, traceio, weights
+from portbench import check, counts, inputs, spec, traceio
 
 __all__ = ["Job", "Run", "run_cell", "FORBIDDEN_MODULES", "forbidden_loaded"]
 
@@ -91,10 +99,12 @@ class Job:
 
 class Run:
     """What a run measured; the metric readers (``metrics/<name>.py``)
-    read it. ``ended``: every job that ended inside the window; ``done``:
-    those that completed, in completion order."""
+    read it. ``seconds``: the longest the window may last; ``ended``: every
+    job that ended inside the window; ``done``: those that completed, in
+    completion order."""
 
-    def __init__(self, cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float):
+    def __init__(self, cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float,
+                 flops_per_voxel: float):
         self.cell, self.config, self.traffic = cell, config, traffic
         self.seed, self.seconds = seed, seconds
         self.process_start = 0.0
@@ -102,7 +112,7 @@ class Run:
         self.window_s = 0.0
         self.ended: List[Job] = []
         self.trace: Optional[traceio.TraceSummary] = None
-        self.flops_per_voxel = counts.unet_flops_per_voxel(config["model"])
+        self.flops_per_voxel = flops_per_voxel
         self.stored_bytes_per_voxel = counts.quantile_pass_bytes_per_voxel(
             traffic["input"]["dtype"])
 
@@ -233,19 +243,21 @@ def _start_profiler():
     return prof
 
 
-def _install_model(cfg: Dict, flat: Dict[str, np.ndarray], models_dir: str) -> str:
+def _install_model(cfg: Dict, server_kind: str, flat: Dict[str, np.ndarray],
+                   models_dir: str) -> str:
     """Lay the model out in ``models_dir`` as the job server reads one and
     ``import-model`` writes one: ``<name>/config.json`` (the configuration's
-    ``model`` block and its ``__kind__``) beside ``<name>/weights.npz`` (the
-    flat layout). ``import-model --arch`` keeps the JAX command's fields,
-    which leave out ``features_cap``, so the layout is written here. Returns
-    the weight file, which the reference reads too."""
+    ``model`` block and the kind the server builds it as, ``__kind__``)
+    beside ``<name>/weights.npz`` (the flat layout). ``import-model --arch``
+    keeps the JAX command's fields, which leave out ``features_cap``, so the
+    layout is written here. Returns the weight file, which the judge reads
+    too."""
     model_dir = os.path.join(models_dir, cfg["name"])
     os.makedirs(model_dir)
     npz = os.path.join(model_dir, "weights.npz")
     np.savez(npz, **flat)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump({**cfg["model"], "__kind__": cfg["kind"]}, f)
+        json.dump({**cfg["model"], "__kind__": server_kind}, f)
     return npz
 
 
@@ -284,7 +296,9 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
     cfg = spec.config_of(bench, root, cell["config"])
     traffic = traffic_override or spec.traffic_of(root, cell["traffic"])
     limits = spec.limits_of(root, workload)
-    run = Run(cell, cfg, traffic, seed, seconds)
+    kind = spec.kind_of(root, cfg["kind"])
+    window = min(seconds, float(traffic["trace_seconds"])) if trace else seconds
+    run = Run(cell, cfg, traffic, seed, window, kind.flops_per_voxel(cfg))
     run.process_start = process_start
 
     from sequitr_tpu_torch.config import ServerConfiguration
@@ -295,7 +309,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         items, job_inputs, warmup = inputs.build_inputs(traffic["input"], seed, run_dir)
         models_dir = os.path.join(run_dir, "models")
         jobs_dir = os.path.join(run_dir, "jobs")
-        npz = _install_model(cfg, weights.make_flat(cfg, seed, device, root), models_dir)
+        npz = _install_model(cfg, kind.SERVER_KIND, kind.make_flat(cfg, seed, device, root),
+                             models_dir)
         server = ImageServer(ServerConfiguration(
             jobs_dir=jobs_dir, models_dir=models_dir, log_dir=os.path.join(run_dir, "log"),
             poll_interval=float(traffic["server"]["poll_interval"]), device=device,
@@ -330,11 +345,18 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-        readings = _judge(run, cfg, traffic, items, npz, device)
+        readings = _judge(run, kind, items, npz, device)
         found = forbidden_loaded()
         if found:
             print(f"portbench: modules that must not load were loaded: {found}", file=err)
             return 2
+        compared = [name for name in limits if name != "readings"]
+        absent = [name for name in compared if name not in readings]
+        if absent:
+            print(f"portbench: portbench/limits/{workload}.json names {absent}, which the "
+                  f"{cfg['kind']!r} kind's judge does not give (it gives {sorted(readings)})",
+                  file=err)
+            return 4
         card = _card() if cuda else {"name": "cpu", "power_limit": "none"}
         written = _io_written()
         print(
@@ -365,7 +387,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         result["card"] = card
         numbers = {
             name: {"value": readings[name], "limit": limits[name]}
-            for name in ("missing", "max_gap", "mismatch_share")
+            for name in compared
         }
         result["correct"] = all(n["value"] <= n["limit"] for n in numbers.values())
         result["check"] = numbers
@@ -379,24 +401,15 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
-def _judge(run: Run, cfg: Dict, traffic: Dict, items: np.ndarray, npz: str,
-           device: str) -> Dict[str, float]:
-    """``missing``, ``max_gap`` and ``mismatch_share`` of the run, against
-    the reference on the weight file ``npz``."""
-    from portbench import reference
-
+def _judge(run: Run, kind, items: np.ndarray, npz: str, device) -> Dict[str, float]:
+    """``missing`` and the kind's judge's readings of a sample of the
+    window's completed jobs, drawn from the seed, the last one always in it,
+    on the weight file ``npz``."""
     missing = sum(1 for j in run.ended if j.state != "complete")
     done = run.done
-    patch, overlap = reference.tiling_of(traffic["params"], traffic["input"]["shape"])
     with np.load(npz) as z:
         flat = {k: z[k] for k in z.files}
-    judge = check.Judge(reference.load_weights(flat, cfg["model"], device), items, patch,
-                        overlap, device)
-    for i in check.sample_jobs(len(done), int(traffic["check_jobs"]), run.seed):
-        job = done[i]
-        labels = check.read_labels(job.output)
-        if len(labels) != len(job.input.items):
-            raise ValueError(f"job {job.id}: {len(labels)} label items for {len(job.input.items)}")
-        for item, lab in zip(job.input.items, labels):
-            judge.add(item, lab)
+    judge = kind.judge(run.config, run.traffic, items, flat, device)
+    for i in check.sample_jobs(len(done), int(run.traffic["check_jobs"]), run.seed):
+        judge.add(done[i].output, done[i].input.items)
     return {"missing": missing, **judge.readings()}

@@ -1,5 +1,5 @@
 """mfu (network): the model's FLOPs over the voxels served in the traced
-window (``counts.unet_flops_per_voxel``, once over the served volume) over
+window (the kind's ``flops_per_voxel``, once over the served volume) over
 the device time of every kernel the window ran (the forward's, the
 quantile pass's and the glue's; copies and sets left out), as a share of
 the card's bf16 dense peak: the whole step's share of the peak."""

@@ -1,11 +1,16 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
-The configuration's file is the ``file`` of its ``configs`` entry; the
-traffic mix is ``portbench/traffic/<traffic>.json``; each metric, end to
-end or per layer, is read by ``portbench/metrics/<name>.py``'s ``read(run)``;
-a cell's limits for ``correct`` are ``portbench/limits/<cell>.json``. A new
-cell, mix, configuration or metric is a new file and an entry, and no edit.
+The configuration's file is the ``file`` of its ``configs`` entry, and its
+``kind`` names the module that knows its model,
+``portbench/kinds/<kind>.py`` (weights, FLOPs, the judge of ``correct``;
+see ``kinds/unet.py``); the traffic mix is
+``portbench/traffic/<traffic>.json``, which states the length of a traced
+run's window (``trace_seconds``); each metric, end to end or per layer, is
+read by ``portbench/metrics/<name>.py``'s ``read(run)``; a cell's limits
+for ``correct`` are ``portbench/limits/<cell>.json``, one number each
+besides ``readings``. A new cell, mix, configuration, kind or metric is a
+new file and an entry, and no edit.
 """
 
 from __future__ import annotations
@@ -14,11 +19,12 @@ import importlib.util
 import json
 import os
 import re
+from types import ModuleType
 from typing import Callable, Dict, List
 
 __all__ = [
     "NAME", "UNIT", "load_benchmark", "cell", "config_of", "traffic_of", "limits_of",
-    "metrics_of", "reader", "check_names",
+    "metrics_of", "reader", "kind_of", "check_names",
 ]
 
 # the benchmark's folder, relative to the checkout's root
@@ -52,7 +58,13 @@ def config_of(bench: Dict, root: str, name: str) -> Dict:
 
 
 def traffic_of(root: str, name: str) -> Dict:
-    return _json(os.path.join(root, FOLDER, "traffic", f"{name}.json"))
+    """A traffic mix, refused without a positive ``trace_seconds``."""
+    traffic = _json(os.path.join(root, FOLDER, "traffic", f"{name}.json"))
+    cap = traffic.get("trace_seconds")
+    if isinstance(cap, bool) or not isinstance(cap, (int, float)) or cap <= 0:
+        raise ValueError(f"traffic mix {name!r}: 'trace_seconds' (the length of a traced "
+                         f"run's window, in seconds) must be a positive number, not {cap!r}")
+    return traffic
 
 
 def limits_of(root: str, cell_name: str) -> Dict:
@@ -77,13 +89,24 @@ def metrics_of(bench: Dict, cell_name: str, trace: bool) -> List[Dict]:
     return [m for m in bench["per_layer"] if belongs(m)]
 
 
-def reader(root: str, name: str) -> Callable:
-    """``read(run) -> float | None`` of ``metrics/<name>.py``."""
-    path = os.path.join(root, FOLDER, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
+def _module(root: str, folder: str, name: str) -> ModuleType:
+    path = os.path.join(root, FOLDER, folder, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"portbench_{folder}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: str, name: str) -> Callable:
+    """``read(run) -> float | None`` of ``metrics/<name>.py``."""
+    return _module(root, "metrics", name).read
+
+
+def kind_of(root: str, name: str) -> ModuleType:
+    """The module ``kinds/<name>.py`` of a configuration's ``kind``."""
+    if not NAME.match(name):
+        raise ValueError(f"kind {name!r} is not a name")
+    return _module(root, "kinds", name)
 
 
 def check_names(bench: Dict) -> List[str]:

@@ -1,6 +1,7 @@
-"""The control of ``correct``: the reference computed in float8 in the
-program's place has to fail one of each cell's limits. On the CPU at a
-small size, and on the card at the cell's own size (marked ``card``)."""
+"""The control of ``correct``: the plain model at low precision (for the
+U-Net, float8) in the program's place, through the kind module's
+``control_readings``, has to fail one of each cell's limits. On the CPU at
+a small size, and on the card at the cell's own size (marked ``card``)."""
 
 import pytest
 
@@ -8,12 +9,6 @@ from portbench import spec
 from portbench.tests.conftest import ROOT
 from portbench.tests.test_portbench_harness import CELLS, _tiny
 from portbench.tools.control import control_readings
-
-BENCH = spec.load_benchmark(ROOT)
-
-
-def _traffic(cell):
-    return spec.traffic_of(ROOT, spec.cell(BENCH, cell)["traffic"])
 
 
 def _fails(readings, cell):
@@ -24,7 +19,7 @@ def _fails(readings, cell):
 @pytest.mark.parametrize("seed", [5, 2**31 + 3])
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_float8_control_fails_at_a_small_size(cell, seed):
-    readings = control_readings(ROOT, cell, seed, "cpu", _tiny(_traffic(cell)))
+    readings = control_readings(ROOT, cell, seed, "cpu", _tiny(cell))
     assert _fails(readings, cell), readings
 
 

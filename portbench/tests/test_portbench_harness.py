@@ -1,7 +1,9 @@
 """The harness on the CPU: BENCHMARK.json's rules, the data-driven lookup,
 the refusal without a card, where inputs go, and ``correct`` coming out
-false when the served answers are altered where they are produced."""
+false when the served answers are altered where they are produced (by the
+fault each configuration's kind module plants, ``altered_answers``)."""
 
+import contextlib
 import copy
 import json
 import os
@@ -41,11 +43,23 @@ def test_every_cell_reports_setup_another_end_to_end_metric_and_a_per_layer_one(
         assert spec.metrics_of(BENCH, cell, trace=True), cell
 
 
+KIND_FUNCTIONS = ("make_flat", "flops_per_voxel", "judge", "control_readings", "small_traffic",
+                  "altered_answers")
+
+
 def test_every_name_has_its_file():
     for w in BENCH["workloads"]:
         assert spec.traffic_of(ROOT, w["traffic"])["module"]
-        assert set(spec.limits_of(ROOT, w["name"])) >= {"missing", "max_gap", "mismatch_share"}
+        limits = spec.limits_of(ROOT, w["name"])
+        compared = [k for k in limits if k != "readings"]
+        assert "missing" in compared and len(compared) >= 2, w["name"]
+        assert all(isinstance(limits[k], (int, float)) for k in compared), w["name"]
         spec.config_of(BENCH, ROOT, w["config"])
+    for c in BENCH["configs"]:
+        kind = spec.kind_of(ROOT, spec.config_of(BENCH, ROOT, c["name"])["kind"])
+        assert isinstance(kind.SERVER_KIND, str), c["name"]
+        for name in KIND_FUNCTIONS:
+            assert callable(getattr(kind, name, None)), (c["name"], name)
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(spec.reader(ROOT, m["name"]))
 
@@ -53,10 +67,7 @@ def test_every_name_has_its_file():
 def test_a_new_configuration_traffic_and_metric_are_found_with_no_edit(tmp_path):
     """A copy of the benchmark with one file of each kind added, and the
     entries that name them, runs a new cell end to end on the CPU."""
-    root = tmp_path / "checkout"
-    shutil.copytree(os.path.join(ROOT, "portbench"), root / "portbench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    os.symlink(os.path.join(ROOT, "sequitr_tpu"), root / "sequitr_tpu")  # the trained nets
+    root = _checkout(tmp_path)
     bench = copy.deepcopy(BENCH)
     cfg = json.loads((root / BENCH["configs"][0]["file"]).read_text())
     cfg["name"] = "unet2d_tiny"
@@ -64,7 +75,7 @@ def test_a_new_configuration_traffic_and_metric_are_found_with_no_edit(tmp_path)
     (root / "portbench/configs/unet2d_tiny.json").write_text(json.dumps(cfg))
     bench["configs"].append({**bench["configs"][0], "name": "unet2d_tiny",
                              "file": "portbench/configs/unet2d_tiny.json"})
-    traffic = _tiny(spec.traffic_of(ROOT, "timelapse64"))
+    traffic = _tiny("seg2d.timelapse")
     (root / "portbench/traffic/tiny.json").write_text(json.dumps(traffic))
     (root / "portbench/limits/seg2d.tiny.json").write_text(
         json.dumps({"missing": 0, "max_gap": 0.5, "mismatch_share": 0.01}))
@@ -112,7 +123,7 @@ def test_inputs_go_under_tmpdir_only(tmp_path, monkeypatch):
 
 
 def test_inputs_are_the_same_from_the_same_seed(tmp_path):
-    spec_ = _tiny(spec.traffic_of(ROOT, "timelapse64"))["input"]
+    spec_ = _tiny("seg2d.timelapse")["input"]
     a, b = tmp_path / "a", tmp_path / "b"
     a.mkdir(), b.mkdir()
     items_a, ins_a, _ = inputs.build_inputs(spec_, 2**31 + 77, str(a))
@@ -124,70 +135,50 @@ def test_inputs_are_the_same_from_the_same_seed(tmp_path):
     assert counts.max() - counts.min() <= 1
 
 
-def _tiny(traffic):
-    """The mix at a CPU test's size. ``normalize: pallas`` runs the card's
-    1024-bin percentile rule (its plain version on the CPU), where the
-    job's ``auto`` would pick the 4096-bin host histogram."""
-    t = copy.deepcopy(traffic)
-    t["params"]["normalize"] = "pallas"
-    inp = t["input"]
-    inp.update(shape=[64, 64], distinct=4, items_per_job=min(inp["items_per_job"], 4),
-               job_inputs=min(inp["job_inputs"], 4))
-    return t
+def _checkout(tmp_path):
+    """A copy of the benchmark's folder beside the trained nets."""
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "portbench"), root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.symlink(os.path.join(ROOT, "sequitr_tpu"), root / "sequitr_tpu")  # the trained nets
+    return root
 
 
-def _run(root, cell, seed, seconds, tmp_path, traffic=None, limits=None):
-    """One CPU run of ``cell``; its result line."""
+def _kind(cell, root=ROOT):
+    """The kind module of a cell's configuration."""
     bench = spec.load_benchmark(root)
+    cfg = spec.config_of(bench, root, spec.cell(bench, cell)["config"])
+    return spec.kind_of(root, cfg["kind"])
+
+
+def _tiny(cell, root=ROOT):
+    """The cell's mix at a CPU test's size, as its kind sizes it."""
+    bench = spec.load_benchmark(root)
+    return _kind(cell, root).small_traffic(spec.traffic_of(root, spec.cell(bench, cell)["traffic"]))
+
+
+def _run(root, cell, seed, seconds, tmp_path, traffic=None, rc=0):
+    """One CPU run of ``cell``; its result line (None where it must print
+    none, ``rc`` not 0)."""
     if traffic is None:
-        traffic = _tiny(spec.traffic_of(root, spec.cell(bench, cell)["traffic"]))
+        traffic = _tiny(cell, root)
     out = tmp_path / "out.txt"
     with open(out, "w") as f, open(tmp_path / "err.txt", "w") as err:
-        rc = harness.run_cell(root, cell, seed, seconds, False, time.perf_counter(),
-                              device="cpu", traffic_override=traffic, out=f, err=err)
-    assert rc == 0, (tmp_path / "err.txt").read_text()[-3000:]
-    return json.loads(out.read_text().splitlines()[-1])
-
-
-def _alter_answers(monkeypatch):
-    """Labels altered where the program produces them: the inferrer's
-    label map has a block of its pixels moved to the next class."""
-    import torch
-
-    from sequitr_tpu_torch.pipeline import infer
-
-    real = infer._make_batch_infer
-
-    def broken(cfg, *args, **kw):
-        fn = real(cfg, *args, **kw)
-
-        def infer_(model, frames):
-            probs, labels = fn(model, frames)
-            labels = labels.clone()
-            block = (slice(None),) * (labels.ndim - 2) + (slice(0, 8), slice(0, 8))
-            moved = (labels[block].to(torch.int32) + 1) % cfg.num_classes
-            labels[block] = moved.to(labels.dtype)
-            return probs, labels
-
-        return infer_
-
-    monkeypatch.setattr(infer, "_make_batch_infer", broken)
-    infer.cached_frame_inferrer.cache_clear()
-    infer.cached_batch_inferrer.cache_clear()
+        got = harness.run_cell(root, cell, seed, seconds, False, time.perf_counter(),
+                               device="cpu", traffic_override=traffic, out=f, err=err)
+    assert got == rc, (tmp_path / "err.txt").read_text()[-3000:]
+    lines = out.read_text().splitlines()
+    if rc:
+        assert not any(line.startswith("{") for line in lines)
+        return None
+    return json.loads(lines[-1])
 
 
 @pytest.mark.parametrize("broken", [False, True], ids=["sound", "answer_altered"])
 @pytest.mark.parametrize("cell", CELLS)
-def test_correct_comes_out_false_when_an_answer_is_altered(cell, broken, tmp_path, monkeypatch):
-    from sequitr_tpu_torch.pipeline import infer
-
-    if broken:
-        _alter_answers(monkeypatch)
-    try:
+def test_correct_comes_out_false_when_an_answer_is_altered(cell, broken, tmp_path):
+    with _kind(cell).altered_answers() if broken else contextlib.nullcontext():
         result = _run(ROOT, cell, 2**31 + 9, 3.0, tmp_path)
-    finally:
-        infer.cached_frame_inferrer.cache_clear()
-        infer.cached_batch_inferrer.cache_clear()
     assert result["correct"] is (not broken), result["check"]
     assert list(result)[-1] == "check"
 

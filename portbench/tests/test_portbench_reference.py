@@ -231,7 +231,7 @@ def test_the_reference_imports_nothing_of_the_program():
     found = [(p, m) for p in _sources("reference") for m in _imports(p)
              if m.split(".")[0] in {"sequitr_tpu_torch", "sequitr_tpu", "jax"}]
     assert found == []
-    code = ("import sys; import portbench.reference, portbench.check; "
+    code = ("import sys; import portbench.reference, portbench.check, portbench.kinds.unet; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'sequitr_tpu_torch', 'sequitr_tpu', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -15,6 +15,7 @@ from portbench import harness, spans, spec, traceio
 from portbench.tests.conftest import ROOT
 from portbench.tests.test_portbench_harness import _tiny
 from sequitr_tpu_torch import tracing
+from sequitr_tpu_torch.pipeline import infer
 
 SPAN_READERS = (
     "deflate_ms_per_mvox", "job_turnover_ms_per_mvox", "launch_ms_per_mvox",
@@ -173,13 +174,24 @@ def test_the_trace_keeps_busy_intervals_and_bridged_spans(tmp_path):
     assert spans.length(whole.busy) == pytest.approx(0.003)
 
 
-def test_a_traced_cpu_run_reads_the_spans_the_program_kept(tmp_path, capsys):
+def test_a_traced_cpu_run_reads_the_spans_the_program_kept(tmp_path, capsys, monkeypatch):
     """The server keeps its spans while the harness's profiler runs and the
     readers find them; a CPU run has no device trace, so the idle shares
-    stay out."""
-    bench = spec.load_benchmark(ROOT)
+    stay out. The mix's ``trace_seconds``, below ``--seconds``, ends the
+    traced window."""
     cell = "seg2d.timelapse"
-    traffic = _tiny(spec.traffic_of(ROOT, spec.cell(bench, cell)["traffic"]))
+    traffic = {**_tiny(cell), "trace_seconds": 3.0}
+    runs = []
+
+    class Kept(harness.Run):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            runs.append(self)
+
+    monkeypatch.setattr(harness, "Run", Kept)
+    # the inferrers cold, as in a run's own process, whatever ran before here
+    infer.cached_frame_inferrer.cache_clear()
+    infer.cached_batch_inferrer.cache_clear()
     out = tmp_path / "out.txt"
     with open(out, "w") as f, open(tmp_path / "err.txt", "w") as err:
         rc = harness.run_cell(ROOT, cell, 2**31 + 11, 6.0, True, time.perf_counter(),
@@ -187,6 +199,9 @@ def test_a_traced_cpu_run_reads_the_spans_the_program_kept(tmp_path, capsys):
     errors = (tmp_path / "err.txt").read_text()
     assert rc == 0, errors[-3000:]
     assert tracing.active() is None
+    (run,) = runs
+    assert run.seconds == 3.0
+    assert 0 < run.window_s <= 3.0
     assert "program spans:" in capsys.readouterr().err
     metrics = json.loads(out.read_text().splitlines()[-1])["metrics"]
     for name in ("deflate_ms_per_mvox", "job_turnover_ms_per_mvox", "launch_ms_per_mvox"):

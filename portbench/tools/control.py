@@ -1,14 +1,14 @@
-"""The control of ``correct``: the reference in float8, in the program's place.
+"""The control of ``correct``: the plain model at low precision, in the program's place.
 
     python3 portbench/tools/control.py --workload <cell> --seeds 1 2 3
 
-For each seed, the cell's distinct input items are made as a run makes
-them, and the reference computed with each conv's input and weights in
-float8 e4m3 (per-tensor scale) gives the labels the program would serve;
-they are judged against the float32 reference as a run judges the
-program's. Prints one JSON line a seed with ``max_gap`` and
-``mismatch_share`` beside the cell's limits; every seed must fail one of
-them. Runs on the card at the cell's own size.
+For each seed, the cell's distinct input items and its weights are made as
+a run makes them, and the configuration's kind (``kinds/<kind>.py``'s
+``control_readings``) computes its plain model at the precision below the
+configuration's (each kind module says which) in the program's place and
+judges those answers as a run judges the program's. Prints one JSON line a
+seed with the readings beside the cell's limits; every seed must fail one
+of them. Runs on the card at the cell's own size.
 """
 
 from __future__ import annotations
@@ -25,21 +25,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def control_readings(root: str, workload: str, seed: int, device,
                      traffic: Optional[Dict] = None) -> Dict[str, float]:
     """The control's readings on one seed's items."""
-    from portbench import check, inputs, reference, spec, weights
+    from portbench import inputs, spec
 
     bench = spec.load_benchmark(root)
     cell = spec.cell(bench, workload)
     cfg = spec.config_of(bench, root, cell["config"])
     traffic = traffic or spec.traffic_of(root, cell["traffic"])
+    kind = spec.kind_of(root, cfg["kind"])
     items = inputs.make_items(traffic["input"], seed)
-    patch, overlap = reference.tiling_of(traffic["params"], traffic["input"]["shape"])
-    flat = weights.make_flat(cfg, seed, device, root)
-    wts = reference.load_weights(flat, cfg["model"], device)
-    judge = check.Judge(wts, items, patch, overlap, device)
-    for i, item in enumerate(items):
-        low = reference.class_scores(wts, item, patch, overlap, device, fp8=True)
-        judge.add(i, low.argmax(0))
-    return judge.readings()
+    flat = kind.make_flat(cfg, seed, device, root)
+    return kind.control_readings(cfg, traffic, items, flat, device)
 
 
 def main(argv=None) -> int:
