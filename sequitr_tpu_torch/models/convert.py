@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from sequitr_tpu_torch.models.cpnet import CPnet, CPnetConfig
 from sequitr_tpu_torch.models.gan import GAN, GANConfig
 from sequitr_tpu_torch.models.unet import UNet, UNetConfig
 from sequitr_tpu_torch.utils import resolve_device
@@ -144,17 +145,22 @@ def _inverse(axes):
     return tuple(int(i) for i in np.argsort(axes))
 
 
-def build(cfg: Union[UNetConfig, GANConfig], device=None) -> nn.Module:
-    """The zero-initialised module of ``cfg``: a ``UNet`` or a ``GAN``."""
-    return GAN(cfg, device=device) if isinstance(cfg, GANConfig) else UNet(cfg, device=device)
+def build(cfg: Union[UNetConfig, GANConfig, CPnetConfig], device=None) -> nn.Module:
+    """The zero-initialised module of ``cfg``: a ``UNet``, a ``GAN`` or a
+    ``CPnet``."""
+    if isinstance(cfg, GANConfig):
+        return GAN(cfg, device=device)
+    if isinstance(cfg, CPnetConfig):
+        return CPnet(cfg, device=device)
+    return UNet(cfg, device=device)
 
 
 def load_flat(
-    cfg: Union[UNetConfig, GANConfig],
+    cfg: Union[UNetConfig, GANConfig, CPnetConfig],
     flat: Mapping[str, np.ndarray],
     device: Union[str, torch.device, None] = None,
 ) -> nn.Module:
-    """Build the ``UNet`` (or ``GAN``) of ``cfg`` from the flat interchange dict.
+    """Build the ``UNet`` (``GAN``, ``CPnet``) of ``cfg`` from the flat interchange dict.
 
     Every parameter and buffer must be present with its shape (float16
     storage is read as f32); raises ValueError listing what is missing or

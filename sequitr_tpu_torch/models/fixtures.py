@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from sequitr_tpu_torch.models import convert as convert_lib
+from sequitr_tpu_torch.models.cpnet import CPnetConfig
 from sequitr_tpu_torch.models.gan import GANConfig
 from sequitr_tpu_torch.models.unet import UNetConfig
 
@@ -35,13 +36,15 @@ _DIR = os.path.join(
 
 # model kinds whose config is a UNetConfig (regression heads included)
 UNET_KINDS = ("unet", "n2v", "flows", "stars")
-KINDS = UNET_KINDS + ("gan",)
+KINDS = UNET_KINDS + ("gan", "cpnet")
 
 
 def config_class(kind: str):
     """The configuration class of a model kind; KeyError for an unknown one."""
     if kind == "gan":
         return GANConfig
+    if kind == "cpnet":
+        return CPnetConfig
     if kind in UNET_KINDS:
         return UNetConfig
     raise KeyError(f"unknown model kind {kind!r}; known: {list(KINDS)}")

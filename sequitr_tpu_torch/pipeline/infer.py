@@ -30,7 +30,9 @@ The instance families run the same chain on their regression heads and
 finish on the device: ``make_flows_segmenter`` divides the flow channels by
 ``FLOW_SCALE``, takes the sigmoid of the cell-probability channel and
 integrates the flow under ``prob > cellprob_threshold``
-(``ops.flows.follow_flows``, or ``follow_flows_doubling``);
+(``ops.flows.follow_flows``, or ``follow_flows_doubling``), for a
+``flows`` U-Net or Cellpose's CPnet (``models.cpnet``, tile by tile, each
+tile with its own style vector);
 ``make_stars_predictor`` takes the sigmoid of the object channel and clamps
 the ray distances at 0. Both refuse TTA (vector and per-ray channels would
 need component-aware flips), as the JAX package does.
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from sequitr_tpu_torch import tracing
+from sequitr_tpu_torch.models import cpnet as cpnet_lib
 from sequitr_tpu_torch.models import gan as gan_lib
 from sequitr_tpu_torch.models import polyphase
 from sequitr_tpu_torch.models import unet as unet_lib
@@ -541,13 +544,16 @@ def cached_gan_enhancer(
 
 
 def _unet_batch_map(
-    cfg: UNetConfig, tc: TileConfig, frame_spatial, device, with_input: bool = False
+    cfg: UNetConfig, tc: TileConfig, frame_spatial, device, with_input: bool = False,
+    zero_channels: int = 0,
 ) -> Callable:
     """``_make_batch_map`` over a regression U-Net's raw head (the
-    denoiser's, the flows' and the stars'), BN folded once per model."""
+    denoiser's, the flows' and the stars'), BN folded once per model;
+    ``zero_channels`` as ``make_flows_segmenter`` takes them."""
     def forward_of(model):
         model = _folded_unet(model)
-        return polyphase.serving(model) if tc.polyphase else model
+        net = polyphase.serving(model) if tc.polyphase else model
+        return _with_zero_channels(net, zero_channels)
 
     run_cfg = dataclasses.replace(cfg, norm="none")
     return _make_batch_map(
@@ -590,18 +596,38 @@ def cached_denoiser(
     )
 
 
+def _folded_cpnet(model) -> cpnet_lib.ServingCPnet:
+    return model if isinstance(model, cpnet_lib.ServingCPnet) else derived(
+        model, "fold_cpnet", cpnet_lib.fold)
+
+
+def _with_zero_channels(forward: Callable, n: int) -> Callable:
+    """``forward`` on patches with ``n`` zero channels appended after the
+    normalized ones (Cellpose's grayscale mode: ``channels = [0, 0]``)."""
+    if not n:
+        return forward
+
+    def padded(patches):
+        zeros = patches.new_zeros(patches.shape[:-1] + (n,))
+        return forward(torch.cat([patches, zeros], dim=-1))
+
+    return padded
+
+
 def make_flows_segmenter(
-    cfg: UNetConfig,
+    cfg: Union[UNetConfig, cpnet_lib.CPnetConfig],
     tc: TileConfig,
     frame_spatial: Tuple[int, ...],
     n_iter: int = 200,
     step_size: float = 1.0,
     cellprob_threshold: float = 0.5,
     integrator: str = "euler",
+    zero_channels: int = 0,
     device: Union[str, torch.device, None] = None,
 ) -> Callable:
     """``segment(model, frame) -> (final, prob)``: the flow-field serving
-    pass of a ``flows`` model (``cfg.num_classes == dims + 1``).
+    pass of a ``flows`` U-Net (``cfg.num_classes == dims + 1``) or a
+    ``cpnet`` CPnet (``nout == 3``).
 
     Normalize -> tiled forward (raw head: ``FLOW_SCALE`` x unit flows and a
     cell-probability logit) -> stitch -> ``flow / FLOW_SCALE`` (f32),
@@ -609,10 +635,18 @@ def make_flows_segmenter(
     cellprob_threshold``, all on ``device``. Returns the converged positions
     (*spatial, dims) and the probability (*spatial), f32 on the device; the
     host groups them (``ops.flows.group_sinks``). 2D frames or, for a
-    ``dims == 3`` model, whole (Z, H, W) volumes. ``integrator``: ``euler``
+    ``dims == 3`` U-Net, whole (Z, H, W) volumes. ``integrator``: ``euler``
     (``n_iter`` steps) or ``doubling`` (``n_iter`` rounded up to a power of
-    two).
+    two). A CPnet runs tile by tile, each tile with its own style vector.
+    ``zero_channels``: zero channels appended to each normalized patch
+    (the grayscale mode of a 2-channel model served one stack).
+
+    Spans: ``flows.forward`` (normalize, tiled forward, stitch, the flow
+    and probability maps) and ``flows.integrate`` (the integrator);
+    counters ``flows.tiles`` (tiles forwarded) and ``flows.euler_steps``
+    (Euler steps run), both a frame.
     """
+    is_cpnet = isinstance(cfg, cpnet_lib.CPnetConfig)
     if cfg.num_classes != cfg.dims + 1:
         raise ValueError(
             f"flows serving needs num_classes == dims + 1 "
@@ -623,26 +657,41 @@ def make_flows_segmenter(
             "tta is unsupported for flow-field serving (vector outputs); "
             "use tta=1"
         )
+    if is_cpnet and tc.polyphase:
+        raise ValueError("polyphase serving is for U-Nets, not a CPnet")
     if integrator not in ("euler", "doubling"):
         raise ValueError(
             f"integrator must be 'euler' or 'doubling', got {integrator!r}"
         )
     device = resolve_device(device)
     nd = len(frame_spatial)
-    run = _unet_batch_map(cfg, dataclasses.replace(tc, probs_dtype="float32"), frame_spatial, device)
-    integrate = (
-        flows_ops.follow_flows_doubling if integrator == "doubling" else flows_ops.follow_flows
-    )
+    tc32 = dataclasses.replace(tc, probs_dtype="float32")
+    if is_cpnet:
+        run = _make_batch_map(
+            None, tc32, frame_spatial, device,
+            lambda model: _with_zero_channels(_folded_cpnet(model), zero_channels),
+            cfg.num_classes,
+        )
+    else:
+        run = _unet_batch_map(cfg, tc32, frame_spatial, device, zero_channels=zero_channels)
+    n_tiles = len(tiling.tile_grid(frame_spatial, tc.patch, tc.overlap))
+    euler = integrator == "euler"
+    integrate = flows_ops.follow_flows if euler else flows_ops.follow_flows_doubling
     # a tensor divisor: a Python number would be multiplied in as its
     # reciprocal on the card (two roundings)
     scale = torch.full((1,), flows_ops.FLOW_SCALE, device=device)
 
-    def segment(model: UNet, frame):
-        out = run(model, torch.as_tensor(frame)[None])[0]
-        with torch.inference_mode():
-            flow = out[..., :nd] / scale
-            prob = torch.sigmoid(out[..., nd])
+    def segment(model, frame):
+        with tracing.span("flows.forward"):
+            out = run(model, torch.as_tensor(frame)[None])[0]
+            with torch.inference_mode():
+                flow = out[..., :nd] / scale
+                prob = torch.sigmoid(out[..., nd])
+        tracing.count("flows.tiles", n_tiles)
+        with tracing.span("flows.integrate"), torch.inference_mode():
             final = integrate(flow, prob > cellprob_threshold, n_iter=n_iter, step=step_size)
+        if euler:
+            tracing.count("flows.euler_steps", int(n_iter))
         return final, prob
 
     return segment
@@ -650,21 +699,23 @@ def make_flows_segmenter(
 
 @functools.lru_cache(maxsize=32)
 def cached_flows_segmenter(
-    cfg: UNetConfig,
+    cfg: Union[UNetConfig, cpnet_lib.CPnetConfig],
     tc: TileConfig,
     frame_spatial: Tuple[int, ...],
     n_iter: int = 200,
     step_size: float = 1.0,
     cellprob_threshold: float = 0.5,
     integrator: str = "euler",
+    zero_channels: int = 0,
     device: Union[str, torch.device, None] = None,
 ) -> Callable:
     """Process-wide cache of flows segmenters, keyed on the frozen configs,
-    the frame shape, the integration params and the device; the model is a
-    per-call argument."""
+    the frame shape, the integration params, the zero channels and the
+    device; the model is a per-call argument."""
     return make_flows_segmenter(
         cfg, tc, frame_spatial, n_iter=n_iter, step_size=step_size,
-        cellprob_threshold=cellprob_threshold, integrator=integrator, device=device,
+        cellprob_threshold=cellprob_threshold, integrator=integrator,
+        zero_channels=zero_channels, device=device,
     )
 
 

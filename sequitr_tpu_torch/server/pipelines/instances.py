@@ -18,7 +18,9 @@ whole stack. The training jobs ``train_flows`` (2D and volumetric) and
 ``train_stars`` build their shards on the host (targets per full frame or
 volume, foreground-biased crops, the JAX jobs' bytes) and train on
 ``config.device`` (``pipeline.fit.fit_flows`` / ``fit_stars``),
-registering kinds ``flows`` and ``stars``.
+registering kinds ``flows`` and ``stars``. ``segment_flows`` and
+``evaluate_flows`` also serve Cellpose's CPnet (kind ``cpnet``, 2D), which
+the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -88,36 +90,69 @@ class _FramePass:
         return lambda chunk: dp(self.model, chunk)
 
 
+def _require_flows_model(job: Job, config: ServerConfiguration):
+    """``(kind, cfg, model)`` of the job's model, a ``flows`` U-Net or a
+    ``cpnet`` CPnet; any other kind is a JobError."""
+    kind, cfg, model = _require_model(job, config)
+    if kind not in ("flows", "cpnet"):
+        raise jobs_lib.JobError(
+            f"job {job.id}: model {job.params.get('model')!r} is kind {kind!r}, expected 'flows'"
+        )
+    return kind, cfg, model
+
+
 def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, device):
-    """Shared setup of the flow-field serving jobs: load the ``flows`` model,
-    build the tile config, and return ``(segment, group)``: the device pass
-    ``segment(frame) -> (final, prob)`` (``infer.cached_flows_segmenter``)
-    and the host sink grouping ``group(final_np, prob_np) -> labels``.
-    A 3-axis ``spatial`` with a ``dims == 3`` model serves whole volumes."""
+    """Shared setup of the flow-field serving jobs: load the ``flows`` or
+    ``cpnet`` model, build the tile config, and return ``(segment,
+    group)``: the device pass ``segment(frame) -> (final, prob)``
+    (``infer.cached_flows_segmenter``) and the host sink grouping
+    ``group(final_np, prob_np) -> labels``. A 3-axis ``spatial`` with a
+    ``dims == 3`` model serves whole volumes. ``channels: [0, 0]`` serves
+    one input stack to a 2-channel model in Cellpose's grayscale mode (a
+    zero second channel after the normalize). A CPnet runs tile by tile,
+    so its job names a ``patch``."""
+    from sequitr_tpu_torch import tracing
     from sequitr_tpu_torch.ops import flows as flows_ops
     from sequitr_tpu_torch.pipeline import infer as infer_lib
 
     dims = len(spatial)
-    cfg, model = _require_model(job, config, "flows")
+    kind, cfg, model = _require_flows_model(job, config)
     if cfg.dims != dims:
         raise jobs_lib.JobError(
             f"job {job.id}: model is {cfg.dims}D, expected {dims}D"
         )
-    if cfg.in_channels != n_channels:
+    p = job.params
+    channels = p.get("channels")
+    zero_channels = 0
+    if channels is not None:
+        if not (isinstance(channels, (list, tuple)) and list(channels) == [0, 0]
+                and n_channels == 1 and cfg.in_channels == 2):
+            raise jobs_lib.JobError(
+                f"channels {channels!r}: the one mode served is [0, 0], one input stack "
+                f"into a 2-channel model (got {n_channels} input stack(s), a model of "
+                f"{cfg.in_channels} channel(s))"
+            )
+        zero_channels = 1
+    elif cfg.in_channels != n_channels:
         raise jobs_lib.JobError(
             f"model expects {cfg.in_channels} channel(s), "
             f"got {n_channels} input stack(s)"
         )
-    p = job.params
     if int(p.get("tta", 1)) != 1:
         raise jobs_lib.JobError(
             "tta is unsupported for flow-field serving (vector outputs "
             "need component-aware flips); use tta: 1"
         )
+    cpnet = kind == "cpnet"
+    if cpnet and p.get("patch") is None:
+        raise jobs_lib.JobError(
+            f"job {job.id}: a cpnet model runs tile by tile; name a patch "
+            "(Cellpose's is [224, 224] with overlap [64, 64])"
+        )
     tc = _tile_config(
         p, dims=dims,
         frame_spatial=spatial, min_multiple=cfg.min_input_multiple,
-        exact_only=True, allow_polyphase=True,
+        exact_only=True, allow_polyphase=not cpnet,
     )
     if tc.polyphase:
         _require_polyphase_model(cfg)
@@ -131,6 +166,7 @@ def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
             # "euler" (default) or "doubling" (pointer doubling on the
             # rounded successor map: log2(n_iter) gathers)
             integrator=str(p.get("integrator", "euler")),
+            zero_channels=zero_channels,
             device=dev,
         )
 
@@ -144,10 +180,14 @@ def _flows_serving(job: Job, config: ServerConfiguration, spatial, n_channels, d
     snap = int(p.get("snap_radius", 3))
 
     def group(final_np: np.ndarray, prob_np: np.ndarray) -> np.ndarray:
-        return flows_ops.group_sinks(
-            final_np, prob_np > thresh,
-            min_sink=min_sink, min_area=min_area, snap_radius=snap,
+        mask = prob_np > thresh
+        labels = flows_ops.group_sinks(
+            final_np, mask, min_sink=min_sink, min_area=min_area, snap_radius=snap,
         )
+        # the pixels whose final positions are read: the integrator's work
+        tracing.count("flows.foreground", int(np.count_nonzero(mask)))
+        tracing.count("flows.instances", int(labels.max()))
+        return labels
 
     return segment, group
 
@@ -227,14 +267,16 @@ def _serve_frames(job: Job, source, device, segment, to_labels, group_phase: str
                         a_np, b_np = (np.asarray(o) for o in out)
                     handle(t, a_np, b_np)
             rep.finish()
+        # the writers' drain of their last deflates is the job's write
+        with timer.phase("write"):
+            labels_w.close()
+            if prob_w is not None:
+                prob_w.close()
     except BaseException:
         labels_w.abort()
         if prob_w is not None:
             prob_w.abort()
         raise
-    labels_w.close()
-    if prob_w is not None:
-        prob_w.close()
 
     total_s = time.time() - t0
     metrics = dict(
@@ -277,8 +319,10 @@ def segment_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
 
     Every foreground pixel follows the predicted flow to its cell's sink on
     the device; sinks group into instances on the host, so touching cells
-    come out as separate labels. input: one TIFF per channel. params: model,
-    the tiling params (patch, overlap, normalize, p_lo/p_hi, polyphase),
+    come out as separate labels. input: one TIFF per channel. params: model
+    (a ``flows`` U-Net or a ``cpnet`` CPnet), ``channels`` (``[0, 0]``: one
+    stack into a 2-channel model, Cellpose's grayscale mode), the tiling
+    params (patch, overlap, normalize, p_lo/p_hi, polyphase),
     frame range / roi, ``n_iter`` / ``step_size`` / ``integrator``
     (``euler`` or ``doubling``), ``cellprob_threshold``, ``min_sink`` /
     ``min_area`` / ``snap_radius`` (sink grouping), ``save_prob``,
@@ -295,7 +339,7 @@ def segment_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     """
     device = resolve_device(config.device)
     paths = _resolve_inputs(job)
-    cfg_probe, _ = _require_model(job, config, "flows")
+    _, cfg_probe, _ = _require_flows_model(job, config)
     if cfg_probe.dims == 3:
         return _segment_flows_volumes(job, config, paths, device)
     source = _frame_source(job)
@@ -540,7 +584,7 @@ def _need_truth(job: Job, paths) -> None:
 
 @register("evaluate_flows")
 def evaluate_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
-    """Score a ``flows`` model against ground-truth INSTANCE labels.
+    """Score a ``flows`` or ``cpnet`` model against ground-truth INSTANCE labels.
 
     input: [image.tif, ..., instances.tif] (the LAST path is the ground
     truth). Serves the model exactly as ``segment_flows`` would, then
@@ -560,7 +604,7 @@ def evaluate_flows(job: Job, config: ServerConfiguration) -> Dict[str, str]:
     device = resolve_device(config.device)
     paths = _resolve_inputs(job)
     _need_truth(job, paths)
-    cfg_probe, _ = _require_model(job, config, "flows")
+    _, cfg_probe, _ = _require_flows_model(job, config)
     if cfg_probe.dims == 3:
         return _evaluate_flows_volumes(job, config, paths, device)
     return _evaluate_frames(job, config, paths, device, _flows_serving)

@@ -449,7 +449,8 @@ def save_model(models_dir: str, name: str, kind: str, cfg, model) -> str:
 
 def read_model(models_dir: str, name: str):
     """``(kind, cfg, flat)`` of a model saved by ``save_model``: its stored
-    configuration (a ``GANConfig`` for kind ``gan``, else a ``UNetConfig``)
+    configuration (a ``GANConfig`` for kind ``gan``, a ``CPnetConfig`` for
+    ``cpnet``, else a ``UNetConfig``)
     and its weights in the flat interchange layout, unfolded."""
     from sequitr_tpu_torch.models import fixtures
 
@@ -477,15 +478,16 @@ def load_model(models_dir: str, name: str, device=None):
 
     ``cfg`` is the stored configuration (``read_model``); ``model`` has its
     batch norm folded into the convs (once, here, in f32:
-    ``unet.fold_batchnorm``, ``gan.fold_generator``) and lives on
-    ``device``.
+    ``unet.fold_batchnorm``, ``gan.fold_generator``; a CPnet's
+    ``cpnet.fold``, which keeps the batch norms before a ReLU as affines)
+    and lives on ``device``.
     """
     from sequitr_tpu_torch.models import convert as convert_lib
-    from sequitr_tpu_torch.models import gan, unet
+    from sequitr_tpu_torch.models import cpnet, gan, unet
 
     kind, cfg, flat = read_model(models_dir, name)
     model = convert_lib.load_flat(cfg, flat, device=device)
-    fold = gan.fold_generator if kind == "gan" else unet.fold_batchnorm
+    fold = {"gan": gan.fold_generator, "cpnet": cpnet.fold}.get(kind, unet.fold_batchnorm)
     return kind, cfg, fold(model)
 
 

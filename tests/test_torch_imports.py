@@ -32,6 +32,7 @@ MODULES = [
     "sequitr_tpu_torch.data.prefetch",
     "sequitr_tpu_torch.models",
     "sequitr_tpu_torch.models.unet",
+    "sequitr_tpu_torch.models.cpnet",
     "sequitr_tpu_torch.models.convert",
     "sequitr_tpu_torch.models.fixtures",
     "sequitr_tpu_torch.models.gan",
