@@ -48,9 +48,12 @@ on failure:
    99.9% of foreground pixels, instances at ap50 1.0); the doubling
    integrator's indices card against CPU; fidelity (``fidelity.py``'s flows
    and stars meters): the bf16 kernel-normalize path against the f32 exact
-   path on 2 frames, ap50_vs_ref >= 0.99; then the forward, the Euler and
-   doubling integrators (device ms, device ops, wall ms) and the host
-   grouping and NMS timed at 1024x1024;
+   path on 2 frames, ap50_vs_ref >= 0.99; the Euler kernel ``torch.equal``
+   to the eager loop on the card (one launch a call) on the 1024x1024 field
+   and at job (m)'s 32x256x256 volume shape; then the forward, the Euler
+   kernel and its eager loop, the doubling integrator (device ms, device
+   ops, wall ms) and the host grouping and NMS timed at 1024x1024, the
+   kernel beside its bound (the ``follow_flows`` entry of the kernels line);
 11. serve phase: jobs served by ``ImageServer`` on the card one at a time,
    every kernel's launch count reset just before each job and read just
    after: (a)-(c) ``segmentation_unet2d`` over a 4-frame 1024x1024 uint16
@@ -73,9 +76,11 @@ on failure:
    ap50_vs_ref >= 0.99), and ``segment_flows`` on a 2-timepoint
    32x256x256 volume file (``z: 32``) with a ``unet.init`` model of
    ``unet3d_cells``' architecture and a flows head (held to its pass called
-   directly; its f32 positions card against CPU on a crop). The fidelity
-   numbers (mIoU, ap50, PSNR) are ``sequitr_tpu_torch/fidelity.py``'s
-   measures, and the instances phase calls its flows and stars meters;
+   directly; its f32 positions card against CPU on a crop); (j) and (m)
+   launch the Euler kernel once a frame or volume, every other job never.
+   The fidelity numbers (mIoU, ap50, PSNR) are
+   ``sequitr_tpu_torch/fidelity.py``'s measures, and the instances phase
+   calls its flows and stars meters;
 12. evaluate phase: the evaluation and parity jobs through ``ImageServer``,
    each beside its serving twin (served again in this phase) and with its
    own launch counts: (n) ``evaluate_unet2d`` on job (a)'s stack with its
@@ -391,6 +396,33 @@ def _device_ops(torch, fn, reps=10):
     """Device operations and device ms per call of ``fn``, and their names."""
     ops = _device_events(torch, fn, reps)
     return len(ops) / reps, _ms(ops, reps), sorted({e.name[:60] for e in ops})
+
+
+EULER_LAUNCHES = {}  # {job: Euler kernel launches}: every served job's, for the kernels line
+
+
+def _euler():
+    """The Euler kernel's wrapper; its ``launches`` are reset before each
+    served job and read after it, as the histogram's and the convs' are."""
+    from sequitr_tpu_torch.ops.kernels import flows as flow_kernels
+
+    return flow_kernels.euler
+
+
+def _euler_want(module, params, units):
+    """The Euler launches a job must make: one a frame or volume for a
+    flows job on the Euler integrator, none for any other."""
+    euler = module in ("segment_flows", "evaluate_flows") and params.get("integrator", "euler") == "euler"
+    return units if euler else 0
+
+
+def _euler_read(job, want=None):
+    """Job ``job``'s Euler launches since the reset, kept in
+    ``EULER_LAUNCHES`` and held to ``want`` where it is given."""
+    n = EULER_LAUNCHES[job] = _euler().launches
+    if want is not None and n != want:
+        raise AssertionError(f"job {job}: the Euler kernel launched {n} times, expected {want}")
+    return n
 
 
 def kernel_phase(torch, hist):
@@ -1185,15 +1217,19 @@ def profile_phase(torch, fixtures, unet):
 
 def instances_phase(torch, smi_line):
     """The instance families on the card (TF32 off): f32 against the CPU,
+    the Euler kernel against the eager loop on the card (bit for bit),
     fidelity of the bf16 device path (fidelity.py's flows and stars meters),
     then where the time goes at 1024x1024 under torch.profiler: the forward,
-    the Euler integrator, the doubling integrator and the host grouping."""
+    the Euler kernel and its eager loop, the doubling integrator and the
+    host grouping. Returns the ``follow_flows`` entry of the kernels line
+    (its launches are filled from the served jobs)."""
     import numpy as np
 
     from sequitr_tpu_torch import fidelity
     from sequitr_tpu_torch.data import synthetic
     from sequitr_tpu_torch.models import fixtures, unet
     from sequitr_tpu_torch.ops import flows, stardist
+    from sequitr_tpu_torch.ops.kernels import flows as flow_kernels
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1237,6 +1273,33 @@ def instances_phase(torch, smi_line):
     print(f"instances follow_flows_doubling 1024x1024 (200 -> 256 steps): card equal to CPU {np.array_equal(d_card, d_cpu)}")
     if not np.array_equal(d_card, d_cpu):
         raise AssertionError("follow_flows_doubling: card and CPU indices differ")
+    # the Euler kernel against the eager loop on the card, one launch a call:
+    # this 1024x1024 field, then job (m)'s volume shape with a random field
+    # under a random mask and under the cells' foreground
+    dev_field = torch.from_numpy(field).cuda()
+    dev_mask = torch.from_numpy(mask).cuda()
+    rng = np.random.default_rng(8)
+    vol_field = rng.normal(size=INST_VOLUME + (3,)).astype(np.float32)
+    vol_cells = synthetic.cells_volume(31_700, INST_VOLUME)[1] > 0
+    cases = [
+        ("1024x1024", dev_field, dev_mask),
+        (f"{INST_VOLUME} random mask", vol_field, rng.random(INST_VOLUME) < 0.4),
+        (f"{INST_VOLUME} the cells' foreground", vol_field, vol_cells),
+    ]
+    for label, f, m in cases:
+        f, m = torch.as_tensor(f, device="cuda"), torch.as_tensor(m, device="cuda")
+        before = flow_kernels.euler.launches
+        kernel_pos = flows.follow_flows(f, m, n_iter=200)
+        eager_pos = flows.follow_flows_reference(f, m, n_iter=200)
+        torch.cuda.synchronize()
+        same = torch.equal(kernel_pos, eager_pos)
+        launched = flow_kernels.euler.launches - before
+        print(
+            f"instances follow_flows {label} 200 steps ({float(m.float().mean()):.4%} foreground): Euler "
+            f"kernel equal to the eager loop on the card {same}, {launched} launch"
+        )
+        if not same or launched != 1:
+            raise AssertionError(f"follow_flows {label}: the Euler kernel and the eager loop differ on the card")
 
     # (2) fidelity.py's flows and stars meters: the bf16 device path with the
     # kernel normalize against the f32 exact-normalize path on the card, and
@@ -1258,8 +1321,6 @@ def instances_phase(torch, smi_line):
     _, cfg, model, _ = fixtures.load("flows_cells", device="cuda")
     model = unet.fold_batchnorm(model)
     x = torch.rand((1, 1024, 1024, 1), device="cuda")
-    dev_field = torch.from_numpy(field).cuda()
-    dev_mask = torch.from_numpy(mask).cuda()
 
     # no host sync: the integrators alone must not make one (an error), and
     # the serving pass of a frame already on the card is watched for any
@@ -1315,8 +1376,12 @@ def instances_phase(torch, smi_line):
     times = {
         "forward": timed("flows_cells bf16 forward 1x1024x1024", lambda: model(x), 5),
         "euler": timed(
-            "follow_flows euler 200 steps 1024x1024",
-            lambda: flows.follow_flows(dev_field, dev_mask, n_iter=200), 2,
+            "follow_flows euler 200 steps 1024x1024 (the kernel)",
+            lambda: flows.follow_flows(dev_field, dev_mask, n_iter=200), 20,
+        ),
+        "euler_plain": timed(
+            "follow_flows_reference euler 200 steps 1024x1024 (the eager loop)",
+            lambda: flows.follow_flows_reference(dev_field, dev_mask, n_iter=200), 2,
         ),
         "doubling": timed(
             "follow_flows_doubling 200 (256) steps 1024x1024",
@@ -1338,11 +1403,36 @@ def instances_phase(torch, smi_line):
         f"instances_from_rays {host['instances_from_rays']:.4f} ms (host CPU of the card's machine)"
     )
     euler, fwd = times["euler"], times["forward"]
+    # the bound euler_roofline takes: 32 FLOP a foreground pixel-step at the
+    # f32 peak, or 1 B a pixel and 16 B a foreground pixel at 3.35 TB/s
+    fg = float(mask.sum())
+    t_ops = 1e3 * 32 * 200 * fg / 66.9e12
+    t_bytes = 1e3 * (mask.size + 16 * fg) / H100_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes)
+    print(
+        f"instances Euler kernel: {euler[1]:.4f} device ms a frame against its bound {bound_ms:.6f} ms "
+        f"({100 * bound_ms / euler[1]:.4f}% of it), {euler[2]:.0f} launch a frame; the eager loop "
+        f"{times['euler_plain'][1]:.4f} device ms, {times['euler_plain'][2]:.0f} launches a frame"
+    )
     print(
         f"instances: Euler integration {euler[1]:.4f} device ms / {euler[0]:.4f} ms wall against the "
         f"forward's {fwd[1]:.4f} device ms / {fwd[0]:.4f} ms wall ({euler[0] / fwd[0]:.2f}x by wall)"
     )
-    return meters
+    return {
+        "name": "follow_flows",
+        "route": "cuda",
+        "source": "sequitr_tpu_torch/csrc/flows.cu",
+        "replaces": "none: the JAX package's lax.scan (sequitr_tpu/ops/flows.py::follow_flows)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": euler[0],
+        "kernel_ms": euler[1],
+        "plain_ms": times["euler_plain"][1],
+        "plain_launches": times["euler_plain"][2],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shape": f"1024x1024, 200 steps, {fg / mask.size:.4%} foreground",
+    }
 
 
 def serve_phase(torch, hist, conv, smi_line):
@@ -1448,11 +1538,13 @@ def serve_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
             torch.cuda.synchronize()
             counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
             conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
+            euler_launches = _euler_read(name, _euler_want(module, params, units[name]))
             peaks[name] = torch.cuda.max_memory_allocated() / 1e9
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
@@ -1471,7 +1563,8 @@ def serve_phase(torch, hist, conv, smi_line):
             print(
                 f"serve job {name} histogram_2d launches {counts[name][0]} in {counts[name][1]} quantile "
                 f"passes (each min/max + counts) for {units[name]} served frames or volumes (expected "
-                f"{want_passes} passes); conv3x3 study kernels launched {conv_launches} times"
+                f"{want_passes} passes); conv3x3 study kernels launched {conv_launches} times; the Euler "
+                f"kernel {euler_launches} times"
             )
             if conv_launches:
                 raise AssertionError(f"job {name}: served path launched a study kernel")
@@ -1834,6 +1927,7 @@ def evaluate_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
@@ -1842,6 +1936,7 @@ def evaluate_phase(torch, hist, conv, smi_line):
             counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
             if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
                 raise AssertionError(f"job {name}: launched a conv study kernel")
+            _euler_read(f"eval_{name}", _euler_want(module, params, units) if expect_fail is None else None)
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
             if expect_fail is not None:
@@ -2124,6 +2219,7 @@ def train_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
@@ -2132,6 +2228,7 @@ def train_phase(torch, hist, conv, smi_line):
             counts = (hist.histogram_2d.launches, hist.quantile_pass.launches)
             if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
                 raise AssertionError(f"job {name}: launched a conv study kernel")
+            _euler_read(name, 0)
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
             if status["state"] != "complete":
@@ -2663,6 +2760,7 @@ def gan_train_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
@@ -2671,6 +2769,7 @@ def gan_train_phase(torch, hist, conv, smi_line):
             counts[name] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
             if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
                 raise AssertionError(f"job {name}: launched a conv study kernel")
+            _euler_read(name, 0)
             with open(os.path.join(tmp, f"out_{name}", "status.json")) as f:
                 status = json.load(f)
             if status["state"] != "complete":
@@ -3014,6 +3113,7 @@ def family_train_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not server.poll_once():
                 raise AssertionError(f"job {name}: no job to run")
@@ -3028,6 +3128,7 @@ def family_train_phase(torch, hist, conv, smi_line):
                 raise AssertionError(f"job {name}: launched a conv study kernel")
             if counts[name] != (passes, passes):
                 raise AssertionError(f"job {name}: {counts[name]} launches/passes, expected {passes}")
+            _euler_read(name, _euler_want(module, params, passes))
             outputs[name] = status["outputs"]
             extra = ""
             if "metrics_file" in status["outputs"]:
@@ -3224,6 +3325,7 @@ def geometry_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not servers[dev].poll_once():
                 raise AssertionError(f"geometry job {name}: no job to run")
@@ -3238,6 +3340,7 @@ def geometry_phase(torch, hist, conv, smi_line):
             if dev == "cuda" and count:
                 if any(launched):
                     raise AssertionError(f"geometry job {name} launched a kernel of the four: {launched}")
+                _euler_read(f"geom_{name}", 0)
                 counts[f"geom_{name}"] = launched[:2]
             metrics = json.loads(status["outputs"]["metrics"])
             shown = {k: v for k, v in metrics.items() if k != "chromatic_offsets_px"}
@@ -3554,6 +3657,7 @@ def optics_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not servers[dev].poll_once():
                 raise AssertionError(f"optics job {name}: no job to run")
@@ -3568,6 +3672,7 @@ def optics_phase(torch, hist, conv, smi_line):
             if dev == "cuda":
                 if any(launched):
                     raise AssertionError(f"optics job {name} launched a kernel of the four: {launched}")
+                _euler_read(f"optics_{name}", 0)
                 counts[f"optics_{name}"] = launched[:2]
             metrics = json.loads(status["outputs"].get("metrics", "{}"))
             shown = {k: v for k, v in status["outputs"].items() if k.startswith("n_")}
@@ -3901,6 +4006,7 @@ def quantify_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             t0 = time.perf_counter()
             if not servers[dev].poll_once():
                 raise AssertionError(f"quantify job {name}: no job to run")
@@ -3916,6 +4022,7 @@ def quantify_phase(torch, hist, conv, smi_line):
                 counts[f"quant_{name}"] = launched[:2]
                 if module != "segmentation_unet2d" and any(launched):
                     raise AssertionError(f"quantify job {name} launched a kernel of the four: {launched}")
+                _euler_read(f"quant_{name}", 0)
             metrics = json.loads(status["outputs"].get("metrics", "{}"))
             print(f"quantify job {name} ({dev}) {module} {json.dumps(params)[:120]}: wall {wall:.4f} s, "
                   f"metrics {json.dumps(metrics)[:400]} on {smi_line}")
@@ -4385,10 +4492,12 @@ def ops_phase(torch, hist, conv, smi_line):
             torch.cuda.synchronize()
             hist.histogram_2d.launches = 0
             hist.quantile_pass.launches = 0
+            _euler().launches = 0
             if not ref.poll_once():
                 raise AssertionError("ops: the in-process job did not run")
             torch.cuda.synchronize()
             counts["ops_inprocess"] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            _euler_read("ops_inprocess", 0)
             if counts["ops_inprocess"] != (OPS_FRAMES, OPS_FRAMES):
                 raise AssertionError(f"ops: in-process job ran {counts['ops_inprocess']} (launches, passes)")
             res, follow_s = run_cli("submit", "--jobs-dir", jobs, "--follow", wf, timeout=300)
@@ -4695,6 +4804,7 @@ def parallel_phase(torch, hist, conv, smi_line):
             hist.quantile_pass.launches = 0
             conv.conv3x3_nhwc.launches = 0
             conv.conv3x3_flat_chw.launches = 0
+            _euler().launches = 0
             halo.update(rows=0, bytes=0)
             pool = parallel.virtual_devices(ways) if ways > 1 else contextlib.nullcontext()
             prof = torch.profiler.profile(activities=acts) if profile else contextlib.nullcontext()
@@ -4714,6 +4824,7 @@ def parallel_phase(torch, hist, conv, smi_line):
             if conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches:
                 raise AssertionError(f"parallel job {name} launched a conv study kernel")
             counts[f"par_{name}"] = (hist.histogram_2d.launches, hist.quantile_pass.launches)
+            _euler_read(f"par_{name}")
             with open(os.path.join(out, "status.json")) as f:
                 status = json.load(f)
             if status["state"] != "complete":
@@ -4893,6 +5004,11 @@ def parallel_phase(torch, hist, conv, smi_line):
                                               profile=True)
             if counts[f"par_{name}_4way"] != (passes, passes):
                 raise AssertionError(f"({name}): histogram {counts[f'par_{name}_4way']}, expected {passes} passes")
+            euler_want = _euler_want(module, params, passes)
+            for way in ("1way", "4way"):
+                if EULER_LAUNCHES[f"par_{name}_{way}"] != euler_want:
+                    raise AssertionError(f"({name}) {way}: the Euler kernel launched "
+                                         f"{EULER_LAUNCHES[f'par_{name}_{way}']} times, expected {euler_want}")
             gaps = []
             for key, path in one.items():
                 if not isinstance(path, str) or not os.path.isfile(path):
@@ -5433,11 +5549,13 @@ def fixtures_phase(torch, hist, conv, smi_line):
         hist.quantile_pass.launches = 0
         conv.conv3x3_nhwc.launches = 0
         conv.conv3x3_flat_chw.launches = 0
+        _euler().launches = 0
         if not server.poll_once():
             raise AssertionError("fixtures: no job to run")
         torch.cuda.synchronize()
         counts = (hist.histogram_2d.launches, hist.quantile_pass.launches)
         conv_launches = conv.conv3x3_nhwc.launches + conv.conv3x3_flat_chw.launches
+        _euler_read("fixtures_serve", 0)
         with open(os.path.join(tmp, "out", "status.json")) as f:
             status = json.load(f)
         if status["state"] != "complete":
@@ -5505,7 +5623,7 @@ def main(argv=None) -> int:
     # one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("histogram", "conv3x3", "qconv")
+    names = ("histogram", "conv3x3", "qconv", "flows")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         logs = list(pool.map(lambda name: build.build(name, force=True), names))
@@ -5558,7 +5676,7 @@ def main(argv=None) -> int:
     timed("volume", volume_phase, fixtures, unet)
     timed("enhance", enhance_phase, fixtures, unet)
     timed("profile", profile_phase, fixtures, unet)
-    timed("instances", instances_phase, smi_line)
+    euler_entry = timed("instances", instances_phase, smi_line)
     counts = timed("serve", serve_phase, hist, conv, smi_line)
     evaluated = timed("evaluate", evaluate_phase, hist, conv, smi_line)
     counts.update({f"eval_{k}": v for k, v in evaluated.items()})
@@ -5579,6 +5697,8 @@ def main(argv=None) -> int:
         raise AssertionError("histogram_2d was not launched on the main path")
     for e in conv_entries:
         e["launches"] = studies_launches[e["name"]]
+    euler_entry["launches"] = EULER_LAUNCHES["j"]
+    euler_entry["launches_by_job"] = dict(EULER_LAUNCHES)
     print(
         "kernels: histogram_2d launches are those of served job a (launches_by_job: every "
         "served job's, each counted on its own; job h normalizes with 'none' and runs no "
@@ -5612,10 +5732,16 @@ def main(argv=None) -> int:
         "called, kernel_ms the same from a CUDA graph, library_ms im2col + torch._int_mm there; no served or "
         "training job launches it; ptq_path is the histogram's passes on that PTQ path (one a normalized frame: 4 "
         "calibration frames and the forward's); fixtures_serve is the fixtures phase's segmentation_unet2d of the "
-        "quick-trained unet2d_cells on one 1024x1024 frame (one pass, as job a's frames)"
+        "quick-trained unet2d_cells on one 1024x1024 frame (one pass, as job a's frames); follow_flows's "
+        "launches are those of served job j (the Euler segment_flows, 4 frames), launches_by_job every served "
+        "job's Euler kernel launches, counted on its own as the histogram's are: one a frame or volume for "
+        "segment_flows and evaluate_flows on the Euler integrator (j, m, eval_j, eval_r, eval_m, eval_r_3d, "
+        "segment_flows_t, evaluate_flows_t, segment_flows_3d_t, par_e_flows_1way and _4way), none for any other "
+        "job; its ms and kernel_ms (as called, and the kernel's own device time) and plain_ms (the eager loop's "
+        "device time) at 1024x1024, 200 steps, on the instances phase's field"
     )
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
-    print(json.dumps({"kernels": [entry] + conv_entries + [qconv_entry]}))
+    print(json.dumps({"kernels": [entry] + conv_entries + [qconv_entry, euler_entry]}))
     print(json.dumps({
         "ok": True,
         "device": {

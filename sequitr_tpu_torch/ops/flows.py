@@ -15,14 +15,18 @@
   (``follow_flows_doubling``), and a host pass groups the converged
   positions into instances (``group_sinks``, copied).
 
-The integrators are torch on the field's device (the card unless the caller
-passes a CPU tensor or ``device="cpu"``). Positions stay on the device
-across every step: no host sync, no branch on device values. They repeat the
-JAX package's operations in its order: the same clamps, the bilinear
+The integrators run on the field's device (the card unless the caller
+passes a CPU tensor or ``device="cpu"``), with no host sync. On the card the
+Euler integrator is one launch of a hand-written kernel
+(``ops/kernels/flows.py``, ``csrc/flows.cu``) that steps the foreground
+alone, each position in registers; on the CPU it is the plain version,
+``follow_flows_reference``: torch steps over every pixel that repeat the JAX
+package's operations in its order (the same clamps, the bilinear
 (trilinear) weights formed as products in corner order and summed in corner
-order, and the corner neighbourhood of every pixel packed once into one
-``2^nd * nd``-wide row, so a step is one flat gather plus the combine.
-Dimension-generic: (H, W, 2) frames and (Z, H, W, 3) volumes.
+order), with the corner neighbourhood of every pixel packed once into one
+``2^nd * nd``-wide row, so a step is one flat gather plus the combine. The
+two give bit-equal positions for every finite field. Dimension-generic:
+(H, W, 2) frames and (Z, H, W, 3) volumes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from sequitr_tpu_torch import localize as loc_lib
+from sequitr_tpu_torch.ops.kernels import flows as flow_kernels
 from sequitr_tpu_torch.utils import resolve_device
 
 __all__ = [
@@ -41,6 +46,7 @@ __all__ = [
     "flow_targets",
     "follow_flows",
     "follow_flows_doubling",
+    "follow_flows_reference",
     "group_sinks",
     "masks_from_flows",
     "match_instances",
@@ -200,24 +206,31 @@ def _off_index(offs: np.ndarray, off: Sequence[int]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _field(flow, mask, device) -> Tuple[torch.Tensor, Tuple[int, ...], int]:
+def _inputs(flow, mask, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``flow`` as f32 on its device (a tensor) or on ``device`` (numpy),
-    masked, with its spatial shape and component count checked."""
+    its rank checked, and ``mask`` (if any) as a tensor on the same device."""
     if isinstance(flow, torch.Tensor):
         flow = flow.to(torch.float32)
     else:
         flow = torch.as_tensor(np.asarray(flow, np.float32), device=resolve_device(device))
     nd = flow.shape[-1]
-    spatial = tuple(flow.shape[:-1])
-    if len(spatial) != nd:
+    if flow.ndim - 1 != nd:
         raise ValueError(
             f"flow rank mismatch: {tuple(flow.shape)} carries {nd} components "
-            f"over {len(spatial)} spatial axes"
+            f"over {flow.ndim - 1} spatial axes"
         )
     if mask is not None:
-        mask = torch.as_tensor(mask, device=flow.device).to(torch.float32)
-        flow = flow * mask[..., None]
-    return flow, spatial, nd
+        mask = torch.as_tensor(mask, device=flow.device)
+    return flow, mask
+
+
+def _field(flow, mask, device) -> Tuple[torch.Tensor, Tuple[int, ...], int]:
+    """``_inputs``'s field, masked, with its spatial shape and component
+    count."""
+    flow, mask = _inputs(flow, mask, device)
+    if mask is not None:
+        flow = flow * mask.to(torch.float32)[..., None]
+    return flow, tuple(flow.shape[:-1]), flow.shape[-1]
 
 
 def _grid(spatial: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -284,7 +297,7 @@ def _sample_packed(
         flat_idx = flat_idx * spatial[ax] + base[ax]
     # one element gather of the rows' words: index_select (and indexing, and
     # torch.gather) serve narrow rows with a kernel built for wide ones, 6x
-    # slower here (studies/flow_gather.py)
+    # slower on an H100
     words = flat_idx[:, None] * packed.shape[1] + cols
     g = torch.take(packed, words).reshape(p.shape[0], 2**nd, c)
     gw = g * _corner_weights(frac)
@@ -309,10 +322,33 @@ def follow_flows(
     (*spatial) bool; background pixels see zero flow and stay put. Returns
     (*spatial, nd) f32 final positions on the field's device.
 
-    ``n_iter`` Euler steps ``p = clip(p + step * sample(p), 0, n - 1)``, each
-    one flat gather of the corner rows packed once up front; the positions
-    never leave the device.
+    ``n_iter`` Euler steps ``p = clip(p + step * sample(p), 0, n - 1)``. A
+    CUDA field launches the Euler kernel once (``flow_kernels.euler``, which
+    counts its launches) or raises; a CPU field runs
+    ``follow_flows_reference``. The positions never leave the device.
     """
+    flow, mask = _inputs(flow, mask, device)
+    if flow.device.type == "cpu":
+        return follow_flows_reference(flow, mask, n_iter=n_iter, step=step)
+    flow = flow.contiguous()
+    if flow.data_ptr() % 8:  # a view that starts mid-pair: the kernel loads pairs
+        flow = flow.clone()
+    if mask is not None:
+        mask = mask.to(torch.bool).contiguous()
+    return flow_kernels.euler(flow, mask, int(n_iter), float(step))
+
+
+def follow_flows_reference(
+    flow,
+    mask=None,
+    n_iter: int = 200,
+    step: float = 1.0,
+    device: Union[str, torch.device, None] = None,
+) -> torch.Tensor:
+    """The plain version of ``follow_flows``, on any device: every pixel
+    takes ``n_iter`` eager steps, each one flat gather of the corner rows
+    packed once up front plus the combine, about 28 launches a step on the
+    card."""
     flow, spatial, nd = _field(flow, mask, device)
     p, lim = _grid(spatial, flow.device)
     packed = _pack_corners(flow)

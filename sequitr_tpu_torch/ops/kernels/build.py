@@ -29,13 +29,14 @@ _COMMON_TAIL = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # nvcc flags per kernel. The histogram forbids fused multiply-add: its bucket
 # must round the subtract and the multiply separately, as the plain version
-# does; so does the int8 conv's dequantizing epilogue. The 3x3 convolution's
-# accumulation is made of fused multiply-adds.
+# does; so do the int8 conv's dequantizing epilogue and the Euler steps. The
+# 3x3 convolution's accumulation is made of fused multiply-adds.
 NVCC_FLAGS = {
     "histogram": _COMMON_HEAD + ("-fmad=false",) + _COMMON_TAIL,
     "conv3x3": _COMMON_HEAD + _COMMON_TAIL,
     "mma_rate": _COMMON_HEAD + _COMMON_TAIL,
     "qconv": _COMMON_HEAD + ("-fmad=false",) + _COMMON_TAIL,
+    "flows": _COMMON_HEAD + ("-fmad=false",) + _COMMON_TAIL,
 }
 
 

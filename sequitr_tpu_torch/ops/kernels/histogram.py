@@ -17,7 +17,6 @@ PyTorch versions (``quantile_pass_reference``, ``histogram_2d_reference``).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Dict, Sequence, Tuple
@@ -25,6 +24,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from sequitr_tpu_torch.ops.kernels import build as build_lib
+from sequitr_tpu_torch.ops.kernels import on_device
 
 __all__ = [
     "histogram_2d",
@@ -120,13 +120,6 @@ def _f32(qs: tuple) -> tuple:
     return tuple(torch.tensor(qs, dtype=torch.float32).tolist())
 
 
-def _on(device: torch.device):
-    """The launch's device made current, where it is not already."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def scale_of(lo: torch.Tensor, hi: torch.Tensor, bins: int) -> torch.Tensor:
     """``(bins - 1) / max(hi - lo, 1e-20)`` as one correctly rounded f32
     division, as jnp divides: a Python number over a tensor would multiply
@@ -168,7 +161,7 @@ def histogram_2d(
     out = torch.empty((slices, bins), dtype=torch.int32, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with _on(x.device):
+    with on_device(x.device):
         rc = lib.seq_histogram_f32(
             x.data_ptr(), n, slices, lo.data_ptr(), scale.data_ptr(), bins,
             out.data_ptr(), _scratch(x.device, stream, slices, bins).data_ptr(), 0, stream,
@@ -246,7 +239,7 @@ def quantile_pass(
     quantiles = torch.empty((slices, len(q32)), dtype=torch.float32, device=dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with _on(dev):
+    with on_device(dev):
         rc = lib.seq_quantile_pass(
             x.data_ptr(), n, slices, bins, (ctypes.c_float * len(q32))(*q32), len(q32),
             counts.data_ptr(), lo_scale[0].data_ptr(), lo_scale[1].data_ptr(),

@@ -644,7 +644,8 @@ def make_flows_segmenter(
     Spans: ``flows.forward`` (normalize, tiled forward, stitch, the flow
     and probability maps) and ``flows.integrate`` (the integrator);
     counters ``flows.tiles`` (tiles forwarded) and ``flows.euler_steps``
-    (Euler steps run), both a frame.
+    (Euler steps run), both a frame; on the card the Euler kernel's wrapper
+    adds ``flows.euler_kernel``, 1 a launch.
     """
     is_cpnet = isinstance(cfg, cpnet_lib.CPnetConfig)
     if cfg.num_classes != cfg.dims + 1:

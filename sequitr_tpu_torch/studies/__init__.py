@@ -11,9 +11,6 @@
   quantile pass, ``torch.histc``, ``infer._normalize``'s device operations),
   for this checkout's port or another's:
   ``python sequitr_tpu_torch/studies/normalize_pass.py [--root DIR]``.
-* ``flow_gather`` — the flow integrator's row gather in each form PyTorch
-  offers, timed against its byte bound on the card:
-  ``python -m sequitr_tpu_torch.studies.flow_gather``.
 * ``ptq_unet`` — post-training int8 quantization of the U-Net (calibrate,
   quantize, the int8 forward) on the int8 conv kernel of ``csrc/qconv.cu``.
 * ``int8_conv`` — int8 against bf16 convs at the U-Net's conv shapes, with

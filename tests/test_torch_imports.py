@@ -58,6 +58,7 @@ MODULES = [
     "sequitr_tpu_torch.ops.kernels.histogram",
     "sequitr_tpu_torch.ops.kernels.conv3x3",
     "sequitr_tpu_torch.ops.kernels.qconv",
+    "sequitr_tpu_torch.ops.kernels.flows",
     "sequitr_tpu_torch.pipeline",
     "sequitr_tpu_torch.pipeline.infer",
     "sequitr_tpu_torch.pipeline.optim",
@@ -87,7 +88,6 @@ MODULES = [
     "sequitr_tpu_torch.studies.polyphase_conv",
     "sequitr_tpu_torch.studies.conv3x3_parts",
     "sequitr_tpu_torch.studies.normalize_pass",
-    "sequitr_tpu_torch.studies.flow_gather",
     "sequitr_tpu_torch.studies.fixture_init",
     "sequitr_tpu_torch.studies.ptq_unet",
     "sequitr_tpu_torch.studies.int8_conv",
@@ -137,7 +137,7 @@ from sequitr_tpu_torch.config import ServerConfiguration
 from sequitr_tpu_torch.models import convert, gan, unet, zoo
 from sequitr_tpu_torch.ops import flows
 from sequitr_tpu_torch.pipeline import fit, infer, train
-from sequitr_tpu_torch.studies import flow_gather, int8_conv, polyphase_conv, roofline
+from sequitr_tpu_torch.studies import int8_conv, polyphase_conv, roofline
 from sequitr_tpu_torch.server import ImageServer
 from sequitr_tpu_torch.tools import make_fixtures
 
@@ -164,7 +164,6 @@ calls = [
     lambda: convert.pack_conv3x3(torch.zeros(3, 3, 1, 1).numpy(), torch.zeros(1).numpy()),
     lambda: polyphase_conv.run(size=16, iters=1),
     lambda: polyphase_conv.main(["--size", "16", "--iters", "1"]),
-    lambda: flow_gather.run(iters=1),
     lambda: roofline.run(size=16, iters=1),
     lambda: int8_conv.run(iters=1, shapes=[("a", (8, 8), 1, 8)]),
     lambda: ImageServer(ServerConfiguration(jobs_dir={jobs!r}, models_dir={models!r})),

@@ -1,5 +1,5 @@
 // Stand-in for <cuda_runtime.h> that lets g++ compile csrc/conv3x3.cu,
-// csrc/histogram.cu and csrc/qconv.cu for the CPU: one std::thread per CUDA thread of a block,
+// csrc/histogram.cu, csrc/qconv.cu and csrc/flows.cu for the CPU: one std::thread per CUDA thread of a block,
 // blocks one after another (launches too), a std::barrier for __syncthreads
 // and one per warp for __syncwarp, the shuffles and the warp-wide operations
 // of ptx_emulation.h; atomics as std::atomic_ref. It rehearses index
@@ -38,6 +38,9 @@ struct uint4 {
   uint32_t x, y, z, w;
 };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
